@@ -7,7 +7,12 @@ so the mapping is mechanical, leaf by leaf:
 - a Conv ``kernel`` HWIO becomes ``weight`` OIHW (the depthwise
   (7, 7, 1, C) becomes (C, 1, 7, 7));
 - a norm's ``scale`` and an embedding's ``embedding`` become ``weight``;
+- a quantized Dense (one that holds ``kernel_q`` or ``kernel_q4``) keeps
+  its leaves as they are: names (its ``scale`` stays ``scale``), shapes and
+  the int8 dtype of the packed weights;
 - every other leaf keeps its name and shape.
+
+Float leaves become fp32 and integer leaves keep their dtype.
 
 ``load_jax_params`` raises on any key left unused and on any parameter the
 tree does not provide.
@@ -33,13 +38,17 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
 
 def state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Flax parameter tree (numpy or jax arrays; an outer ``{"params": ...}``
-    is unwrapped) -> flat {port name: fp32 CPU tensor}."""
+    is unwrapped) -> flat {port name: CPU tensor}, fp32 for float leaves."""
     if set(params) == {"params"}:
         params = params["params"]
+    flat = _flatten(params)
     sd = {}
-    for name, value in _flatten(params).items():
-        arr = np.asarray(value, dtype=np.float32)
+    for name, value in flat.items():
+        arr = np.asarray(value)
+        if not np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32)
         head, _, leaf = name.rpartition(".")
+        quantized = f"{head}.kernel_q" in flat or f"{head}.kernel_q4" in flat
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
@@ -48,7 +57,7 @@ def state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Te
             else:
                 raise ValueError(f"{name}: unexpected kernel rank {arr.ndim}")
             leaf = "weight"
-        elif leaf in ("scale", "embedding"):
+        elif leaf == "embedding" or (leaf == "scale" and not quantized):
             leaf = "weight"
         key = f"{head}.{leaf}" if head else leaf
         sd[prefix + key] = torch.from_numpy(np.array(arr))  # a writable copy
@@ -58,9 +67,11 @@ def state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Te
 def load_state_dict_checked(module: nn.Module, sd: Mapping[str, torch.Tensor],
                             assign: bool = False) -> None:
     """``module.load_state_dict`` that names every unused and every missing
-    key and casts each tensor to its parameter's dtype. With ``assign`` the
-    (cast) tensors become the parameters, keeping their device: use it on a
-    module built on the ``meta`` device."""
+    key and casts each float tensor to its parameter's dtype; an integer
+    tensor (quantized weights) must match its buffer's dtype exactly, and
+    nothing is cast between integer and float. With ``assign`` the (cast)
+    tensors become the parameters and buffers, keeping their device: use it
+    on a module built on the ``meta`` device."""
     own = module.state_dict(keep_vars=True)
     unused = sorted(set(sd) - set(own))
     missing = sorted(set(own) - set(sd))
@@ -73,6 +84,8 @@ def load_state_dict_checked(module: nn.Module, sd: Mapping[str, torch.Tensor],
         p = own[k]
         if tuple(v.shape) != tuple(p.shape):
             raise ValueError(f"{k}: shape {tuple(v.shape)} != {tuple(p.shape)}")
+        if v.dtype != p.dtype and not (v.is_floating_point() and p.is_floating_point()):
+            raise TypeError(f"{k}: dtype {v.dtype} does not load into {p.dtype}")
         cast[k] = v.to(dtype=p.dtype)
     module.load_state_dict(cast, strict=True, assign=assign)
 

@@ -1,0 +1,625 @@
+// Weight-only int8 / int4 dequant-matmuls for Hopper (sm_90a), with a plain C
+// interface that cambrian_tpu_torch/ops/quant.py loads through ctypes.
+//
+// out[M, N] = x[M, K] @ dequant(w), in x's dtype (bf16 or fp32), with an fp32
+// accumulator. Three modes, one per TPU kernel of cambrian_tpu/ops/quant.py:
+//
+//   mode 0, K3  (replaces _q_matmul_kernel, reached from int8_matmul):
+//       w int8 [K, N], scale fp32 [N]. int8 widens exactly to fp32; the
+//       per-column scale multiplies the fp32 accumulator once, in the
+//       epilogue, before the cast to x's dtype.
+//   mode 1, K4  (replaces _q4_matmul_kernel_v3, reached from int4_matmul):
+//       w nibble-packed int4 [K/2, N] (byte r holds rows 2r and 2r+1 as its
+//       low and high nibble), scale fp32 [K/group, N]. The nibbles are
+//       sign-extended with integer shifts and converted exactly to fp32
+//       (every int4 value is exact in bf16 too, so this gives the values of
+//       the TPU kernel's "convert", "via_int8" and "magic" variants alike).
+//       Partial sums over rows of one scale group are kept in fp32 and
+//       added as acc += part * scale[g, n].
+//   mode 2, K4b / K4c (replaces _q4_matmul_kernel_v2 and _q4_matmul_kernel,
+//       selected by CAMBRIAN_INT4_V2=1 / CAMBRIAN_INT4_V1=1): the same
+//       function with the scale applied to the weights: the scale is rounded
+//       to x's dtype, q * scale is rounded to x's dtype, and one fp32
+//       accumulation runs over K. K4c's even/odd split of x only spared the
+//       TPU compiler a stride-2 lane slice; here the two nibbles of a byte
+//       are two registers, so K4c is this mode too.
+//
+// What bounds it on the card. At decode (M <= 8) the product is a GEMV: the
+// weight read is all the work (int8: K*N bytes, int4: K*N/2 bytes plus the
+// fp32 scales) and the memory rate bounds it. The GEMV kernel gives each
+// block a 32-column slab of N and loops over all of K inside the block:
+// 4 threads cover the slab along N with 8-byte loads (8 columns each), 64
+// such K slices split the rows, each keeping 8 or 16 row loads in flight,
+// and the slices are summed in registers (warp shuffles) and shared memory
+// at the end. No K split across blocks, so no second pass. At prefill
+// (M ~ 650) the product is compute-bound. With bf16 x it runs on the tensor
+// cores (mma.sync m16n8k16, fp32 sums): 128 x 128 output tiles, 32-row K
+// tiles of x and of the weights dequantized to bf16 in shared memory, the
+// next tile's global loads staged in registers during the current tile's
+// products. fp32 x takes a SIMT tiled product (64 x 64 tiles, 4 x 4 outputs
+// per thread) on the CUDA cores. wgmma with TMA-fed tiles is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kInt8 = 0;
+constexpr int kInt4 = 1;
+constexpr int kInt4ScaleOnWeights = 2;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// v rounded to T (nearest even), returned in fp32
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// signed byte c (0..3) of a little-endian 32-bit word
+__device__ __forceinline__ int byte_of(uint32_t word, int c) {
+  return (int)(int8_t)(uint8_t)(word >> (8 * c));
+}
+// the two int4 values of a packed byte b (sign-extended to int)
+__device__ __forceinline__ int low_nibble(int b) { return ((b & 0xF) ^ 8) - 8; }
+__device__ __forceinline__ int high_nibble(int b) { return b >> 4; }
+
+struct Args {
+  const void* x;       // [M, K], unit stride along K
+  int64_t ldx;         // row stride of x, in elements
+  const int8_t* w;     // int8 [K, N] (mode 0) or packed int4 [K/2, N], contiguous
+  const float* scale;  // [N] (mode 0) or [K/group, N], contiguous
+  void* out;           // [M, N] contiguous, x's dtype
+  int M, N, K, group;
+  int vec;             // 1: rows of w may be read as aligned 8-byte words
+  int xvec;            // 1: runs of 8 elements of x may be read as aligned 16-byte words
+};
+
+// NW 4-byte words of stored row r from column c on, zero past column N
+template <int NW>
+__device__ __forceinline__ void load_row(const Args& a, int r, int c, uint32_t (&words)[NW]) {
+  const int8_t* p = a.w + (int64_t)r * a.N + c;
+  if (a.vec && c + 4 * NW <= a.N) {
+    if constexpr (NW == 2) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      words[0] = v.x;
+      words[1] = v.y;
+    } else {
+      words[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (c + 4 * i + b < a.N) v |= (uint32_t)(uint8_t)p[4 * i + b] << (8 * b);
+      }
+      words[i] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMV: M <= 8
+// ---------------------------------------------------------------------------
+
+constexpr int kGvThreads = 256;
+constexpr int kGvLanesN = 4;                           // threads along N per K slice
+constexpr int kGvCols = 8;                             // columns per thread
+constexpr int kGvBlockN = kGvLanesN * kGvCols;         // 32 columns per block
+constexpr int kGvSlices = kGvThreads / kGvLanesN;      // 64 K slices per block
+
+template <typename T, int MODE, int MMAX>
+__global__ void __launch_bounds__(kGvThreads) gemv_kernel(Args a) {
+  // stored rows per slice step: more loads in flight where registers allow
+  constexpr int kGvChunk = MMAX <= 2 ? 16 : 8;
+  const T* X = static_cast<const T*>(a.x);
+  const int tid = threadIdx.x;
+  const int ln = tid % kGvLanesN;
+  const int slice = tid / kGvLanesN;
+  const int c0 = blockIdx.x * kGvBlockN + ln * kGvCols;
+  const int rows = MODE == kInt8 ? a.K : a.K / 2;
+  const int n_chunks = (rows + kGvChunk - 1) / kGvChunk;
+
+  float acc[MMAX][kGvCols];
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+    for (int c = 0; c < kGvCols; ++c) acc[m][c] = 0.f;
+
+  if (c0 < a.N) {
+    for (int ch = slice; ch < n_chunks; ch += kGvSlices) {
+      const int r0 = ch * kGvChunk;
+      uint32_t wv[kGvChunk][2];
+#pragma unroll
+      for (int i = 0; i < kGvChunk; ++i) {
+        if (r0 + i < rows) {
+          load_row<2>(a, r0 + i, c0, wv[i]);
+        } else {
+          wv[i][0] = 0;
+          wv[i][1] = 0;
+        }
+      }
+      if constexpr (MODE == kInt8) {
+#pragma unroll
+        for (int i = 0; i < kGvChunk; ++i) {
+          const int k = r0 + i;
+          float xv[MMAX];
+#pragma unroll
+          for (int m = 0; m < MMAX; ++m)
+            xv[m] = (m < a.M && k < a.K) ? to_f32(X[m * a.ldx + k]) : 0.f;
+#pragma unroll
+          for (int c = 0; c < kGvCols; ++c) {
+            const float w = (float)byte_of(wv[i][c >> 2], c & 3);
+#pragma unroll
+            for (int m = 0; m < MMAX; ++m) acc[m][c] = fmaf(xv[m], w, acc[m][c]);
+          }
+        }
+      } else {
+        // the chunk's 2 * kGvChunk rows of K lie in one scale group (a group
+        // is K or a multiple of 32 rows)
+        const int g = (2 * r0) / a.group;
+        float s[kGvCols];
+#pragma unroll
+        for (int c = 0; c < kGvCols; ++c) {
+          const int col = c0 + c;
+          s[c] = col < a.N ? __ldg(a.scale + (int64_t)g * a.N + col) : 0.f;
+          if constexpr (MODE == kInt4ScaleOnWeights) s[c] = round_to<T>(s[c]);
+        }
+        float part[MMAX][kGvCols];
+#pragma unroll
+        for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+          for (int c = 0; c < kGvCols; ++c) part[m][c] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kGvChunk; ++i) {
+          const int k = 2 * (r0 + i);  // K is even: k < K implies k + 1 < K
+          float x0[MMAX], x1[MMAX];
+#pragma unroll
+          for (int m = 0; m < MMAX; ++m) {
+            const bool in = m < a.M && k < a.K;
+            x0[m] = in ? to_f32(X[m * a.ldx + k]) : 0.f;
+            x1[m] = in ? to_f32(X[m * a.ldx + k + 1]) : 0.f;
+          }
+#pragma unroll
+          for (int c = 0; c < kGvCols; ++c) {
+            const int b = byte_of(wv[i][c >> 2], c & 3);
+            float lo = (float)low_nibble(b), hi = (float)high_nibble(b);
+            if constexpr (MODE == kInt4ScaleOnWeights) {
+              lo = round_to<T>(lo * s[c]);
+              hi = round_to<T>(hi * s[c]);
+#pragma unroll
+              for (int m = 0; m < MMAX; ++m)
+                acc[m][c] = fmaf(x1[m], hi, fmaf(x0[m], lo, acc[m][c]));
+            } else {
+#pragma unroll
+              for (int m = 0; m < MMAX; ++m)
+                part[m][c] = fmaf(x1[m], hi, fmaf(x0[m], lo, part[m][c]));
+            }
+          }
+        }
+        if constexpr (MODE == kInt4) {
+#pragma unroll
+          for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+            for (int c = 0; c < kGvCols; ++c) acc[m][c] = fmaf(part[m][c], s[c], acc[m][c]);
+        }
+      }
+    }
+  }
+
+  // sum the eight K slices of a warp (lane bits 2 to 4), then the 8 warps
+#pragma unroll
+  for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+    for (int c = 0; c < kGvCols; ++c) {
+      float v = acc[m][c];
+#pragma unroll
+      for (int off = kGvLanesN; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[m][c] = v;
+    }
+  constexpr int kWarps = kGvThreads / 32;
+  __shared__ float red[kWarps][MMAX][kGvBlockN];
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane < kGvLanesN) {
+#pragma unroll
+    for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+      for (int c = 0; c < kGvCols; ++c) red[warp][m][lane * kGvCols + c] = acc[m][c];
+  }
+  __syncthreads();
+  T* O = static_cast<T*>(a.out);
+  for (int idx = tid; idx < MMAX * kGvBlockN; idx += kGvThreads) {
+    const int m = idx / kGvBlockN, cl = idx % kGvBlockN;
+    const int col = blockIdx.x * kGvBlockN + cl;
+    if (m >= a.M || col >= a.N) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][m][cl];
+    if constexpr (MODE == kInt8) v *= __ldg(a.scale + col);
+    store_as(O + (int64_t)m * a.N + col, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMM: M > 8
+// ---------------------------------------------------------------------------
+
+constexpr int kGmThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kGmBM = 64;
+constexpr int kGmBN = 64;
+constexpr int kGmBK = 32;        // rows of K per tile (16 packed rows in int4)
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kGmThreads) gemm_kernel(Args a) {
+  __shared__ __align__(16) float xs[kGmBK][kGmBM + 4];  // x tile, transposed
+  __shared__ __align__(16) float ws[kGmBK][kGmBN];      // dequantized weight tile
+  const T* X = static_cast<const T*>(a.x);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kGmBM, n0 = blockIdx.x * kGmBN;
+
+  float acc[4][4], part[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j] = 0.f;
+      part[i][j] = 0.f;
+    }
+
+  for (int k0 = 0; k0 < a.K; k0 += kGmBK) {
+#pragma unroll
+    for (int i = 0; i < kGmBM * kGmBK / kGmThreads; ++i) {
+      const int idx = tid + i * kGmThreads;
+      const int mm = idx / kGmBK, kk = idx % kGmBK;
+      const int m = m0 + mm, k = k0 + kk;
+      xs[kk][mm] = (m < a.M && k < a.K) ? to_f32(X[(int64_t)m * a.ldx + k]) : 0.f;
+    }
+    // the tile's rows of K lie in one scale group (group % 32 == 0 or group == K)
+    const int g = MODE == kInt8 ? 0 : k0 / a.group;
+    if constexpr (MODE == kInt8) {
+      const int kk = tid / 8, c = (tid % 8) * 8;  // 32 rows x 8 threads x 8 bytes
+      uint32_t wv[2] = {0u, 0u};
+      if (k0 + kk < a.K && n0 + c < a.N) load_row<2>(a, k0 + kk, n0 + c, wv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ws[kk][c + j] = (float)byte_of(wv[j >> 2], j & 3);
+    } else {
+      const int rr = tid / 16, c = (tid % 16) * 4;  // 16 packed rows x 16 threads x 4 bytes
+      const int r = k0 / 2 + rr;
+      uint32_t wv[1] = {0u};
+      if (r < a.K / 2 && n0 + c < a.N) load_row<1>(a, r, n0 + c, wv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int b = byte_of(wv[0], j);
+        float lo = (float)low_nibble(b), hi = (float)high_nibble(b);
+        if constexpr (MODE == kInt4ScaleOnWeights) {
+          const int col = n0 + c + j;
+          const float sc =
+              col < a.N ? round_to<T>(__ldg(a.scale + (int64_t)g * a.N + col)) : 0.f;
+          lo = round_to<T>(lo * sc);
+          hi = round_to<T>(hi * sc);
+        }
+        ws[2 * rr][c + j] = lo;
+        ws[2 * rr + 1][c + j] = hi;
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kGmBK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (MODE == kInt4)
+            part[i][j] = fmaf(ar[i], br[j], part[i][j]);
+          else
+            acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+        }
+    }
+    if constexpr (MODE == kInt4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        const float s = col < a.N ? __ldg(a.scale + (int64_t)g * a.N + col) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = fmaf(part[i][j], s, acc[i][j]);
+          part[i][j] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  T* O = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= a.N) continue;
+      float v = acc[i][j];
+      if constexpr (MODE == kInt8) v *= __ldg(a.scale + n);
+      store_as(O + (int64_t)m * a.N + n, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core GEMM: M > 8, bf16 x
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;        // 8 warps: 2 along M x 4 along N, 64 x 32 each
+constexpr int kTcBM = 128;
+constexpr int kTcBN = 128;
+constexpr int kTcBK = 32;              // rows of K per tile (16 packed rows in int4)
+constexpr int kTcLd = kTcBK + 8;       // smem row: 40 bf16 = 80 bytes, conflict-free fragments
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 sums
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The next tile's global data, staged in registers while the current tile
+// is multiplied: 16 bf16 of one x row, and 8 columns of one pair of K rows
+// (two int8 rows, or one packed int4 row).
+struct TcStage {
+  uint4 x[2];
+  uint32_t w[2][2];
+};
+
+template <int MODE>
+__device__ __forceinline__ void tc_load(const Args& a, int m0, int n0, int k0, TcStage& st) {
+  const __nv_bfloat16* X = static_cast<const __nv_bfloat16*>(a.x);
+  const int tid = threadIdx.x;
+  const int xr = tid >> 1, xk = (tid & 1) * 16;  // 128 rows x 2 halves of 16
+  const int m = m0 + xr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = k0 + xk + 8 * h;
+    if (a.xvec) {  // K % 8 == 0: a run of 8 is all in or all out
+      st.x[h] = (m < a.M && k < a.K)
+                    ? __ldg(reinterpret_cast<const uint4*>(X + m * a.ldx + k))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lo = (m < a.M && k + 2 * e < a.K) ? to_f32(X[m * a.ldx + k + 2 * e]) : 0.f;
+        const float hi =
+            (m < a.M && k + 2 * e + 1 < a.K) ? to_f32(X[m * a.ldx + k + 2 * e + 1]) : 0.f;
+        v[e] = pack_bf16x2(lo, hi);
+      }
+      st.x[h] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  // K-row pair r (the fastest index, for conflict-free smem stores) and 8 columns
+  const int r = tid & 15, c = n0 + (tid >> 4) * 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.w[h][0] = 0u;
+    st.w[h][1] = 0u;
+  }
+  if constexpr (MODE == kInt8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 2 * r + h;
+      if (k < a.K && c < a.N) load_row<2>(a, k, c, st.w[h]);
+    }
+  } else {
+    const int rp = k0 / 2 + r;
+    if (rp < a.K / 2 && c < a.N) load_row<2>(a, rp, c, st.w[0]);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kTcThreads) gemm_tc_kernel(Args a) {
+  __shared__ __align__(16) __nv_bfloat16 As[kTcBM][kTcLd];  // x tile, [m][k]
+  __shared__ __align__(16) __nv_bfloat16 Bs[kTcBN][kTcLd];  // weight tile, [n][k]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row / column-pair of this lane
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+
+  float acc[4][4][4], part[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        part[i][j][e] = 0.f;
+      }
+
+  TcStage st;
+  tc_load<MODE>(a, m0, n0, 0, st);
+  for (int k0 = 0; k0 < a.K; k0 += kTcBK) {
+    // registers -> shared memory, the weights dequantized to bf16 [n][k]
+    {
+      const int xr = tid >> 1, xk = (tid & 1) * 16;
+      *reinterpret_cast<uint4*>(&As[xr][xk]) = st.x[0];
+      *reinterpret_cast<uint4*>(&As[xr][xk + 8]) = st.x[1];
+      const int r = tid & 15, c = (tid >> 4) * 8;
+      const int grp = MODE == kInt8 ? 0 : k0 / a.group;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float lo, hi;
+        if constexpr (MODE == kInt8) {
+          lo = (float)byte_of(st.w[0][j >> 2], j & 3);
+          hi = (float)byte_of(st.w[1][j >> 2], j & 3);
+        } else {
+          const int b = byte_of(st.w[0][j >> 2], j & 3);
+          lo = (float)low_nibble(b);
+          hi = (float)high_nibble(b);
+          if constexpr (MODE == kInt4ScaleOnWeights) {
+            const int col = n0 + c + j;
+            const float sc = col < a.N
+                ? round_to<__nv_bfloat16>(__ldg(a.scale + (int64_t)grp * a.N + col)) : 0.f;
+            lo *= sc;  // rounded to bf16 by the pack below
+            hi *= sc;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(&Bs[c + j][2 * r]) = pack_bf16x2(lo, hi);
+      }
+    }
+    __syncthreads();
+    if (k0 + kTcBK < a.K) tc_load<MODE>(a, m0, n0, k0 + kTcBK, st);
+
+#pragma unroll
+    for (int ks = 0; ks < kTcBK; ks += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = wm + i * 16 + gq;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(&As[row][ks + 2 * tq]);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(&As[row + 8][ks + 2 * tq]);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(&As[row][ks + 2 * tq + 8]);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(&As[row + 8][ks + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn + j * 8 + gq;
+        bf[j][0] = *reinterpret_cast<const uint32_t*>(&Bs[col][ks + 2 * tq]);
+        bf[j][1] = *reinterpret_cast<const uint32_t*>(&Bs[col][ks + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (MODE == kInt4)
+            mma_16816(part[i][j], af[i], bf[j]);
+          else
+            mma_16816(acc[i][j], af[i], bf[j]);
+        }
+    }
+    if constexpr (MODE == kInt4) {
+      // the last tile of a scale group: acc += part * scale[g, n]
+      if ((k0 + kTcBK) % a.group == 0 || k0 + kTcBK >= a.K) {
+        const int grp = k0 / a.group;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + wn + j * 8 + 2 * tq + e;
+            const float sc = col < a.N ? __ldg(a.scale + (int64_t)grp * a.N + col) : 0.f;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                acc[i][j][2 * h + e] = fmaf(part[i][j][2 * h + e], sc, acc[i][j][2 * h + e]);
+                part[i][j][2 * h + e] = 0.f;
+              }
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + i * 16 + gq + 8 * h;
+        if (m >= a.M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + j * 8 + 2 * tq + e;
+          if (n >= a.N) continue;
+          float v = acc[i][j][2 * h + e];
+          if constexpr (MODE == kInt8) v *= __ldg(a.scale + n);
+          store_as(O + (int64_t)m * a.N + n, v);
+        }
+      }
+}
+
+template <typename T, int MODE>
+int launch(const Args& a, cudaStream_t st) {
+  if (a.M <= 8) {
+    const dim3 grid((a.N + kGvBlockN - 1) / kGvBlockN);
+    if (a.M == 1)
+      gemv_kernel<T, MODE, 1><<<grid, kGvThreads, 0, st>>>(a);
+    else if (a.M == 2)
+      gemv_kernel<T, MODE, 2><<<grid, kGvThreads, 0, st>>>(a);
+    else if (a.M <= 4)
+      gemv_kernel<T, MODE, 4><<<grid, kGvThreads, 0, st>>>(a);
+    else
+      gemv_kernel<T, MODE, 8><<<grid, kGvThreads, 0, st>>>(a);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const dim3 grid((a.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM);
+    gemm_tc_kernel<MODE><<<grid, kTcThreads, 0, st>>>(a);
+  } else {
+    const dim3 grid((a.N + kGmBN - 1) / kGmBN, (a.M + kGmBM - 1) / kGmBM);
+    gemm_kernel<T, MODE><<<grid, kGmThreads, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int mode, const Args& a, cudaStream_t st) {
+  if (mode == kInt8) return launch<T, kInt8>(a, st);
+  if (mode == kInt4) return launch<T, kInt4>(a, st);
+  return launch<T, kInt4ScaleOnWeights>(a, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode: 0 = int8 (K3), 1 = int4 with partial-sum scaling (K4), 2 = int4 with
+// the scale on the weights (K4b/K4c). dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t (0 on success).
+int cambrian_quant_matmul(int mode, int dtype, const void* x, int64_t ldx, const void* w,
+                          const float* scale, void* out, int m, int n, int k, int group,
+                          void* stream) {
+  if (m < 1 || n < 1 || k < 1 || ldx < k || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  if (mode != kInt8 && (k % 2 != 0 || group < 1 || k % group != 0 ||
+                        (group != k && group % kGmBK != 0)))
+    return (int)cudaErrorInvalidValue;
+  const int vec = (n % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 8 == 0);
+  const int xvec = (k % 8 == 0) && (ldx % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const Args a{x, ldx, static_cast<const int8_t*>(w), scale, out, m, n, k, group, vec, xvec};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(mode, a, st);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(mode, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* cambrian_quant_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -3,13 +3,15 @@ SVA and decoder into a fixed-size KV cache, then a Python decode loop with
 greedy or temperature/top-p sampling and per-sample EOS.
 
 The JAX engine compiles the whole generation into one program; eager
-PyTorch runs the same steps from Python. Streaming and continuous batching
-belong to the serving slice.
+PyTorch runs the same steps from Python. ``generate_stream`` yields the ids so
+far after every chunk of ``stream_chunk`` decode steps, with the JAX engine's
+chunking, cache sizing and stopping rules; in eager PyTorch a chunk is only
+the cadence of the yields. Continuous batching is not ported yet.
 """
 
 import time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +28,9 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
     seed: int = 0
+    # generate_stream: decode steps between yields; forced to 1 when a
+    # stopping callable is given, so that it sees every token
+    stream_chunk: int = 8
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -78,13 +83,11 @@ class GenerationEngine:
         return [t(torch.as_tensor(px).to(self.device))
                 for t, px in zip(self.towers, images)]
 
-    @torch.inference_mode()
-    def generate(self, input_ids, attention_mask, position_ids, aux_features=None,
-                 aux_masks=None, config: Optional[GenerationConfig] = None) -> np.ndarray:
-        """Generated ids [B, <= max_new_tokens] (prompt excluded), pad past
-        each sample's end; trailing columns where every sample has finished
-        are trimmed."""
-        cfg = config or GenerationConfig()
+    def _prefill(self, input_ids, attention_mask, position_ids, aux_features, aux_masks,
+                 n_new: int):
+        """Prefill into a fresh cache of min(max_len, S + n_new) slots.
+        Returns (next_logits [B, V] from each prompt's last valid slot, cache,
+        cache_valid [B, k_len], next_pos [B]) and records ``prefill_ms``."""
         dev = self.device
         ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
         mask = torch.as_tensor(np.asarray(attention_mask), device=dev).to(torch.bool)
@@ -93,24 +96,42 @@ class GenerationEngine:
             aux_masks = [torch.as_tensor(np.asarray(m), device=dev).to(torch.bool)
                          for m in aux_masks]
         b, s = ids.shape
-        k_len = min(self.max_len, s + cfg.max_new_tokens)
+        k_len = min(self.max_len, s + n_new)
         cache = init_kv_cache(self.model.cfg, b, k_len, self.cache_dtype, dev)
 
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(ids, mask, pos, cache, aux_features, aux_masks)
-        # next-token logits from each prompt's last valid slot
         last_idx = (mask * torch.arange(s, device=dev)[None, :]).amax(1)
         next_logits = logits[torch.arange(b, device=dev), last_idx]
         self.last_next_logits = next_logits
         self._sync()
-        t1 = time.perf_counter()
-
-        generator = None
-        if cfg.temperature != 0.0:
-            generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        next_pos = pos.amax(1) + 1
+        self.last_timings = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+                             "decode_ms": 0.0, "decode_steps": 0}
         cache_valid = torch.zeros((b, k_len), dtype=torch.bool, device=dev)
         cache_valid[:, :s] = mask
+        return next_logits, cache, cache_valid, pos.amax(1) + 1
+
+    def _generator(self, cfg: GenerationConfig) -> Optional[torch.Generator]:
+        if cfg.temperature == 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+    @torch.inference_mode()
+    def generate(self, input_ids, attention_mask, position_ids, aux_features=None,
+                 aux_masks=None, config: Optional[GenerationConfig] = None) -> np.ndarray:
+        """Generated ids [B, <= max_new_tokens] (prompt excluded), pad past
+        each sample's end; trailing columns where every sample has finished
+        are trimmed."""
+        cfg = config or GenerationConfig()
+        dev = self.device
+        next_logits, cache, cache_valid, next_pos = self._prefill(
+            input_ids, attention_mask, position_ids, aux_features, aux_masks,
+            cfg.max_new_tokens)
+        b, k_len = cache_valid.shape
+        s = np.asarray(input_ids).shape[1]
+        t1 = time.perf_counter()
+
+        generator = self._generator(cfg)
         tokens = torch.full((b, cfg.max_new_tokens), cfg.pad_token_id, dtype=torch.long,
                             device=dev)
         finished = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -132,8 +153,108 @@ class GenerationEngine:
             decode_steps += 1
         self._sync()
         t2 = time.perf_counter()
-        self.last_timings = {"prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
-                             "decode_steps": decode_steps}
+        self.last_timings.update(decode_ms=(t2 - t1) * 1e3, decode_steps=decode_steps)
         self.last_lengths = lengths.cpu().numpy()
         last = max(1, int(self.last_lengths.max()))
         return tokens[:, :last].cpu().numpy()
+
+    def _decode(self, token, position, cache, cache_valid, write_index: int):
+        """One decode step writing slot ``write_index``; retires the slots
+        that fall out of a sliding window first. Returns (next_logits, cache)."""
+        window = self.model.cfg.sliding_window
+        if window is not None and write_index - window >= 0:
+            cache_valid[:, :write_index - window + 1] = False
+        return self.model.decode_step(token[:, None], position[:, None], cache, cache_valid,
+                                      write_index)
+
+    @torch.inference_mode()
+    def generate_stream(self, input_ids, attention_mask, position_ids, aux_features=None,
+                        aux_masks=None, config: Optional[GenerationConfig] = None,
+                        stopping: Optional[Callable[[np.ndarray], bool]] = None):
+        """Yields the generated ids so far, int32 [B, t], after every chunk
+        of ``stream_chunk`` decode steps (every step when ``stopping`` is
+        given; generation ends when it returns True).
+
+        The cache holds the prompt plus ``max_new_tokens`` rounded up to whole
+        chunks, capped by ``max_len``; when the cap binds mid-chunk, the tail
+        runs per token. ``last_lengths`` [B] holds each sample's generated
+        length so far; once every sample has finished, the yield is trimmed
+        to the longest. ``last_timings["decode_steps"]`` counts the decode
+        steps run."""
+        cfg = config or GenerationConfig()
+        dev = self.device
+        chunk = 1 if stopping is not None else max(1, int(cfg.stream_chunk))
+        n_new = -(-cfg.max_new_tokens // chunk) * chunk
+        next_logits, cache, cache_valid, next_pos = self._prefill(
+            input_ids, attention_mask, position_ids, aux_features, aux_masks, n_new)
+        b, k_len = cache_valid.shape
+        s = np.asarray(input_ids).shape[1]
+        timings = self.last_timings
+        t_start = time.perf_counter()
+
+        generator = self._generator(cfg)
+        cols: List[np.ndarray] = []
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        lengths = np.zeros(b, dtype=np.int32)
+        self.last_lengths = lengths
+        t = 0
+
+        def step(j: int) -> torch.Tensor:
+            """Sample token t + j and decode it (slot s + t + j); returns its
+            column, pad where the sample has finished."""
+            nonlocal next_logits, cache
+            token = sample_token(next_logits, generator, cfg.temperature, cfg.top_p)
+            if cfg.eos_token_id is not None:
+                finished.logical_or_(token == cfg.eos_token_id)
+            cache_valid[:, s + t + j] = ~finished
+            next_logits, cache = self._decode(token, next_pos + t + j, cache, cache_valid,
+                                              s + t + j)
+            timings["decode_steps"] += 1
+            return torch.where(finished, cfg.pad_token_id, token)
+
+        if chunk > 1:
+            # whole chunks only: a chunk starting at t writes slots [s+t, s+t+chunk)
+            while t < cfg.max_new_tokens and s + t + chunk <= k_len:
+                chunk_lengths = torch.zeros(b, dtype=torch.int32, device=dev)
+                tokens = []
+                for j in range(chunk):
+                    tokens.append(step(j))
+                    chunk_lengths += (~finished).int()
+                cols.append(torch.stack(tokens, 1).cpu().numpy().astype(np.int32))
+                lengths = np.minimum(lengths + chunk_lengths.cpu().numpy(), cfg.max_new_tokens)
+                self.last_lengths = lengths
+                t += chunk
+                done = bool(finished.all())
+                cum = np.concatenate(cols, axis=1)[:, :cfg.max_new_tokens]
+                if done:
+                    cum = cum[:, :max(1, int(lengths.max()))]
+                timings["decode_ms"] = (time.perf_counter() - t_start) * 1e3
+                yield cum
+                if done:
+                    return
+
+        while t < cfg.max_new_tokens:
+            token = sample_token(next_logits, generator, cfg.temperature, cfg.top_p)
+            if cfg.eos_token_id is not None:
+                finished |= token == cfg.eos_token_id
+            fin = finished.cpu().numpy()
+            lengths = lengths + (~fin).astype(np.int32)
+            self.last_lengths = lengths
+            cols.append(np.where(fin, cfg.pad_token_id, token.cpu().numpy())[:, None]
+                        .astype(np.int32))
+            cum = np.concatenate(cols, axis=1)
+            timings["decode_ms"] = (time.perf_counter() - t_start) * 1e3
+            if fin.all():
+                yield cum[:, :max(1, int(lengths.max()))]
+                return
+            yield cum
+            if stopping is not None and stopping(cum):
+                return
+            write_index = s + t
+            if write_index >= k_len:
+                return
+            cache_valid[:, write_index] = ~finished
+            next_logits, cache = self._decode(token, next_pos + t, cache, cache_valid,
+                                              write_index)
+            timings["decode_steps"] += 1
+            t += 1

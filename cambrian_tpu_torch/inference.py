@@ -11,14 +11,14 @@ import argparse
 
 import torch
 
-from cambrian_tpu.constants import (
+from .constants import (
     DEFAULT_IM_END_TOKEN,
     DEFAULT_IM_START_TOKEN,
     DEFAULT_IMAGE_TOKEN,
     IMAGE_TOKEN_INDEX,
 )
-from cambrian_tpu.conversation import conv_templates
-from cambrian_tpu.mm_utils import (
+from .conversation import conv_templates
+from .mm_utils import (
     process_images,
     tokenizer_image_token,
     tokenizer_image_token_llama3,

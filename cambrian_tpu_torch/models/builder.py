@@ -3,9 +3,10 @@
 ``load_pretrained_model`` keeps the reference's 4-tuple API
 ``(tokenizer, model, image_processor_list, context_len)``. The LM and
 connector load from an HF-layout checkpoint directory: safetensors ->
-``cambrian_tpu.checkpoint.hf_llm.convert_cambrian`` (the JAX package's name
-mapping, which loads no JAX) -> ``checkpoint/from_jax.py``. Tower snapshot
-loading is not ported yet: towers get random weights, with a loud warning.
+``checkpoint/hf_llm.py::convert_cambrian`` (the HF name mapping) ->
+``checkpoint/from_jax.py``; with ``load_8bit`` / ``load_4bit`` the decoder
+projections are then quantized (``ops/quant.py``). Tower snapshot loading is
+not ported yet: towers get random weights, with a loud warning.
 
 ``CambrianForInference.from_state_dict`` builds the model from a config and
 a state dict (keys ``lm.*`` and ``towers.{i}.*``) without allocating a
@@ -14,6 +15,7 @@ take the given tensors as their parameters.
 """
 
 import glob
+import itertools
 import json
 import os
 import time
@@ -23,13 +25,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cambrian_tpu.constants import IGNORE_INDEX
-from cambrian_tpu.data.packing import prepare_multimodal_data
-from cambrian_tpu.models.config import CambrianConfig
-
 from ..checkpoint.from_jax import load_state_dict_checked, state_dict_from_jax
+from ..checkpoint.hf_llm import convert_cambrian
+from ..constants import IGNORE_INDEX
+from ..data.packing import prepare_multimodal_data
 from ..infer.engine import GenerationConfig, GenerationEngine
+from ..ops.quant import quantize_state_dict
 from .cambrian import CambrianLM
+from .config import CambrianConfig
 from .encoders.base import VisionTower, build_vision_tower_aux_list
 
 _MODEL_TYPE_MAP = {
@@ -90,16 +93,43 @@ def _random_like(shapes: Dict[str, torch.Tensor], generator: torch.Generator, st
     return sd
 
 
+def _decoder_layer(name: str) -> Optional[str]:
+    """``lm.layers_{i}`` for a key of decoder layer i, else None."""
+    if not name.startswith("lm.layers_"):
+        return None
+    return ".".join(name.split(".")[:2])
+
+
+def quantize_decoder(sd: Dict[str, torch.Tensor], mode: str) -> Dict[str, torch.Tensor]:
+    """Quantize the decoder projections of a full state dict (the
+    ``lm.layers_*`` entries), as ``load_8bit`` / ``load_4bit`` do."""
+    out = {}
+    for layer, group in itertools.groupby(sd.items(), key=lambda kv: _decoder_layer(kv[0])):
+        part = dict(group)
+        out.update(quantize_state_dict(part, mode=mode) if layer else part)
+    return out
+
+
 def random_state_dict(config: CambrianConfig, generator: torch.Generator, std: float,
                       dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """Random weights for the whole model (``lm.*``, ``towers.{i}.*``), made
-    on ``device`` from ``generator``; norms and the LM head in fp32."""
+    on ``device`` from ``generator``; norms and the LM head in fp32.
+
+    With ``config.quantize`` the weights are those of the unquantized model
+    from the same generator, and each decoder layer is quantized as soon as
+    it is made, so that memory peaks near the quantized model's size."""
     with torch.device("meta"):
-        lm, towers = build_modules(config, dtype)
+        lm, towers = build_modules(config.replace(quantize=None), dtype)
     shapes = {f"lm.{k}": v for k, v in lm.state_dict().items()}
     for i, t in enumerate(towers):
         shapes.update({f"towers.{i}.{k}": v for k, v in t.state_dict().items()})
-    return _random_like(shapes, generator, std, device)
+    if not config.quantize:
+        return _random_like(shapes, generator, std, device)
+    sd = {}
+    for _, group in itertools.groupby(shapes.items(), key=lambda kv: _decoder_layer(kv[0])):
+        sd.update(quantize_decoder(_random_like(dict(group), generator, std, device),
+                                   config.quantize))
+    return sd
 
 
 class CambrianForInference:
@@ -151,6 +181,24 @@ class CambrianForInference:
         marker when ``images`` is given) and per-tower image batches ->
         generated ids [1, T]. ``self.engine.last_timings`` then also holds
         the tower encode time."""
+        *args, encode_ms = self._prepare_generate(input_ids, images, image_sizes, **gen_kwargs)
+        out = self.engine.generate(*args)
+        self.engine.last_timings["encode_ms"] = encode_ms
+        return out
+
+    def generate_stream(self, input_ids: np.ndarray, images: Optional[Sequence] = None,
+                        image_sizes: Optional[Sequence] = None, **gen_kwargs):
+        """``generate``'s inputs; yields the generated ids so far after each
+        chunk of ``stream_chunk`` (default 8) decode steps."""
+        *args, encode_ms = self._prepare_generate(input_ids, images, image_sizes, **gen_kwargs)
+        for out in self.engine.generate_stream(*args):
+            self.engine.last_timings["encode_ms"] = encode_ms
+            yield out
+
+    def _prepare_generate(self, input_ids, images=None, image_sizes=None, **gen_kwargs):
+        """Pack the prompt, encode the images and read the generation
+        options: (ids, mask, positions, features, window masks, config,
+        encode ms)."""
         if images is not None:
             image_size = image_sizes[0] if image_sizes else (
                 self.towers[0].image_size, self.towers[0].image_size)
@@ -173,10 +221,9 @@ class CambrianForInference:
             top_p=gen_kwargs.get("top_p", 1.0) or 1.0,
             eos_token_id=eos,
             seed=gen_kwargs.get("seed", 0),
+            stream_chunk=gen_kwargs.get("stream_chunk", 8),
         )
-        out = self.engine.generate(pids, pmask, ppos, feats, aux_masks, cfg)
-        self.engine.last_timings["encode_ms"] = encode_ms
-        return out
+        return pids, pmask, ppos, feats, aux_masks, cfg, encode_ms
 
 
 def _now(engine: GenerationEngine) -> float:
@@ -192,16 +239,24 @@ def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
                           model_name: Optional[str] = None, load_8bit: bool = False,
                           load_4bit: bool = False, device_map: str = "auto",
                           device: str = "cuda", dtype=torch.bfloat16, **kwargs):
-    """(tokenizer, model, image_processor_list, context_len)."""
-    if load_8bit or load_4bit:
-        raise NotImplementedError("quantized loading is not ported yet")
+    """(tokenizer, model, image_processor_list, context_len).
+
+    ``load_8bit`` / ``load_4bit`` (mutually exclusive) quantize the decoder
+    projections to int8, or to int4 in groups of 128 rows; embeddings, the
+    LM head, the connector and the towers stay full precision."""
+    if load_8bit and load_4bit:
+        raise ValueError("load_8bit and load_4bit are mutually exclusive")
     if model_base is not None:
         raise NotImplementedError("LoRA merging onto a base model is not ported yet")
-    from cambrian_tpu.checkpoint.hf_llm import convert_cambrian
 
+    quant_mode = "int8" if load_8bit else "int4" if load_4bit else None
     config = load_config(model_path)
+    if quant_mode:
+        config = config.replace(quantize=quant_mode)
     lm_sd = state_dict_from_jax(convert_cambrian(_load_safetensors(model_path), config),
                                 prefix="lm.")
+    if quant_mode:
+        lm_sd = quantize_decoder(lm_sd, quant_mode)
     sd = {k: v.to(device) for k, v in lm_sd.items()}
     with torch.device("meta"):
         _, towers = build_modules(config, dtype)

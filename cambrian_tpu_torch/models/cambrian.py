@@ -15,12 +15,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from cambrian_tpu.constants import IMAGE_TOKEN_INDEX
-from cambrian_tpu.models.config import CambrianConfig
-
+from ..constants import IMAGE_TOKEN_INDEX
 from ..ops.activations import gelu_exact
 from ..ops.norms import LayerNorm, RMSNorm
 from ..ops.resize import resize_bilinear
+from .config import CambrianConfig
 from .language.llama import LlamaDecoderLayer, make_causal_mask, make_decode_mask
 from .projectors import SvaProjector
 from .sva import VisionTokenSampler

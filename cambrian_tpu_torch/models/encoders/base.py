@@ -14,7 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from cambrian_tpu.mm_utils import (
+from ...mm_utils import (
     CLIP_MEAN,
     CLIP_STD,
     IMAGENET_MEAN,
@@ -23,7 +23,6 @@ from cambrian_tpu.mm_utils import (
     SIGLIP_STD,
     ImageProcessor,
 )
-
 from ...ops.resize import interpolate_tokens
 from .convnext import ConvNeXtTokens, convnext_large, convnext_xxl
 from .vit import (

@@ -9,6 +9,10 @@ differently (0 against uniform weights), so the rule must not drift.
 
 The KV cache is updated in place (``copy_`` into preallocated buffers),
 where the JAX package returns a new cache.
+
+With ``cfg.quantize`` ("int8" or "int4") the seven decoder projections are
+weight-only quantized linears (``ops/quant.py``), as in the JAX package's
+``load_8bit`` / ``load_4bit`` serving paths.
 """
 
 from dataclasses import dataclass
@@ -18,11 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cambrian_tpu.models.config import CambrianConfig
-
 from ...ops.attention import dot_product_attention
 from ...ops.flash_attention import flash_attention
 from ...ops.norms import RMSNorm
+from ...ops.quant import DECODER_QUANT_TARGETS, QuantLinear, QuantLinear4
+from ..config import CambrianConfig
 
 
 def check_supported(cfg: CambrianConfig) -> None:
@@ -32,12 +36,23 @@ def check_supported(cfg: CambrianConfig) -> None:
             f"decoder family {cfg.model_type!r} is not ported yet (LLaMA only)")
     if cfg.rope_scaling:
         raise NotImplementedError("rope_scaling is not ported yet")
-    if cfg.quantize:
-        raise NotImplementedError("quantized decoders are not ported yet")
+    if cfg.quantize not in (None, "int8", "int4"):
+        raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported")
     if cfg.use_qk_norm or cfg.attn_logit_softcapping is not None:
         raise NotImplementedError("qk-norm and logit softcapping are not ported yet")
     if cfg.hidden_act != "silu":
         raise NotImplementedError(f"activation {cfg.hidden_act!r} is not ported yet")
+
+
+def decoder_linear(cfg: CambrianConfig, in_features: int, out_features: int, bias: bool,
+                   dtype, device, name: str) -> nn.Module:
+    """nn.Linear, or a quantized linear when cfg.quantize is set and ``name``
+    is a decoder GEMM target."""
+    if cfg.quantize == "int8" and name in DECODER_QUANT_TARGETS:
+        return QuantLinear(in_features, out_features, bias, dtype, device)
+    if cfg.quantize == "int4" and name in DECODER_QUANT_TARGETS:
+        return QuantLinear4(in_features, out_features, bias, dtype, device)
+    return nn.Linear(in_features, out_features, bias=bias, dtype=dtype, device=device)
 
 
 def rope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
@@ -111,10 +126,10 @@ class LlamaAttention(nn.Module):
         c, kw = cfg, dict(bias=cfg.attention_bias, dtype=dtype, device=device)
         self.cfg = cfg
         h, kvh, d = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        self.q_proj = nn.Linear(c.hidden_size, h * d, **kw)
-        self.k_proj = nn.Linear(c.hidden_size, kvh * d, **kw)
-        self.v_proj = nn.Linear(c.hidden_size, kvh * d, **kw)
-        self.o_proj = nn.Linear(h * d, c.hidden_size, **kw)
+        self.q_proj = decoder_linear(c, c.hidden_size, h * d, name="q_proj", **kw)
+        self.k_proj = decoder_linear(c, c.hidden_size, kvh * d, name="k_proj", **kw)
+        self.v_proj = decoder_linear(c, c.hidden_size, kvh * d, name="v_proj", **kw)
+        self.o_proj = decoder_linear(c, h * d, c.hidden_size, name="o_proj", **kw)
 
     def forward(self, x, mask: AttentionMask, position_ids, cache=None, cache_index=None):
         c = self.cfg
@@ -150,10 +165,12 @@ class LlamaAttention(nn.Module):
 class LlamaMlp(nn.Module):
     def __init__(self, cfg: CambrianConfig, dtype=torch.float32, device=None):
         super().__init__()
-        kw = dict(bias=cfg.mlp_bias, dtype=dtype, device=device)
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        c, kw = cfg, dict(bias=cfg.mlp_bias, dtype=dtype, device=device)
+        self.gate_proj = decoder_linear(c, c.hidden_size, c.intermediate_size, name="gate_proj",
+                                        **kw)
+        self.up_proj = decoder_linear(c, c.hidden_size, c.intermediate_size, name="up_proj", **kw)
+        self.down_proj = decoder_linear(c, c.intermediate_size, c.hidden_size, name="down_proj",
+                                        **kw)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

@@ -6,30 +6,20 @@ version, ``flash_attention_reference``, for CPU tensors. The kernel replaces
 the TPU kernel ``cambrian_tpu/ops/flash_attention.py::_attn_kernel``; the
 plain version has the semantics of that module's ``_xla_reference``.
 
-The kernel is compiled with ``nvcc`` for sm_90a on first use into
-``build/cambrian_tpu_torch/`` at the repository root (a file name keyed by
-the source's hash, so an edited source rebuilds) and loaded with ctypes.
-Nothing is compiled or loaded at import time.
+The kernel is compiled with ``nvcc`` for sm_90a on first use
+(``ops/cuda_build.py``) and loaded with ctypes. Nothing is compiled or
+loaded at import time.
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from . import cuda_build
 from .attention import NEG_INF
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cambrian_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,34 +57,9 @@ def flash_attention_reference(q, k, v, key_valid=None, causal=False,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v.to(q.dtype))
 
 
-def build() -> dict:
-    """Compile the kernel library if it is not built yet. Returns
-    ``{"path", "seconds", "log"}``; ``log`` holds nvcc's output (ptxas
-    register and shared-memory use) when this call compiled."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"flash_attention-{tag}.so"
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "log": ""}
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the flash-attention kernel needs "
-                           "the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "log": res.stdout + res.stderr}
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+    lib = ctypes.CDLL(cuda_build.build("flash_attention")["flash_attention"]["path"])
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     lib.cambrian_flash_attention_fwd.argtypes = (
         [i32] + [ptr] * 5 + [i64] * 12 + [i32] * 6

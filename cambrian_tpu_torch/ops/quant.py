@@ -1,0 +1,327 @@
+"""Weight-only int8/int4 quantization and dequant-matmuls (cambrian_tpu/ops/quant.py):
+kernels K3, K4 and K4b/K4c of the port.
+
+Storage layout, byte for byte the JAX package's:
+
+- int8: ``kernel_q`` int8 [K, N] with per-output-channel fp32 ``scale`` [N];
+- int4: ``kernel_q4`` int8 [K/2, N], rows (2r, 2r+1) packed into byte r as its
+  low and high nibble, with K-groupwise fp32 ``scale`` [K/group, N].
+
+``int8_matmul``, ``int4_matmul`` and ``int4_matmul_scale_on_weights`` launch
+the hand-written CUDA kernels of ``csrc/quant_matmul.cu`` for CUDA tensors
+(each wrapper counts its launches in ``.launches``) and use the plain PyTorch
+versions for CPU tensors; on the card there is no fallback. ``int4_matmul``
+hands over to ``int4_matmul_scale_on_weights`` under ``CAMBRIAN_INT4_V2=1``
+or ``CAMBRIAN_INT4_V1=1``, the JAX package's switches for those kernels.
+Nothing is compiled or loaded at import time.
+"""
+
+import ctypes
+import functools
+import os
+from typing import Dict, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from . import cuda_build
+
+INT4_GROUP = 128  # unpacked K rows per scale
+
+# the decoder GEMMs; embeddings and the LM head stay full precision
+DECODER_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                         "gate_proj", "up_proj", "down_proj")
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MODE_INT8, _MODE_INT4, _MODE_INT4_SCALE_ON_WEIGHTS = 0, 1, 2
+_KERNEL_TILE_K = 32   # the kernel's K tile: int4 groups are a multiple of it, or K
+
+
+# -- quantizers ---------------------------------------------------------------
+
+def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] float -> (int8 values [K, N], fp32 scales [N]), symmetric per
+    output channel."""
+    w32 = w.float()
+    absmax = w32.abs().amax(0)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    # a transposed ``w`` would give transposed strides; the kernel reads rows
+    return q.contiguous(), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def int4_group(k: int, group: int = INT4_GROUP) -> int:
+    """Effective scale group for a K dim: the default when it divides K, else
+    one group spanning K."""
+    return group if k % group == 0 else k
+
+
+def quantize_int4(w: torch.Tensor, group: int = INT4_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] float -> (packed int8 [K/2, N], fp32 scales [K/group, N]):
+    symmetric K-groupwise quantization to [-8, 7]; rows (2r, 2r+1) share
+    byte r as (low, high) nibbles."""
+    k, n = w.shape
+    group = int4_group(k, group)
+    if k % 2 or k % group:
+        raise ValueError(f"int4 quantization needs an even K divisible by its group, "
+                         f"got K={k}, group={group}")
+    w32 = w.float().reshape(k // group, group, n)
+    absmax = w32.abs().amax(1)
+    scale = torch.where(absmax > 0, absmax / 7.0, 1.0)
+    q = torch.clamp(torch.round(w32 / scale[:, None, :]), -8, 7).to(torch.int32).reshape(k, n)
+    # in int32 the packed value lies in [-128, 127], so the cast to int8 is exact
+    packed = (q[0::2] & 0xF) | (q[1::2] << 4)
+    return packed.to(torch.int8).contiguous(), scale.contiguous()
+
+
+def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[K/2, N] packed -> [K, N] int32 values in [-8, 7]."""
+    k2, n = packed.shape
+    b = packed.to(torch.int32)
+    low = ((b & 0xF) ^ 8) - 8       # sign-extended low nibble
+    high = b >> 4                   # arithmetic shift: the high nibble, signed
+    return torch.stack([low, high], dim=1).reshape(2 * k2, n)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of quantize_int4 -> [K, N] dtype."""
+    q = _unpack_int4(packed)
+    k, n = q.shape
+    g = scale.shape[0]
+    deq = q.reshape(g, k // g, n).float() * scale[:, None, :]
+    return deq.reshape(k, n).to(dtype)
+
+
+def quantize_state_dict(sd: Dict[str, torch.Tensor], targets: Sequence[str] = DECODER_QUANT_TARGETS,
+                        mode: str = "int8") -> Dict[str, torch.Tensor]:
+    """The port's ``quantize_dense_tree``: every ``{...}.{target}.weight``
+    [N, K] (nn.Linear layout) becomes ``kernel_q`` int8 [K, N] and ``scale``
+    fp32 [N], or ``kernel_q4``/``scale`` for ``mode="int4"``; its bias
+    becomes fp32. Returns a new dict; other entries are kept as they are."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"mode must be int8 or int4, got {mode!r}")
+    out = {}
+    for key, value in sd.items():
+        head, _, leaf = key.rpartition(".")
+        site = head.rpartition(".")[2]
+        if site in targets and leaf == "weight" and value.dim() == 2:
+            if mode == "int4":
+                out[f"{head}.kernel_q4"], out[f"{head}.scale"] = quantize_int4(value.T)
+            else:
+                out[f"{head}.kernel_q"], out[f"{head}.scale"] = quantize_int8(value.T)
+        elif site in targets and leaf == "bias":
+            out[key] = value.float()
+        else:
+            out[key] = value
+    return out
+
+
+# -- plain versions -------------------------------------------------------------
+
+def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K3's arithmetic in plain PyTorch: x times the int8 values with an fp32
+    accumulator, the per-column scale on the accumulator, cast to x.dtype."""
+    return ((x.float() @ w_q.float()) * scale).to(x.dtype)
+
+
+def int4_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor,
+                          scale_on_weights: bool = False) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch: per scale group, an fp32 partial sum
+    of x times the int4 values, scaled and summed; cast to x.dtype. With
+    ``scale_on_weights`` (K4b/K4c) the weights are dequantized in x.dtype
+    first (the scale and q * scale each rounded to x.dtype) and multiplied
+    with one fp32 accumulation over K."""
+    q = _unpack_int4(w_q4)
+    k, n = q.shape
+    g = scale.shape[0]
+    if scale_on_weights:
+        w = q.to(x.dtype) * scale.to(x.dtype).repeat_interleave(k // g, dim=0)
+        return (x.float() @ w.float()).to(x.dtype)
+    xg = x.float().reshape(-1, g, k // g).transpose(0, 1)         # [G, M, group]
+    parts = torch.bmm(xg, q.float().reshape(g, k // g, n))        # [G, M, N]
+    return (parts * scale[:, None, :]).sum(0).to(x.dtype)
+
+
+# -- kernels ------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(cuda_build.build("quant_matmul")["quant_matmul"]["path"])
+    i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+    lib.cambrian_quant_matmul.argtypes = [i32, i32, ptr, i64, ptr, ptr, ptr,
+                                          i32, i32, i32, i32, ptr]
+    lib.cambrian_quant_matmul.restype = i32
+    lib.cambrian_quant_error_string.argtypes = [i32]
+    lib.cambrian_quant_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+            k: int, n: int, group: int) -> torch.Tensor:
+    """Check what the kernel takes, allocate the output, launch on the
+    current stream (counted in ``wrapper.launches``); raise on anything the
+    kernel refuses."""
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes bfloat16 or float32 x, got {x.dtype}")
+    if w.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"weights must be int8 and scales float32, got {w.dtype}, {scale.dtype}")
+    for name, t in (("weights", w), ("scale", scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m = x.shape[0]
+    if k > 1 and x.stride(1) != 1:
+        raise ValueError(f"x must have a unit stride along K, got strides {x.stride()}")
+    if m == 0:
+        return torch.empty((0, n), dtype=x.dtype, device=x.device)
+    ldx = x.stride(0) if m > 1 else k
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    wrapper.launches += 1
+    err = lib.cambrian_quant_matmul(mode, _DTYPE_CODES[x.dtype], x.data_ptr(), ldx,
+                                    w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                    m, n, k, group, stream)
+    if err != 0:
+        msg = lib.cambrian_quant_error_string(err).decode()
+        raise RuntimeError(f"quant matmul kernel launch failed: {msg}")
+    return out
+
+
+def _int4_shapes(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int, int]:
+    k2, n = w_q4.shape
+    k = 2 * k2
+    if scale.dim() != 2 or scale.shape[1] != n or k % scale.shape[0]:
+        raise ValueError(f"scale must be [K/group, {n}] for K={k}, got {tuple(scale.shape)}")
+    group = k // scale.shape[0]
+    if group != k and group % _KERNEL_TILE_K:
+        raise ValueError(f"int4 group {group} must be K or a multiple of {_KERNEL_TILE_K}")
+    return k, n, group
+
+
+def _on_cpu(x: torch.Tensor, name: str) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return False
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16/fp32) @ dequant(w_q int8 [K, N], scale fp32 [N]) ->
+    [M, N] in x.dtype. Kernel K3 on the card."""
+    if _on_cpu(x, "int8_matmul"):
+        return int8_matmul_reference(x, w_q, scale)
+    k, n = w_q.shape
+    if scale.shape != (n,):
+        raise ValueError(f"scale must be [{n}], got {tuple(scale.shape)}")
+    return _launch(int8_matmul, _MODE_INT8, x, w_q, scale, k, n, 1)
+
+
+def int4_matmul_scale_on_weights(x: torch.Tensor, w_q4: torch.Tensor,
+                                 scale: torch.Tensor) -> torch.Tensor:
+    """The int4 product with the scale applied to the weights in x.dtype
+    (kernel K4b/K4c on the card)."""
+    if _on_cpu(x, "int4_matmul_scale_on_weights"):
+        return int4_matmul_reference(x, w_q4, scale, scale_on_weights=True)
+    k, n, group = _int4_shapes(x, w_q4, scale)
+    return _launch(int4_matmul_scale_on_weights, _MODE_INT4_SCALE_ON_WEIGHTS, x, w_q4, scale,
+                   k, n, group)
+
+
+def _scale_on_weights_selected() -> bool:
+    return "1" in (os.environ.get("CAMBRIAN_INT4_V2"), os.environ.get("CAMBRIAN_INT4_V1"))
+
+
+def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16/fp32) @ dequant(w_q4 packed [K/2, N], scale [K/group, N])
+    -> [M, N] in x.dtype, with the scale on fp32 partial sums (kernel K4 on
+    the card); ``CAMBRIAN_INT4_V2=1`` or ``CAMBRIAN_INT4_V1=1`` selects
+    ``int4_matmul_scale_on_weights``."""
+    if _scale_on_weights_selected():
+        return int4_matmul_scale_on_weights(x, w_q4, scale)
+    if _on_cpu(x, "int4_matmul"):
+        return int4_matmul_reference(x, w_q4, scale)
+    k, n, group = _int4_shapes(x, w_q4, scale)
+    return _launch(int4_matmul, _MODE_INT4, x, w_q4, scale, k, n, group)
+
+
+int8_matmul.launches = 0
+int4_matmul.launches = 0
+int4_matmul_scale_on_weights.launches = 0
+
+
+# -- modules ------------------------------------------------------------------
+
+class _QuantLinearBase(nn.Module):
+    """Shared forward of the quantized linears: activations outside
+    bf16/fp32 are cast to ``dtype`` (as the JAX modules do), the bias is fp32
+    and added in the output dtype."""
+
+    def __init__(self, out_features: int, bias: bool, dtype, device):
+        super().__init__()
+        self.out_features = out_features
+        self.dtype = dtype
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32,
+                                                 device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def _matmul(self, x2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1])
+        if x2.dtype not in (torch.bfloat16, torch.float32):
+            x2 = x2.to(self.dtype)
+        if x2.stride(-1) != 1:    # the kernels read rows of x with a unit stride
+            x2 = x2.contiguous()
+        y = self._matmul(x2)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y.reshape(*shape[:-1], self.out_features)
+
+
+class QuantLinear(_QuantLinearBase):
+    """Linear over int8 weights with per-output-channel fp32 scales (the
+    ``load_8bit`` path; JAX ``QuantDense``). Buffers: ``kernel_q`` int8
+    [K, N], ``scale`` fp32 [N]; optional fp32 ``bias``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__(out_features, bias, dtype, device)
+        self.register_buffer("kernel_q", torch.zeros((in_features, out_features),
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32,
+                                                 device=device))
+
+    def _matmul(self, x2):
+        return int8_matmul(x2, self.kernel_q, self.scale)
+
+
+class QuantLinear4(_QuantLinearBase):
+    """Linear over nibble-packed int4 weights with K-groupwise fp32 scales
+    (the ``load_4bit`` path; JAX ``QuantDense4``). Buffers: ``kernel_q4``
+    int8 [K/2, N], ``scale`` fp32 [K/group, N]; optional fp32 ``bias``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.bfloat16, device=None, group: int = INT4_GROUP):
+        super().__init__(out_features, bias, dtype, device)
+        group = int4_group(in_features, group)
+        self.register_buffer("kernel_q4", torch.zeros((in_features // 2, out_features),
+                                                      dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones((in_features // group, out_features),
+                                                 dtype=torch.float32, device=device))
+
+    def _matmul(self, x2):
+        return int4_matmul(x2, self.kernel_q4, self.scale)

@@ -1,10 +1,13 @@
-"""The port imports without JAX and without a GPU toolchain: kernels are
-built on first use, never at import."""
+"""The port imports without JAX, without the JAX package and without a GPU
+toolchain: kernels are built on first use, never at import."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -13,11 +16,15 @@ import json, sys
 import cambrian_tpu_torch
 import cambrian_tpu_torch.inference
 import cambrian_tpu_torch.models.builder
+import cambrian_tpu_torch.serve.cli
 import cambrian_tpu_torch.ops.flash_attention as fa
+import cambrian_tpu_torch.ops.quant as quant
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "triton", "PIL", "transformers",
                                  "safetensors") if m in sys.modules),
-    "built": fa._library.cache_info().currsize,
+    "jax_package": sorted(m for m in sys.modules
+                          if m == "cambrian_tpu" or m.startswith("cambrian_tpu.")),
+    "built": fa._library.cache_info().currsize + quant._library.cache_info().currsize,
 }))
 """
 
@@ -28,4 +35,42 @@ def test_import_loads_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=120, check=True)
     probe = json.loads(out.stdout.strip().splitlines()[-1])
-    assert probe == {"loaded": [], "built": 0}
+    assert probe == {"loaded": [], "jax_package": [], "built": 0}
+
+
+def test_from_jax_keeps_quantized_leaves():
+    """A quantized Dense keeps its integer dtype and its ``scale`` name; a
+    norm's ``scale`` still becomes ``weight``, float leaves become fp32."""
+    import numpy as np
+
+    from cambrian_tpu_torch.checkpoint.from_jax import state_dict_from_jax
+
+    q = np.arange(-8, 8, dtype=np.int8).reshape(4, 4)
+    sd = state_dict_from_jax({"params": {
+        "q_proj": {"kernel_q": q, "scale": np.ones(4, np.float32)},
+        "down_proj": {"kernel_q4": q[:2], "scale": np.ones((1, 4), np.float16)},
+        "norm": {"scale": np.ones(4, np.float16)},
+        "o_proj": {"kernel": np.ones((4, 2), np.float16)},
+    }})
+    assert sorted(sd) == ["down_proj.kernel_q4", "down_proj.scale", "norm.weight",
+                          "o_proj.weight", "q_proj.kernel_q", "q_proj.scale"]
+    assert sd["q_proj.kernel_q"].dtype == sd["down_proj.kernel_q4"].dtype == torch.int8
+    assert sd["q_proj.kernel_q"].shape == (4, 4)       # no transpose
+    np.testing.assert_array_equal(sd["q_proj.kernel_q"].numpy(), q)
+    assert sd["down_proj.scale"].dtype == sd["norm.weight"].dtype == torch.float32
+    assert sd["o_proj.weight"].shape == (2, 4)
+
+
+@pytest.mark.parametrize("name", ["tiny_debug", "cambrian_8b"])
+def test_config_round_trip_from_jax_config(name):
+    """The parity tests hand the JAX config across as a dict; the port's copy
+    of the config gives equal fields."""
+    from cambrian_tpu.models import config as jconfig
+    from cambrian_tpu_torch.models import config as tconfig
+
+    jcfg = getattr(jconfig, name)()
+    cfg = tconfig.CambrianConfig.from_dict(jcfg.to_dict())
+    assert cfg.to_dict() == jcfg.to_dict()
+    assert cfg.to_dict() == getattr(tconfig, name)().to_dict()
+    assert cfg.image_block_len == jcfg.image_block_len
+    assert cfg.vision_sampler_layer_indices == jcfg.vision_sampler_layer_indices

@@ -31,6 +31,7 @@ from cambrian_tpu_torch.models.builder import (  # noqa: E402
     CambrianForInference,
     load_pretrained_model,
 )
+from cambrian_tpu_torch.models.config import CambrianConfig  # noqa: E402
 from cambrian_tpu_torch.models.language.llama import init_kv_cache  # noqa: E402
 
 TOL = 1e-5         # modules, fp32
@@ -73,8 +74,8 @@ def slice_pair(request):
     sd = state_dict_from_jax(params, prefix="lm.")
     for i, tp in enumerate(tower_params):
         sd.update(state_dict_from_jax(tp, prefix=f"towers.{i}.module."))
-    port = CambrianForInference.from_state_dict(cfg, sd, dtype=torch.float32,
-                                                cache_dtype=torch.float32)
+    port = CambrianForInference.from_state_dict(CambrianConfig.from_dict(cfg.to_dict()), sd,
+                                                dtype=torch.float32, cache_dtype=torch.float32)
     return dict(cfg=cfg, towers=towers, model=model, params=params, tower_params=tower_params,
                 images=images, feats=feats, jmasks=jmasks, pids=pids, pmask=pmask,
                 ppos=ppos, aux_masks=aux_masks, port=port)
@@ -112,7 +113,7 @@ def test_prefill_and_decode_logits_match(slice_pair):
         jnp.asarray(p["ppos"]), jcache, p["feats"], p["jmasks"],
         method=JCambrianLM.prefill)
     lm = p["port"].lm
-    cache = init_kv_cache(cfg, 1, k_len, torch.float32)
+    cache = init_kv_cache(p["port"].config, 1, k_len, torch.float32)
     with torch.no_grad():
         logits, cache = lm.prefill(_t(p["pids"]), _t(p["pmask"]), _t(p["ppos"]), cache,
                                    [_t(f) for f in p["feats"]],
