@@ -6,16 +6,26 @@ SVA re-injection -> fp32 logits.
 the LM head; the vision towers are separate modules. Module names mirror the
 flax tree (``mm_projector_aux_0``, ``vision_sampler_layers_3``,
 ``layers_12``) for ``checkpoint/from_jax.py``; the JAX package's
-``_SvaProjector`` is ``projectors.SvaProjector``. The scan-layers and remat
-machinery of the JAX package are XLA concerns and are not ported.
+``_SvaProjector`` is ``projectors.SvaProjector``.
+
+With ``cfg.remat`` and grad enabled, each decoder layer, in-LLM sampler, aux
+projector and connector sampler runs under ``torch.utils.checkpoint``
+(non-reentrant), where the JAX package wraps them in ``nn.remat``; serving
+runs without grad and is unchanged. The scan-layers machinery is an XLA
+concern and is not ported.
+
+Training losses: ``cross_entropy_loss`` on whole logits, and
+``chunked_cross_entropy``, an autograd Function that never holds the fp32
+[B, S, V] logits (``cambrian_tpu/models/cambrian.py:611-776``).
 """
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..constants import IMAGE_TOKEN_INDEX
+from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..ops.activations import gelu_exact
 from ..ops.norms import LayerNorm, RMSNorm
 from ..ops.resize import resize_bilinear
@@ -131,7 +141,7 @@ class CambrianLM(nn.Module):
         b = aux_features_list[0].shape[0]
         final_side = c.image_token_len_per_side
         vh = c.vision_hidden_size
-        projected = [getattr(self, f"mm_projector_aux_{i}")(f.to(self.dtype))
+        projected = [self._remat(getattr(self, f"mm_projector_aux_{i}"), f.to(self.dtype))
                      for i, f in enumerate(aux_features_list)]
         global_context = projected[0].mean(1, keepdim=True)          # [B, 1, vh]
         group_features = []
@@ -145,7 +155,7 @@ class CambrianLM(nn.Module):
             else:
                 masks = [window_mask(unwindow_mask(m, final_side), q_side)
                          for m in aux_masks_list]
-            out = getattr(self, f"vision_sampler_{g}")(queries, ctx, kvs, masks)
+            out = self._remat(getattr(self, f"vision_sampler_{g}"), queries, ctx, kvs, masks)
             if q_side != final_side:
                 grid = resize_bilinear(out.reshape(b, q_side, q_side, -1),
                                        final_side, final_side)
@@ -170,11 +180,18 @@ class CambrianLM(nn.Module):
         idx = _block_index(im_start, c.image_block_len, s)[..., None].expand(-1, -1, width)
         block = hidden.gather(1, idx).reshape(b, side, side + 1, width)
         latent, newline = block[:, :, :side], block[:, :, side:]
-        latent = getattr(self, f"vision_sampler_layers_{k}")(
-            latent.reshape(b, c.image_token_len, width), global_context, vision_kv,
-            vision_masks)
+        latent = self._remat(getattr(self, f"vision_sampler_layers_{k}"),
+                             latent.reshape(b, c.image_token_len, width), global_context,
+                             vision_kv, vision_masks)
         block = torch.cat([latent.reshape(b, side, side, width), newline], dim=2)
         return hidden.scatter(1, idx, block.reshape(b, c.image_block_len, width))
+
+    def _remat(self, module: nn.Module, *args):
+        """``module(*args)``, recomputed in the backward under ``cfg.remat``
+        while grad is enabled (the JAX package's ``nn.remat``)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
 
     # -- decoder ------------------------------------------------------------
 
@@ -184,19 +201,25 @@ class CambrianLM(nn.Module):
         inject_layers = set(c.vision_sampler_layer_indices) if inject else set()
         for i in range(c.num_hidden_layers):
             layer_cache = None if cache is None else cache[i]
-            hidden, _ = getattr(self, f"layers_{i}")(hidden, mask, position_ids,
-                                                     layer_cache, cache_index)
+            hidden, _ = self._remat(getattr(self, f"layers_{i}"), hidden, mask, position_ids,
+                                    layer_cache, cache_index)
             if i in inject_layers:
                 k = (i - c.start_of_vision_sampler_layers) // c.stride_of_vision_sampler_layers
                 hidden = self._inject_sva(k, hidden, vision_kv, vision_masks,
                                           global_context, im_start)
         return self.norm(hidden)
 
-    def _logits(self, hidden):
-        """fp32 logits: the head runs in fp32 on fp32 activations."""
+    def head(self) -> torch.Tensor:
+        """The LM head weight [V, hidden]: ``lm_head.weight``, or the token
+        embeddings when tied."""
         if self.cfg.tie_word_embeddings:
-            return hidden.float() @ self.embed_tokens.weight.float().T
-        return self.lm_head(hidden.float())
+            return self.embed_tokens.weight
+        return self.lm_head.weight
+
+    def logits(self, hidden):
+        """fp32 logits: the head runs in fp32 on fp32 activations, whatever
+        dtype the head is stored in."""
+        return head_logits(self.cfg, self.head(), hidden)
 
     def _image_start(self, input_ids) -> torch.Tensor:
         """Per-sample index of the image indicator [B]; cfg.image_position
@@ -223,15 +246,21 @@ class CambrianLM(nn.Module):
 
     def forward(self, input_ids, attention_mask, position_ids,
                 aux_features_list=None, aux_masks_list=None):
-        """No-cache forward; fp32 logits [B, S, V]."""
+        """No-cache (training) forward; fp32 logits [B, S, V]."""
+        return self.logits(self.hidden_states(input_ids, attention_mask, position_ids,
+                                              aux_features_list, aux_masks_list))
+
+    def hidden_states(self, input_ids, attention_mask, position_ids,
+                      aux_features_list=None, aux_masks_list=None):
+        """The training forward up to (excluding) the LM head, so that the
+        loss can run over sequence chunks (``chunked_cross_entropy``)."""
         image_embeds, vision_kv, vision_masks, global_ctx = self._vision(
             aux_features_list, aux_masks_list)
         im_start = self._image_start(input_ids)
         hidden = self._splice_image(input_ids, image_embeds, im_start)
-        hidden = self._decoder(hidden, make_causal_mask(attention_mask), position_ids,
-                               None, None, vision_kv, vision_masks, global_ctx,
-                               inject=image_embeds is not None, im_start=im_start)
-        return self._logits(hidden)
+        return self._decoder(hidden, make_causal_mask(attention_mask), position_ids,
+                             None, None, vision_kv, vision_masks, global_ctx,
+                             inject=image_embeds is not None, im_start=im_start)
 
     def prefill(self, input_ids, attention_mask, position_ids, cache,
                 aux_features_list=None, aux_masks_list=None):
@@ -249,11 +278,99 @@ class CambrianLM(nn.Module):
         hidden = self._decoder(hidden, mask, position_ids, cache, 0, vision_kv,
                                vision_masks, global_ctx, inject=image_embeds is not None,
                                im_start=im_start)
-        return self._logits(hidden), cache
+        return self.logits(hidden), cache
 
     def decode_step(self, token_ids, position_ids, cache, cache_valid, cache_index: int):
         """One decode step over the cache. Returns (logits [B, V], cache)."""
         hidden = self.embed_tokens(token_ids)
         hidden = self._decoder(hidden, make_decode_mask(cache_valid), position_ids,
                                cache, cache_index, None, None, None, inject=False)
-        return self._logits(hidden)[:, 0], cache
+        return self.logits(hidden)[:, 0], cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted next-token CE in fp32, ignoring IGNORE_INDEX."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = logp.gather(-1, safe[..., None])[..., 0]
+    token_loss = torch.where(valid, -token_ll, torch.zeros_like(token_ll))
+    return token_loss.sum() / valid.sum().clamp_min(1)
+
+
+def head_logits(cfg: CambrianConfig, head: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits from the head weight [V, hidden] (``CambrianLM.head()``:
+    the JAX package's ``lm_head/kernel`` transposed, or the tied embedding),
+    with the config's logit scale and final softcap."""
+    logits = hidden.float() @ head.float().T
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcapping is not None:
+        cap = cfg.final_logit_softcapping
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def extract_head(cfg: CambrianConfig, model: CambrianLM) -> torch.Tensor:
+    """The head argument of ``head_logits`` / ``chunked_cross_entropy``."""
+    return model.head()
+
+
+def _ce_chunk_total(logits_fn, head, hc, lc):
+    """Sum of the valid tokens' NLL over one [B, chunk] slab, in fp32."""
+    logp = torch.log_softmax(logits_fn(head, hc).float(), dim=-1)
+    valid = lc != IGNORE_INDEX
+    safe = torch.where(valid, lc, torch.zeros_like(lc))
+    ll = logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, -ll, torch.zeros_like(ll)).sum()
+
+
+class _ChunkedCrossEntropy(torch.autograd.Function):
+    """Forward: the loss, chunk by chunk, under no grad. Backward: each
+    chunk's logits recomputed and differentiated alone (the JAX package's
+    custom_vjp over ``lax.scan``); the head's gradient is accumulated only
+    when the head requires grad."""
+
+    @staticmethod
+    def forward(ctx, hidden, next_labels, head, logits_fn, chunk):
+        total = hidden.new_zeros((), dtype=torch.float32)
+        for i in range(0, hidden.shape[1], chunk):
+            total = total + _ce_chunk_total(logits_fn, head, hidden[:, i:i + chunk],
+                                            next_labels[:, i:i + chunk])
+        count = (next_labels != IGNORE_INDEX).sum().clamp_min(1).float()
+        ctx.save_for_backward(hidden, next_labels, head)
+        ctx.logits_fn, ctx.chunk = logits_fn, chunk
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, next_labels, head = ctx.saved_tensors
+        scale = g / (next_labels != IGNORE_INDEX).sum().clamp_min(1).float()
+        need_head = ctx.needs_input_grad[2]
+        dhidden = torch.zeros_like(hidden)
+        dhead = torch.zeros_like(head, dtype=torch.float32) if need_head else None
+        hd = head.detach().requires_grad_(need_head)
+        for i in range(0, hidden.shape[1], ctx.chunk):
+            with torch.enable_grad():
+                hc = hidden[:, i:i + ctx.chunk].detach().requires_grad_(True)
+                total = _ce_chunk_total(ctx.logits_fn, hd, hc, next_labels[:, i:i + ctx.chunk])
+                grads = torch.autograd.grad(total * scale, [hc, hd] if need_head else [hc])
+            dhidden[:, i:i + ctx.chunk] = grads[0]
+            if need_head:
+                dhead += grads[1].float()
+        return dhidden, None, (dhead.to(head.dtype) if need_head else None), None, None
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
+                          logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                          chunk: int, head: torch.Tensor) -> torch.Tensor:
+    """Shifted next-token CE over sequence chunks of ``chunk`` tokens,
+    applying ``logits_fn(head, hidden_chunk)`` per chunk: the math of
+    ``cross_entropy_loss(logits_fn(head, hidden), labels)`` with another fp32
+    summation order, but only one chunk's [B, chunk, V] fp32 logits exist at
+    a time, in the forward and in the backward."""
+    b = labels.shape[0]
+    next_labels = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_INDEX)], dim=1)
+    return _ChunkedCrossEntropy.apply(hidden, next_labels, head, logits_fn, chunk)

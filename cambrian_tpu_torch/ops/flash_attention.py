@@ -1,12 +1,17 @@
-"""Fused masked attention forward: kernel K1 of the port.
+"""Fused masked attention, forward and backward: kernels K1 and K2 of the port.
 
 ``flash_attention`` launches the hand-written CUDA kernel in
-``csrc/flash_attention.cu`` for CUDA tensors and uses the plain PyTorch
-version, ``flash_attention_reference``, for CPU tensors. The kernel replaces
-the TPU kernel ``cambrian_tpu/ops/flash_attention.py::_attn_kernel``; the
-plain version has the semantics of that module's ``_xla_reference``.
+``csrc/flash_attention.cu`` (K1) for CUDA tensors, through
+``FlashAttentionFunction``, whose backward launches the kernel in
+``csrc/flash_attention_bwd.cu`` (K2); the two replace the TPU kernels
+``_attn_kernel`` and ``_attn_bwd_kernel`` of
+``cambrian_tpu/ops/flash_attention.py`` and its ``jax.custom_vjp``. CPU
+tensors go to the plain PyTorch version, ``flash_attention_reference`` (the
+semantics of that module's ``_xla_reference``), and autograd differentiates
+it, as JAX differentiates ``_xla_reference`` off the TPU.
+``flash_attention_bwd_reference`` is K2's plain version.
 
-The kernel is compiled with ``nvcc`` for sm_90a on first use
+The kernels are compiled with ``nvcc`` for sm_90a on first use
 (``ops/cuda_build.py``) and loaded with ctypes. Nothing is compiled or
 loaded at import time.
 """
@@ -40,21 +45,63 @@ def flash_attention_reference(q, k, v, key_valid=None, causal=False,
         k = k.repeat_interleave(h // kvh, dim=2)
         v = v.repeat_interleave(h // kvh, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if key_valid is None:
-        mask = torch.ones((b, 1, 1, s_k), dtype=torch.bool, device=q.device)
-    else:
-        mask = key_valid.to(torch.bool)[:, None, None, :]
-    if causal or sliding_window is not None:
-        q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
-        k_pos = torch.arange(s_k, device=q.device)[None, :]
-        if causal:
-            mask = mask & (k_pos <= q_pos)
-        if sliding_window is not None:
-            mask = mask & ((q_pos - k_pos) < sliding_window)
+    mask = _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, q.device)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask, probs, 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v.to(q.dtype))
+
+
+def _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, device):
+    """[B, 1, Sq, Sk] bool: key validity and the causal / window predicates."""
+    if key_valid is None:
+        mask = torch.ones((b, 1, 1, s_k), dtype=torch.bool, device=device)
+    else:
+        mask = key_valid.to(device=device, dtype=torch.bool)[:, None, None, :]
+    if causal or sliding_window is not None:
+        q_pos = q_offset + torch.arange(s_q, device=device)[:, None]
+        k_pos = torch.arange(s_k, device=device)[None, :]
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if sliding_window is not None:
+            mask = mask & ((q_pos - k_pos) < sliding_window)
+    return mask
+
+
+def flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal=False,
+                                  sliding_window=None, q_offset=0, scale=None):
+    """Plain PyTorch version of K2, the math of the TPU kernel
+    ``_attn_bwd_kernel``: fp32 probabilities recomputed from a whole-row
+    maximum and sum (denominator floored at 1e-30, masked entries 0),
+    ``delta = rowsum(do * o)``, ``ds = p * (do . v - delta) * scale``,
+    ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T do``. With GQA a kv head's
+    ``dk``/``dv`` sum its group of query heads in fp32. Shapes as
+    ``flash_attention_reference``; returns (dq, dk, dv) in the input dtype.
+    """
+    b, s_q, h, d = q.shape
+    s_k, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    if scale is None:
+        scale = d ** -0.5
+    q32, o32, do32 = q.float(), o.float(), do.float()
+    k32 = k.float().repeat_interleave(group, dim=2)
+    v32 = v.float().repeat_interleave(group, dim=2)
+    mask = _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, q.device)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = torch.where(mask, probs, 0.0)
+    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    delta = (do32 * o32).sum(-1).permute(0, 2, 1)[..., None]      # [B, H, Sq, 1]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = probs * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs, do32)
+    if group > 1:
+        dk = dk.reshape(b, s_k, kvh, group, d).sum(3)
+        dv = dv.reshape(b, s_k, kvh, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,6 +115,23 @@ def _library() -> ctypes.CDLL:
     lib.cambrian_cuda_error_string.argtypes = [i32]
     lib.cambrian_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(cuda_build.build("flash_attention_bwd")["flash_attention_bwd"]["path"])
+    i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+    lib.cambrian_flash_attention_bwd.argtypes = (
+        [i32] + [ptr] * 12 + [i64] * 24 + [i32] * 6
+        + [ctypes.c_float, i32, i32, i32, ptr])
+    lib.cambrian_flash_attention_bwd.restype = i32
+    lib.cambrian_cuda_error_string.argtypes = [i32]
+    lib.cambrian_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
 def _check_inputs(q, k, v, key_valid):
@@ -92,6 +156,20 @@ def _check_inputs(q, k, v, key_valid):
                          f"got {tuple(key_valid.shape)}")
 
 
+def _card_args(what, q, k, v, key_valid, sliding_window, scale):
+    """Check the inputs of a kernel call on the card; returns the key
+    validity as contiguous bool (or None) and the scale as a float."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
+    _check_inputs(q, k, v, key_valid)
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    valid = None
+    if key_valid is not None:
+        valid = key_valid.to(device=q.device, dtype=torch.bool).contiguous()
+    return valid, float(q.shape[-1] ** -0.5 if scale is None else scale)
+
+
 def flash_attention(
     q: torch.Tensor,                          # [B, Sq, H, D]
     k: torch.Tensor,                          # [B, Sk, KVH, D]
@@ -104,25 +182,22 @@ def flash_attention(
 ) -> torch.Tensor:
     """Masked attention in BQHD layout with GQA read in place.
 
-    CPU tensors go to ``flash_attention_reference``. CUDA tensors launch the
-    kernel (``flash_attention.launches`` counts the launches) or raise; there
-    is no fallback to the plain version on the card.
+    CPU tensors go to ``flash_attention_reference``. CUDA tensors launch K1
+    through ``FlashAttentionFunction`` (``flash_attention.launches`` counts
+    the launches; its backward launches K2) or raise; there is no fallback to
+    the plain version on the card.
     """
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_valid, causal,
                                          sliding_window, q_offset, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    _check_inputs(q, k, v, key_valid)
-    if sliding_window is not None and sliding_window < 1:
-        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    valid, scale = _card_args("flash_attention", q, k, v, key_valid, sliding_window, scale)
+    return FlashAttentionFunction.apply(q, k, v, valid, causal, sliding_window, q_offset, scale)
+
+
+def _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale):
+    """Launch K1 on checked CUDA inputs; ``valid`` is None or contiguous bool."""
     b, s_q, h, d = q.shape
     s_k, kvh = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = d ** -0.5
-    valid = None
-    if key_valid is not None:
-        valid = key_valid.to(device=q.device, dtype=torch.bool).contiguous()
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -130,17 +205,80 @@ def flash_attention(
     err = lib.cambrian_flash_attention_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        b, h, kvh, s_q, s_k, d, float(scale), int(bool(causal)),
-        -1 if sliding_window is None else int(sliding_window), int(q_offset),
-        stream)
+        *_strides(q, k, v, out), b, h, kvh, s_q, s_k, d, scale, int(bool(causal)),
+        -1 if sliding_window is None else int(sliding_window), int(q_offset), stream)
     if err != 0:
         msg = lib.cambrian_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
     return out
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward, K2 backward (the JAX package's ``custom_vjp`` around
+    ``_flash``). Saves ``(q, k, v, key_valid, out)``, the residuals of JAX
+    ``_flash_fwd``; the backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, causal, sliding_window, q_offset, scale):
+        out = _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale)
+        ctx.save_for_backward(q, k, v, valid, out)
+        ctx.options = (causal, sliding_window, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, valid, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, dout.contiguous(), *ctx.options)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,                          # [B, Sq, H, D]
+    k: torch.Tensor,                          # [B, Sk, KVH, D]
+    v: torch.Tensor,                          # [B, Sk, KVH, D]
+    key_valid: Optional[torch.Tensor],        # [B, Sk] bool
+    o: torch.Tensor,                          # [B, Sq, H, D], the forward's output
+    do: torch.Tensor,                         # [B, Sq, H, D], its cotangent
+    causal: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of ``flash_attention``. CPU tensors go to
+    ``flash_attention_bwd_reference``; CUDA tensors launch K2 (three kernels
+    behind one call, counted once in ``flash_attention_bwd.launches``) or
+    raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal,
+                                             sliding_window, q_offset, scale)
+    valid, scale = _card_args("flash_attention_bwd", q, k, v, key_valid, sliding_window, scale)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a unit stride on head_dim")
+    b, s_q, h, d = q.shape
+    s_k, kvh = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, s_k, kvh, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s_k, kvh, d), dtype=v.dtype, device=q.device)
+    stats = torch.empty((3, b, h, s_q), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flash_attention_bwd.launches += 1
+    err = lib.cambrian_flash_attention_bwd(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if valid is None else valid.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+        *_strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s_q, s_k, d, scale,
+        int(bool(causal)), -1 if sliding_window is None else int(sliding_window),
+        int(q_offset), stream)
+    if err != 0:
+        msg = lib.cambrian_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: {msg}")
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -37,7 +37,28 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    through ``generate_stream``, whose 4 chunks of 8 decode steps launch it
    7 x 32 x (1 + 32) = 7,392 times and whose tokens must equal
    ``generate``'s on the same prompt; with int4, one more request under
-   ``CAMBRIAN_INT4_V2=1`` runs the scale-on-weights kernel 7,168 times.
+   ``CAMBRIAN_INT4_V2=1`` runs the scale-on-weights kernel 7,168 times;
+7. K2, the flash-attention backward, against its plain PyTorch version on
+   the card (serving models freed): the stage-1 decoder shape (batch 8 x
+   2048, 32/8 heads, D 128, causal, right padding), a causal case with a
+   sliding window and dead rows, and the three tower shapes, in bf16 and
+   fp32; max abs error of dq/dk/dv, CUDA-event times of the kernel, the
+   plain version and the backward of ``F.scaled_dot_product_attention``
+   (forward+backward less forward; the library yardstick), and the bound;
+8. a tiny Cambrian through ``make_train_step``, 3 optimizer steps of stage 1
+   and 3 of stage 2 with remat, on the card (K1/K2, fp32, TF32 off) against
+   the plain path on the CPU from the same weights and batches: losses and
+   updated parameters must agree, K2 must launch once per decoder layer and
+   micro-batch, K1 once per tower block and twice per decoder layer
+   (forward and remat recompute);
+9. Cambrian-8B stage-1 pretraining at full width and depth with the
+   settings of ``scripts/cambrian/pretrain_cambrian_8b.sh`` (towers and
+   decoder frozen in bf16, norms fp32, the connector trained through fp32
+   masters): ``CambrianTrainer.train()`` for 3 optimizer steps at batch 8 x
+   2048 on pre-tokenized samples made with numpy; finite losses, a moved
+   connector, bitwise-unchanged frozen weights, exactly 154 K1 and 32 K2
+   launches per micro-batch; step times, throughput, peak memory, and one
+   more step under ``torch.profiler`` for where a step's device time goes.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -47,6 +68,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +84,15 @@ LAYERS = 32
 QUANT_PER_STEP = 7 * LAYERS                 # decoder projections per forward
 QUANT_LAUNCHES = QUANT_PER_STEP * NEW_TOKENS  # prefill + 31 decode steps = 7,168
 STREAM_CHUNK = 8
+# stage-1 training (phase 9): the launch script's batch and length
+TRAIN_STEPS = 3
+TRAIN_BATCH = 8
+TRAIN_SEQ = 2048
+TOWER_K1_CALLS = 27 + 23 + 40               # SigLIP, CLIP (layer -2), DINOv2
+# per micro-batch: the towers, each decoder layer's forward and its remat
+# recompute (K1); each decoder layer's backward (K2)
+TRAIN_K1_LAUNCHES = TOWER_K1_CALLS + 2 * LAYERS  # 154
+TRAIN_K2_LAUNCHES = LAYERS
 SPIN_CYCLES = 200_000    # ~0.1 ms at the H100's clock: longer than one host launch
 # the card's published peaks (H100 SXM, dense): memory rate, and the
 # operation rate for the inputs' type (bf16 tensor cores, fp32 CUDA cores)
@@ -132,7 +163,8 @@ def request_images(torch, towers, r):
 
 
 def all_counters(fa, quant):
-    return {"flash_attention_fwd": fa.flash_attention, "int8_matmul": quant.int8_matmul,
+    return {"flash_attention_fwd": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd, "int8_matmul": quant.int8_matmul,
             "int4_matmul": quant.int4_matmul,
             "int4_matmul_scale_on_weights": quant.int4_matmul_scale_on_weights}
 
@@ -485,6 +517,433 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None):
                 weight_bytes=weight_bytes, peak_bytes=peak)
 
 
+def backward_kernel_phase(torch, fa):
+    """K2 vs plain at the training path's decoder shape, a windowed causal
+    case with dead rows, and the tower shapes; returns per-case records."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
+    rng = np.random.default_rng(SEED)
+    # right padding of a stage-1 batch: each sample's valid length
+    lens = rng.integers(TRAIN_SEQ // 3, TRAIN_SEQ + 1, TRAIN_BATCH)
+    lens[0] = TRAIN_SEQ
+    train_valid = torch.arange(TRAIN_SEQ)[None] < torch.from_numpy(lens)[:, None]
+    dead = torch.ones((2, 340), dtype=torch.bool)
+    dead[0, :50] = False      # causal rows 0..49 of batch 0 see no valid key
+    dead[1] = False           # batch 1 sees none at all
+    cases = [
+        # name, b, s_q, s_k, h, kvh, d, causal, window, key_valid, launches per step
+        ("decoder_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, True, None,
+         train_valid, TRAIN_K2_LAUNCHES),
+        ("window_dead_rows", 2, 300, 340, 8, 2, 128, True, 64, dead, 0),
+        ("siglip", 1, 729, 729, 16, 16, 72, False, None, None, 0),
+        ("clip", 1, 577, 577, 16, 16, 64, False, None, None, 0),
+        ("dinov2", 1, 730, 730, 24, 24, 64, False, None, None, 0),
+    ]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    records = []
+    for name, b, s_q, s_k, h, kvh, d, causal, window, valid, per_step in cases:
+        if valid is not None:
+            valid = valid.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            dtype_name = str(dtype).replace("torch.", "")
+            q = torch.randn((b, s_q, h, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
+            do = torch.randn((b, s_q, h, d), generator=g, device=dev).to(dtype)
+            o = fa.flash_attention(q, k, v, valid, causal, window)
+            got = fa.flash_attention_bwd(q, k, v, valid, o, do, causal, window)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), valid,
+                                                    o.float(), do.float(), causal, window)
+            # fp32: the same math in another summation order; bf16: the
+            # outputs' rounding (2^-8 relative) of values up to |ref|max, and
+            # the GQA group summed in fp32 before it
+            rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+            errs, tols = {}, {}
+            for what, x, ref in zip(("dq", "dk", "dv"), got, want):
+                check(x.dtype == dtype and x.shape == ref.shape,
+                      f"K2 {name} {dtype_name} {what}: {x.dtype} {tuple(x.shape)}")
+                check(torch.isfinite(x).all().item(), f"K2 {name} {dtype_name} {what}: non-finite")
+                errs[what] = float((x.float() - ref).abs().max())
+                tols[what] = rel * max(1.0, float(ref.abs().max()))
+                check(errs[what] <= tols[what], f"K2 {name} {dtype_name} {what}: max abs error "
+                      f"{errs[what]} > {tols[what]}")
+            if name == "window_dead_rows":
+                dq, dk, dv = got
+                check((dq[1] == 0).all().item() and (dq[0, :50] == 0).all().item(),
+                      "K2: dq of dead rows is not exactly 0")
+                check(all((x[1] == 0).all().item() and (x[0, :50] == 0).all().item()
+                          for x in (dk, dv)), "K2: dk/dv of keys no row sees are not exactly 0")
+            del got, want
+            ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, valid, o, do, causal,
+                                                               window))
+            plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+                q, k, v, valid, o, do, causal, window))
+            # the (batch, query, key) pairs the mask lets through
+            keep = torch.ones((b, s_q, s_k), dtype=torch.bool, device=dev)
+            if valid is not None:
+                keep &= valid[:, None, :]
+            qpos = torch.arange(s_q, device=dev)[:, None]
+            kpos = torch.arange(s_k, device=dev)[None, :]
+            if causal:
+                keep &= kpos <= qpos
+            if window is not None:
+                keep &= (qpos - kpos) < window
+            pairs = int(keep.sum())
+            # the library call on the same work: SDPA's backward, heads first,
+            # GQA expanded, the mask dense (its forward+backward less its forward)
+            qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+            kt = k.repeat_interleave(h // kvh, 2).transpose(1, 2).contiguous().requires_grad_(True)
+            vt = v.repeat_interleave(h // kvh, 2).transpose(1, 2).contiguous().requires_grad_(True)
+            dot = do.transpose(1, 2).contiguous()
+            dense = None if valid is None and not causal else keep[:, None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense,
+                                                      scale=d ** -0.5)
+
+            sdpa_fwd_ms = cuda_ms(torch, sdpa)
+            sdpa_fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                                         dot))
+            library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+            del qt, kt, vt, dot, dense, keep
+            # each input read once (q, k, v, o, do) and each output written
+            # once (dq, dk, dv); five products of 2 * d operations per head
+            # and live pair: q.k, do.v, p^T do, ds k, ds^T q
+            n_bytes = 4 * (q.numel() + k.numel()) * q.element_size() + (
+                0 if valid is None else valid.numel())
+            bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 10 * h * d * pairs, dtype_name)
+            rec = dict(case=name, dtype=dtype_name, b=b, s_q=s_q, s_k=s_k, h=h, kvh=kvh, d=d,
+                       causal=causal, window=window, max_abs_err=max(errs.values()), errs=errs,
+                       tols=tols, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bytes_ms=bytes_ms, ops_ms=ops_ms, per_step=per_step,
+                       tflops=10 * h * d * pairs / ms / 1e9)
+            print(f"kernel flash_attention_bwd {name:16s} {dtype_name:8s} B={b} Sq={s_q} "
+                  f"Sk={s_k} H={h}/{kvh} D={d} err dq/dk/dv="
+                  f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} (tol "
+                  f"{tols['dq']:.2e}/{tols['dk']:.2e}/{tols['dv']:.2e}) kernel={ms:.4f} ms "
+                  f"({rec['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
+                  f"sdpa_bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+            records.append(rec)
+            del q, k, v, o, do
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def tiny_train_batches(cfg, towers, rng, n, b=2):
+    """n packed micro-batches of b samples: an image marker, a masked
+    prompt, right padding in the second sample."""
+    from cambrian_tpu_torch import IGNORE_INDEX, IMAGE_TOKEN_INDEX, prepare_multimodal_data
+
+    out = []
+    for _ in range(n):
+        ids = rng.integers(5, cfg.vocab_size, (b, 150)).astype(np.int64)
+        ids[:, cfg.image_position] = IMAGE_TOKEN_INDEX
+        labels = ids.copy()
+        labels[:, :30] = IGNORE_INDEX
+        mask = np.ones(ids.shape, bool)
+        mask[1, 110:] = False
+        ids[1, 110:] = 0
+        labels[1, 110:] = IGNORE_INDEX
+        pids, plab, pmask, ppos, aux = prepare_multimodal_data(
+            ids, labels, mask, [(640, 360), (300, 500)][:b], cfg.image_token_len,
+            cfg.mm_vision_tower_aux_token_len_list, cfg.tokenizer_model_max_length)
+        images = [rng.standard_normal((b, 3, t.image_size, t.image_size), dtype=np.float32)
+                  for t in towers]
+        out.append(dict(input_ids=pids, labels=plab, attention_mask=pmask, position_ids=ppos,
+                        aux_masks=list(aux), images=images))
+    return out
+
+
+def batch_to(torch, batch, device):
+    return {k: [torch.from_numpy(np.asarray(x)).to(device) for x in v] if isinstance(v, list)
+            else torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+
+
+def tiny_training_phase(torch, fa, quant):
+    """``make_train_step`` on a tiny Cambrian, stage 1 and stage 2: the
+    kernel path on the card (fp32, TF32 off) against the plain path on the
+    CPU, 3 optimizer steps each from the same weights and batches."""
+    from cambrian_tpu_torch import tiny_debug
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.train.optimizer import TrainConfig
+    from cambrian_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_debug(num_towers=2).replace(tokenizer_model_max_length=192)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED), 0.05,
+                           dtype=torch.float32, device="cpu")
+    towers = CambrianForInference.from_state_dict(cfg, sd, torch.float32).towers
+    batches = tiny_train_batches(cfg, towers, np.random.default_rng(SEED + 1), TRAIN_STEPS)
+    tower_calls = sum(t.config.num_blocks_to_run for t in towers)
+    counters = all_counters(fa, quant)
+    loss_tol, param_tol = 1e-4, 1e-4
+    out = {}
+    for stage in (1, 2):
+        tc = TrainConfig(learning_rate=1e-3, mm_vision_sampler_lr=5e-4, warmup_ratio=0.34,
+                         total_steps=TRAIN_STEPS, lr_scheduler_type="cosine", max_grad_norm=1.0,
+                         tune_mm_mlp_adapter=stage == 1)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            m = CambrianForInference.from_state_dict(
+                cfg, {k: v.to(dev, copy=True) for k, v in sd.items()}, torch.float32)
+            state = init_train_state(m.lm, m.towers, tc)
+            step = make_train_step(m.lm, m.towers, freeze=tc)
+            zero_counts(counters)
+            losses = [float(step(state, batch_to(torch, b, dev))[1]["loss"]) for b in batches]
+            runs[dev] = (losses, read_counts(counters),
+                         {k: p.detach().cpu() for k, p in m.lm.named_parameters()},
+                         len(state.optimizer.params))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+        param_err = max(float((runs["cuda"][2][k] - p).abs().max())
+                        for k, p in runs["cpu"][2].items())
+        want = {name: 0 for name in counters}
+        want["flash_attention_fwd"] = TRAIN_STEPS * (tower_calls + 2 * cfg.num_hidden_layers)
+        want["flash_attention_bwd"] = TRAIN_STEPS * cfg.num_hidden_layers
+        print(f"tiny training stage {stage}: cpu losses {runs['cpu'][0]} card losses "
+              f"{runs['cuda'][0]} (max rel diff {loss_err:.3e}), parameters max abs diff "
+              f"{param_err:.3e}, {runs['cuda'][3]} trainable tensors, card launches "
+              f"{ {k: v for k, v in runs['cuda'][1].items() if v} }", flush=True)
+        check(runs["cpu"][1] == {name: 0 for name in counters},
+              f"tiny training stage {stage}: the CPU path launched {runs['cpu'][1]}")
+        check(runs["cuda"][1] == want,
+              f"tiny training stage {stage}: launched {runs['cuda'][1]}, not {want}")
+        check(all(np.isfinite(runs["cuda"][0])), f"tiny training stage {stage}: non-finite loss")
+        check(loss_err <= loss_tol, f"tiny training stage {stage}: losses differ by {loss_err}")
+        check(param_err <= param_tol,
+              f"tiny training stage {stage}: parameters differ by {param_err}")
+        out[f"stage{stage}"] = dict(cpu_losses=runs["cpu"][0], card_losses=runs["cuda"][0],
+                                    loss_rel_err=loss_err, param_abs_err=param_err,
+                                    launches=runs["cuda"][1])
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+class PretokenizedDataset:
+    """Stage-1 samples made with numpy (the card's machine has no tokenizer
+    or image decoder): token ids with the llama_3 prompt masked, image
+    samples with their marker at ``image_position`` and per-tower pixel
+    arrays at each tower's crop size, text-only samples with the zero images
+    ``LazySupervisedDataset`` gives them."""
+
+    def __init__(self, cfg, towers, n, rng):
+        from cambrian_tpu_torch import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+
+        self.items, self.modality_lengths = [], []
+        longest = TRAIN_SEQ - cfg.image_block_len   # what fits beside the image block
+        for i in range(n):
+            has_image = i % 3 != 2
+            length = int(rng.integers(longest // 4, longest + 1))
+            ids = rng.integers(5, min(cfg.vocab_size, 128000), length).astype(np.int64)
+            ids[0] = cfg.bos_token_id
+            labels = ids.copy()
+            labels[:cfg.image_position + 24] = IGNORE_INDEX      # the prompt
+            if has_image:
+                ids[cfg.image_position] = IMAGE_TOKEN_INDEX
+                images = [rng.standard_normal((3, t.image_size, t.image_size), dtype=np.float32)
+                          for t in towers]
+                size = (int(rng.integers(300, 1200)), int(rng.integers(300, 1200)))
+            else:
+                images = [np.zeros((3, t.image_size, t.image_size), np.float32) for t in towers]
+                size = (towers[0].image_size, towers[0].image_size)
+            self.items.append(dict(input_ids=ids, labels=labels, image_aux_list=images,
+                                   image_size=size))
+            self.modality_lengths.append(length if has_image else -length)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+class PretokenizedTokenizer:
+    """What the collator reads of a tokenizer (LLaMA-3: pad = eos)."""
+    model_max_length = TRAIN_SEQ
+    pad_token_id = 128001
+    padding_side = "right"
+
+
+def kernel_events(prof):
+    """(device us, count, name) of each kernel of a profiled run, longest
+    first; the host-side ops that launched them are left out."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out.append((us, e.count, e.key))
+    return sorted(out, reverse=True)
+
+
+def device_time_by_kind(prof):
+    """Device ms of a profiled run by kernel kind: K1, K2, GEMMs, others."""
+    kinds = {"K1": 0.0, "K2": 0.0, "gemm": 0.0, "other": 0.0}
+    for us, _, key in kernel_events(prof):
+        name = key.lower()
+        if "flash_fwd_kernel" in name:
+            kind = "K1"
+        elif any(s in name for s in ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")):
+            kind = "K2"
+        elif any(s in name for s in ("gemm", "xmma", "nvjet", "cutlass")):
+            kind = "gemm"
+        else:
+            kind = "other"
+        kinds[kind] += us / 1e3
+    return kinds
+
+
+def train_8b_phase(torch, fa, quant, k2_record):
+    """Cambrian-8B stage-1 pretraining through ``CambrianTrainer.train()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.train.optimizer import cast_frozen_params, label_params
+    from cambrian_tpu_torch.train.train_step import make_train_step, named_parameters
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments, _pin
+
+    dev = torch.device("cuda")
+    # the training entry point's default: fp32 products (the loss's head) in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cambrian_8b()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # scripts/cambrian/pretrain_cambrian_8b.sh, but 3 optimizer steps
+    args = TrainingArguments(
+        output_dir=out_dir, tune_mm_mlp_adapter=True, bf16=True, num_train_epochs=1,
+        per_device_train_batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
+        learning_rate=1e-3, mm_vision_sampler_lr=1e-4, weight_decay=0.0, warmup_ratio=0.06,
+        lr_scheduler_type="cosine", logging_steps=1, save_steps=500, save_total_limit=2,
+        group_by_modality_length=True, seed=SEED, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sd = random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+    model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+    del sd
+    lm, towers = model.lm, model.towers
+    dataset = PretokenizedDataset(cfg, towers, TRAIN_STEPS * TRAIN_BATCH,
+                                  np.random.default_rng(SEED))
+    collator = DataCollatorForSupervisedDataset(
+        tokenizer=PretokenizedTokenizer(), image_token_len=cfg.image_token_len,
+        image_aux_token_len_list=list(cfg.mm_vision_tower_aux_token_len_list),
+        image_position=cfg.image_position)
+    # the trainer's own bf16 cast of the frozen groups, done first so that
+    # the frozen weights can be snapshotted as they train
+    named = named_parameters(lm, towers)
+    cast_frozen_params(named, args)
+    labels = label_params(named, args)
+    frozen = {n: p for n, p in named.items() if labels[n] == "frozen"}
+    frozen.update({f"towers.{i}.{n}": p for i, t in enumerate(towers)
+                   for n, p in t.named_parameters()})
+    trainable = {n: p for n, p in named.items() if labels[n] != "frozen"}
+    n_frozen = sum(p.numel() for p in frozen.values())
+    n_trainable = sum(p.numel() for p in trainable.values())
+    frozen_before = {n: p.detach().cpu() for n, p in frozen.items()}
+    trainable_before = {n: p.detach().cpu() for n, p in trainable.items()}
+    valid_tokens = sum(int(collator([it])["attention_mask"].sum()) for it in dataset.items)
+    torch.cuda.synchronize()
+    print(f"8B train build: {n_trainable / 1e9:.4f}B trainable, {n_frozen / 1e9:.3f}B frozen "
+          f"parameters ({len(trainable)} / {len(frozen)} tensors) in "
+          f"{time.perf_counter() - t0:.1f} s; {len(dataset)} samples, {valid_tokens} valid "
+          f"tokens in {len(dataset) * TRAIN_SEQ} slots", flush=True)
+
+    trainer = CambrianTrainer(model=lm, towers=towers, args=args, train_dataset=dataset,
+                              data_collator=collator)
+    counters = all_counters(fa, quant)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)                    # the training path's count starts here
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+
+    step_ms = [s * 1e3 for s in trainer.step_seconds]
+    warm_ms = float(np.mean(step_ms[1:]))
+    for h in history:
+        print(f"8B train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
+              f"lr {h['lr']:.3e}", flush=True)
+    check([h["step"] for h in history] == list(range(1, TRAIN_STEPS + 1)),
+          f"8B train: history steps {[h['step'] for h in history]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+              for h in history), "8B train: non-finite loss or grad_norm, or grad_norm 0")
+    want = {name: 0 for name in counters}
+    want["flash_attention_fwd"] = TRAIN_STEPS * TRAIN_K1_LAUNCHES
+    want["flash_attention_bwd"] = TRAIN_STEPS * TRAIN_K2_LAUNCHES
+    check(launches == want, f"8B train: launched {launches}, not {want}")
+    moved = [n for n, p in trainable.items() if not torch.equal(p.detach().cpu(),
+                                                                 trainable_before[n])]
+    check(any("vision_sampler" in n for n in moved) and any("mm_projector" in n for n in moved),
+          f"8B train: the connector did not move ({len(moved)} tensors changed)")
+    changed = [n for n, p in frozen.items() if not torch.equal(p.detach().cpu(),
+                                                               frozen_before[n])]
+    check(not changed, f"8B train: frozen weights changed: {changed[:5]}")
+    check(all(p.grad is None for p in named.values()), "8B train: a parameter kept a .grad")
+    del frozen_before, trainable_before
+
+    k2_step_ms = TRAIN_K2_LAUNCHES * k2_record["ms"]
+    warm_s = warm_ms / 1e3
+    rec = dict(step_ms=step_ms, warm_step_ms=warm_ms, samples_per_s=TRAIN_BATCH / warm_s,
+               slot_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s,
+               valid_tokens_per_s=valid_tokens / TRAIN_STEPS / warm_s, peak_bytes=peak,
+               n_trainable=n_trainable, n_frozen=n_frozen, launches=launches,
+               history=history, moved=len(moved), trainable_tensors=len(trainable),
+               k2_step_ms=k2_step_ms, k2_share=k2_step_ms / warm_ms)
+    print(f"8B train: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); "
+          f"warm {warm_ms:.1f} ms, {rec['samples_per_s']:.3f} samples/s, "
+          f"{rec['slot_tokens_per_s']:.1f} slot tokens/s, {rec['valid_tokens_per_s']:.1f} valid "
+          f"tokens/s; peak memory allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); "
+          f"{len(moved)}/{len(trainable)} connector tensors moved; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"8B train: K2 per step {TRAIN_K2_LAUNCHES} x {k2_record['ms']:.3f} ms = "
+          f"{k2_step_ms:.1f} ms, {100 * rec['k2_share']:.1f}% of a warm step", flush=True)
+
+    # one more step under the profiler: where a step's device time goes
+    step_fn = make_train_step(lm, towers)
+    state = trainer._final_state
+    host = collator(dataset.items[:TRAIN_BATCH])
+    batch = {k: [x.to(dev, non_blocking=True) for x in _pin(v)] if isinstance(v, list)
+             else _pin(v).to(dev, non_blocking=True) for k, v in host.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        check(np.isfinite(float(metrics["loss"])), "8B profiled step: non-finite loss")
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    kinds = device_time_by_kind(prof)
+    busy = sum(kinds.values())
+    check(kinds["K1"] > 0 and kinds["K2"] > 0, f"8B profiled step: no K1/K2 device time {kinds}")
+    rec.update(profiled_wall_ms=prof_wall_ms, device_ms=kinds, device_busy_ms=busy,
+               idle_share=1 - busy / prof_wall_ms)
+    print(f"8B train profiled step: wall {prof_wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {100 * rec['idle_share']:.1f}%): K1 {kinds['K1']:.1f} ms, K2 "
+          f"{kinds['K2']:.1f} ms, GEMMs {kinds['gemm']:.1f} ms, other {kinds['other']:.1f} ms",
+          flush=True)
+    for us, count, key in kernel_events(prof)[:12]:
+        print(f"  {us / 1e3:9.1f} ms {count:6d}x {key[:110]}", flush=True)
+
+    del model, lm, towers, trainer, state, batch, step_fn, named, frozen, trainable, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -505,7 +964,7 @@ def main(argv=None):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    built = cuda_build.build("flash_attention", "quant_matmul")
+    built = cuda_build.build("flash_attention", "flash_attention_bwd", "quant_matmul")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s in all", flush=True)
     for name, b in built.items():
         print(f"{name}: {b['seconds']:.2f} s -> {b['path']}", flush=True)
@@ -523,10 +982,17 @@ def main(argv=None):
             for q in (None, "int8", "int4")}
     full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q)
             for q in (None, "int8", "int4")}
+    bwd_kernels = backward_kernel_phase(torch, fa)
+    tiny_train = tiny_training_phase(torch, fa, quant)
+    k2_path = [k for k in bwd_kernels if k["per_step"] and k["dtype"] == "bfloat16"]
+    check(len(k2_path) == 1, "one K2 case at the training path's shape")
+    k2 = k2_path[0]
+    train = train_8b_phase(torch, fa, quant, k2)
 
-    # launches: each 8B path's counts, read just after it, summed over paths
-    launches = {name: sum(f["launches"][name] for f in full.values())
-                for name in all_counters(fa, quant)}
+    # launches: each 8B path's counts (serving, training), read just after
+    # it, summed over paths
+    paths = [f["launches"] for f in full.values()] + [train["launches"]]
+    launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
     k1_bytes_ms = sum(k["per_request"] * k["bytes_ms"] for k in path)
@@ -578,11 +1044,29 @@ def main(argv=None):
         print(f"{name}: per request {rows[-1]['ms']:.1f} ms (bound "
               f"{rows[-1]['bound_ms']:.2f} ms, matmul {rows[-1]['library_ms']:.1f} ms)",
               flush=True)
+    # K2: per training step, 32 calls at the decoder's shape (bf16)
+    rows.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "cambrian_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "cambrian_tpu/ops/flash_attention.py:140",
+        "launches": launches["flash_attention_bwd"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"] * k2["per_step"],
+        "plain_ms": k2["plain_ms"] * k2["per_step"],
+        "bound_ms": k2["bound_ms"] * k2["per_step"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"] * k2["per_step"],
+    })
+    print(f"flash_attention_bwd: per training step kernel {rows[-1]['ms']:.1f} ms, plain "
+          f"{rows[-1]['plain_ms']:.1f} ms, sdpa backward {rows[-1]['library_ms']:.1f} ms, bound "
+          f"{rows[-1]['bound_ms']:.2f} ms ({k2['bound_by']})", flush=True)
     summary = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()},
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
+                           bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
                            summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1,5 +1,6 @@
-"""The port imports without JAX, without the JAX package and without a GPU
-toolchain: kernels are built on first use, never at import."""
+"""The port imports without JAX (nor flax, optax, orbax), without the JAX
+package and without a GPU toolchain: kernels are built on first use, never
+at import. The probe covers serving and the training path."""
 
 import json
 import os
@@ -19,12 +20,21 @@ import cambrian_tpu_torch.models.builder
 import cambrian_tpu_torch.serve.cli
 import cambrian_tpu_torch.ops.flash_attention as fa
 import cambrian_tpu_torch.ops.quant as quant
+import cambrian_tpu_torch.train.optimizer
+import cambrian_tpu_torch.train.train_step
+import cambrian_tpu_torch.train.trainer
+import cambrian_tpu_torch.train.train
+import cambrian_tpu_torch.data.dataset
+import cambrian_tpu_torch.data.preprocess
+import cambrian_tpu_torch.data.native_image
+import cambrian_tpu_torch.checkpoint.save
 print(json.dumps({
-    "loaded": sorted(m for m in ("jax", "flax", "triton", "PIL", "transformers",
-                                 "safetensors") if m in sys.modules),
+    "loaded": sorted(m for m in ("jax", "flax", "optax", "orbax", "triton", "PIL",
+                                 "transformers", "safetensors") if m in sys.modules),
     "jax_package": sorted(m for m in sys.modules
                           if m == "cambrian_tpu" or m.startswith("cambrian_tpu.")),
-    "built": fa._library.cache_info().currsize + quant._library.cache_info().currsize,
+    "built": (fa._library.cache_info().currsize + fa._bwd_library.cache_info().currsize
+              + quant._library.cache_info().currsize),
 }))
 """
 
