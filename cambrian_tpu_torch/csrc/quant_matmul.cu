@@ -618,7 +618,7 @@ int cambrian_quant_matmul(int mode, int dtype, const void* x, int64_t ldx, const
   return (int)cudaErrorInvalidValue;
 }
 
-const char* cambrian_quant_error_string(int err) {
+const char* cambrian_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

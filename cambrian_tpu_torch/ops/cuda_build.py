@@ -8,16 +8,19 @@ is compiled at import time; ``build`` starts one ``nvcc`` per missing
 library, all at once, and waits for them.
 """
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cambrian_tpu_torch"
+# the dtype argument every kernel's C interface takes
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,3 +62,39 @@ def build(*names: str) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build ``csrc/{name}.cu`` if needed and load it with ctypes. Each entry
+    of ``signatures`` gives a C function's argument types; every one returns
+    a cudaError_t as an int, which ``cambrian_cuda_error_string`` names."""
+    lib = ctypes.CDLL(build(name)[name]["path"])
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.cambrian_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cambrian_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.cambrian_cuda_error_string(err).decode()}")
+
+
+def on_cpu(t, name: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA one
+    (the kernel runs); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return False
+
+
+def dtype_code(t) -> int:
+    """The C interfaces' code for a tensor's dtype (float32 or bfloat16)."""
+    return DTYPE_CODES[str(t.dtype).replace("torch.", "")]

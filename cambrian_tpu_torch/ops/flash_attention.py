@@ -26,7 +26,6 @@ from . import cuda_build
 from .attention import NEG_INF
 
 MAX_HEAD_DIM = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_reference(q, k, v, key_valid=None, causal=False,
@@ -106,28 +105,18 @@ def flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal=False,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(cuda_build.build("flash_attention")["flash_attention"]["path"])
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-    lib.cambrian_flash_attention_fwd.argtypes = (
-        [i32] + [ptr] * 5 + [i64] * 12 + [i32] * 6
-        + [ctypes.c_float, i32, i32, i32, ptr])
-    lib.cambrian_flash_attention_fwd.restype = i32
-    lib.cambrian_cuda_error_string.argtypes = [i32]
-    lib.cambrian_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.load("flash_attention", {
+        "cambrian_flash_attention_fwd": [i32] + [ptr] * 5 + [i64] * 12 + [i32] * 6
+                                        + [ctypes.c_float, i32, i32, i32, ptr]})
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(cuda_build.build("flash_attention_bwd")["flash_attention_bwd"]["path"])
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-    lib.cambrian_flash_attention_bwd.argtypes = (
-        [i32] + [ptr] * 12 + [i64] * 24 + [i32] * 6
-        + [ctypes.c_float, i32, i32, i32, ptr])
-    lib.cambrian_flash_attention_bwd.restype = i32
-    lib.cambrian_cuda_error_string.argtypes = [i32]
-    lib.cambrian_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.load("flash_attention_bwd", {
+        "cambrian_flash_attention_bwd": [i32] + [ptr] * 12 + [i64] * 24 + [i32] * 6
+                                        + [ctypes.c_float, i32, i32, i32, ptr]})
 
 
 def _strides(*tensors):
@@ -141,7 +130,7 @@ def _check_inputs(q, k, v, key_valid):
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
     if h % k.shape[2] != 0:
         raise ValueError(f"{h} heads are not a multiple of {k.shape[2]} kv heads")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if d > MAX_HEAD_DIM:
@@ -203,13 +192,11 @@ def _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention.launches += 1
     err = lib.cambrian_flash_attention_fwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cuda_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(),
         *_strides(q, k, v, out), b, h, kvh, s_q, s_k, d, scale, int(bool(causal)),
         -1 if sliding_window is None else int(sliding_window), int(q_offset), stream)
-    if err != 0:
-        msg = lib.cambrian_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
+    cuda_build.check_launch(lib, err, "flash_attention")
     return out
 
 
@@ -267,16 +254,14 @@ def flash_attention_bwd(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention_bwd.launches += 1
     err = lib.cambrian_flash_attention_bwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cuda_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(), o.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
         *_strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s_q, s_k, d, scale,
         int(bool(causal)), -1 if sliding_window is None else int(sliding_window),
         int(q_offset), stream)
-    if err != 0:
-        msg = lib.cambrian_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: {msg}")
+    cuda_build.check_launch(lib, err, "flash_attention_bwd")
     return dq, dk, dv
 
 

@@ -32,7 +32,6 @@ INT4_GROUP = 128  # unpacked K rows per scale
 DECODER_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                          "gate_proj", "up_proj", "down_proj")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODE_INT8, _MODE_INT4, _MODE_INT4_SCALE_ON_WEIGHTS = 0, 1, 2
 _KERNEL_TILE_K = 32   # the kernel's K tile: int4 groups are a multiple of it, or K
 
@@ -151,14 +150,9 @@ def int4_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tens
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(cuda_build.build("quant_matmul")["quant_matmul"]["path"])
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-    lib.cambrian_quant_matmul.argtypes = [i32, i32, ptr, i64, ptr, ptr, ptr,
-                                          i32, i32, i32, i32, ptr]
-    lib.cambrian_quant_matmul.restype = i32
-    lib.cambrian_quant_error_string.argtypes = [i32]
-    lib.cambrian_quant_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.load("quant_matmul", {
+        "cambrian_quant_matmul": [i32, i32, ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr]})
 
 
 def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -168,7 +162,7 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
     kernel refuses."""
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernel takes bfloat16 or float32 x, got {x.dtype}")
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"weights must be int8 and scales float32, got {w.dtype}, {scale.dtype}")
@@ -187,12 +181,10 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     wrapper.launches += 1
-    err = lib.cambrian_quant_matmul(mode, _DTYPE_CODES[x.dtype], x.data_ptr(), ldx,
+    err = lib.cambrian_quant_matmul(mode, cuda_build.dtype_code(x), x.data_ptr(), ldx,
                                     w.data_ptr(), scale.data_ptr(), out.data_ptr(),
                                     m, n, k, group, stream)
-    if err != 0:
-        msg = lib.cambrian_quant_error_string(err).decode()
-        raise RuntimeError(f"quant matmul kernel launch failed: {msg}")
+    cuda_build.check_launch(lib, err, "quant matmul")
     return out
 
 
@@ -207,18 +199,10 @@ def _int4_shapes(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> Tu
     return k, n, group
 
 
-def _on_cpu(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
-    return False
-
-
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] (bf16/fp32) @ dequant(w_q int8 [K, N], scale fp32 [N]) ->
     [M, N] in x.dtype. Kernel K3 on the card."""
-    if _on_cpu(x, "int8_matmul"):
+    if cuda_build.on_cpu(x, "int8_matmul"):
         return int8_matmul_reference(x, w_q, scale)
     k, n = w_q.shape
     if scale.shape != (n,):
@@ -230,7 +214,7 @@ def int4_matmul_scale_on_weights(x: torch.Tensor, w_q4: torch.Tensor,
                                  scale: torch.Tensor) -> torch.Tensor:
     """The int4 product with the scale applied to the weights in x.dtype
     (kernel K4b/K4c on the card)."""
-    if _on_cpu(x, "int4_matmul_scale_on_weights"):
+    if cuda_build.on_cpu(x, "int4_matmul_scale_on_weights"):
         return int4_matmul_reference(x, w_q4, scale, scale_on_weights=True)
     k, n, group = _int4_shapes(x, w_q4, scale)
     return _launch(int4_matmul_scale_on_weights, _MODE_INT4_SCALE_ON_WEIGHTS, x, w_q4, scale,
@@ -248,7 +232,7 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> tor
     ``int4_matmul_scale_on_weights``."""
     if _scale_on_weights_selected():
         return int4_matmul_scale_on_weights(x, w_q4, scale)
-    if _on_cpu(x, "int4_matmul"):
+    if cuda_build.on_cpu(x, "int4_matmul"):
         return int4_matmul_reference(x, w_q4, scale)
     k, n, group = _int4_shapes(x, w_q4, scale)
     return _launch(int4_matmul, _MODE_INT4, x, w_q4, scale, k, n, group)

@@ -58,7 +58,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    2048 on pre-tokenized samples made with numpy; finite losses, a moved
    connector, bitwise-unchanged frozen weights, exactly 154 K1 and 32 K2
    launches per micro-batch; step times, throughput, peak memory, and one
-   more step under ``torch.profiler`` for where a step's device time goes.
+   more step under ``torch.profiler`` for where a step's device time goes;
+10. K5-K8 (SVA windowed attention, fused LayerNorm, depthwise 7x7 conv,
+   fused GELU MLP), which no site of the path calls (as in the JAX
+   package), on the inputs that one more warm bf16 request of phase 5 gave
+   their drop-in sites (hooks on every LayerNorm, ConvNeXt dwconv and
+   pwconv pair, SVA Mlp, and a recording wrapper around the SVA attention):
+   one drop-in pass over every site shape, which must launch each kernel
+   once per shape; each kernel against its plain version on fp32-upcast
+   inputs and against the main path's output at the site; CUDA-event
+   times (L2 flushed) of the kernel, its plain version and the library
+   call the main path makes there; the bound; training-batch (B = 8) and
+   small fp32 cases; K5-K7's backward against the plain backward.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -94,6 +105,9 @@ TOWER_K1_CALLS = 27 + 23 + 40               # SigLIP, CLIP (layer -2), DINOv2
 TRAIN_K1_LAUNCHES = TOWER_K1_CALLS + 2 * LAYERS  # 154
 TRAIN_K2_LAUNCHES = LAYERS
 SPIN_CYCLES = 200_000    # ~0.1 ms at the H100's clock: longer than one host launch
+# ~0.5 ms: longer than a K5-K8 wrapper's host work (an autograd Function and a
+# ctypes call), which a loaded host can stretch past 0.1 ms
+SITE_SPIN_CYCLES = 1_000_000
 # the card's published peaks (H100 SXM, dense): memory rate, and the
 # operation rate for the inputs' type (bf16 tensor cores, fp32 CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -115,11 +129,12 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(torch, fn, iters=10, flush=None):
+def cuda_ms(torch, fn, iters=10, flush=None, spin=SPIN_CYCLES):
     """Mean device time of ``fn`` over ``iters`` calls, after one warm-up.
     With ``flush``, each call is timed alone after ``flush()`` has run; a
-    spin kernel then holds the stream until the host has queued the timed
-    call, so that its launch cost on the host is not read as device time."""
+    spin kernel (``spin`` cycles) then holds the stream until the host has
+    queued the timed call, so that its launch cost on the host is not read
+    as device time."""
     fn()
     torch.cuda.synchronize()
     if flush is None:
@@ -134,7 +149,7 @@ def cuda_ms(torch, fn, iters=10, flush=None):
     events = []
     for _ in range(iters):
         flush()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -163,10 +178,16 @@ def request_images(torch, towers, r):
 
 
 def all_counters(fa, quant):
+    from cambrian_tpu_torch.ops import dwconv, fused_mlp, norms, sva_attention
+
     return {"flash_attention_fwd": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd, "int8_matmul": quant.int8_matmul,
             "int4_matmul": quant.int4_matmul,
-            "int4_matmul_scale_on_weights": quant.int4_matmul_scale_on_weights}
+            "int4_matmul_scale_on_weights": quant.int4_matmul_scale_on_weights,
+            "fused_windowed_cross_attention": sva_attention.fused_windowed_cross_attention,
+            "fused_layer_norm": norms.fused_layer_norm,
+            "depthwise_conv7x7": dwconv.depthwise_conv7x7,
+            "fused_mlp": fused_mlp.fused_mlp}
 
 
 def zero_counts(counters):
@@ -450,8 +471,11 @@ def serve_request(torch, model, counters, cfg, r, pr, stream=False):
     return rec
 
 
-def full_width_phase(torch, fa, quant, prompts, quantize=None):
-    """Cambrian-8B through the user entry points, bf16 or quantized."""
+def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
+    """Cambrian-8B through the user entry points, bf16 or quantized. With
+    ``sites`` (a dict), one more warm request (request 0's prompt and image,
+    2 new tokens) runs after the counted ones with ``capture_sites``' hooks,
+    and the captured drop-in sites of K5-K8 are put into ``sites``."""
     from cambrian_tpu_torch import cambrian_8b
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
 
@@ -507,9 +531,29 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None):
             rec["scale_on_weights"] = True
             requests.append(rec)
     launches = read_counts(counters)
+    unused = {k: launches[k] for k in VISION_KERNELS if launches[k]}
+    check(not unused, f"8B {label}: the main path launched K5-K8 {unused}")
     peak = torch.cuda.max_memory_allocated()
     print(f"8B {label} peak memory allocated: {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)",
           flush=True)
+    if sites is not None:
+        pr = prompts[0]
+        t0 = time.perf_counter()
+        sites.update(capture_sites(torch, [model.lm, *model.towers], lambda: model.generate(
+            pr["ids"], images=request_images(torch, model.towers, 0), image_sizes=[pr["size"]],
+            max_new_tokens=2, eos_token_id=None)))
+        per_request = {kind: sum(x["count"] for x in found.values())
+                       for kind, found in sites.items()}
+        pairs = sum(x["count"] for k, x in sites["fused_mlp"].items() if k[0] == "convnext")
+        print(f"8B {label}: K5-K8 drop-in sites of one request captured in "
+              f"{time.perf_counter() - t0:.1f} s: {per_request} "
+              f"({ {kind: len(found) for kind, found in sites.items()} } shapes)", flush=True)
+        # ConvNeXt-XXL has 3 + 4 + 30 + 3 blocks; SVA attention runs in the 3
+        # connector layers and the 10 in-decoder injections
+        check(per_request["depthwise_conv7x7"] == 40 and pairs == 40,
+              f"8B sites: {per_request['depthwise_conv7x7']} dwconv, {pairs} ConvNeXt MLP pairs")
+        check(per_request["fused_windowed_cross_attention"] == 13,
+              f"8B sites: {per_request['fused_windowed_cross_attention']} SVA attention calls")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -944,6 +988,394 @@ def train_8b_phase(torch, fa, quant, k2_record):
     return rec
 
 
+# -- phase 10: kernels K5-K8 at the drop-in sites of the 8B encode and prefill --
+
+# kind (the kernel wrapper's name): (its op module, the site's arguments in
+# order, the TPU kernel it replaces, its source)
+VISION_KERNELS = {
+    "fused_windowed_cross_attention": (
+        "sva_attention", ("q", "k", "v", "mask"), "cambrian_tpu/ops/sva_attention.py:35",
+        "cambrian_tpu_torch/csrc/sva_attention.cu"),
+    "fused_layer_norm": (
+        "norms", ("x", "weight", "bias", "eps"), "cambrian_tpu/ops/norms.py:51",
+        "cambrian_tpu_torch/csrc/layer_norm.cu"),
+    "depthwise_conv7x7": (
+        "dwconv", ("x", "w", "bias"), "cambrian_tpu/ops/dwconv.py:36",
+        "cambrian_tpu_torch/csrc/dwconv.cu"),
+    "fused_mlp": (
+        "fused_mlp", ("x", "w1", "b1", "w2", "b2"), "cambrian_tpu/ops/fused_mlp.py:36",
+        "cambrian_tpu_torch/csrc/fused_mlp.cu"),
+}
+SITE_REL_PLAIN = 2 ** -7   # bf16 kernel vs its plain version on fp32-upcast inputs
+# vs the main path's own op at the site: K5's einsum path rounds the
+# probabilities to bf16 before PV and K8's main path rounds the first
+# Linear's output (and adds its bias) in bf16 before GELU, so each differs
+# from the kernel by more than one output rounding; K6's layer_norm and K7's
+# cuDNN conv round only their outputs, but are held to the same bound
+SITE_REL_MAIN = 2 ** -5
+
+
+def _site_fns(kind):
+    """(the kernel wrapper, its plain version) of a site kind."""
+    import importlib
+
+    mod = importlib.import_module(f"cambrian_tpu_torch.ops.{VISION_KERNELS[kind][0]}")
+    return getattr(mod, kind), getattr(mod, f"{kind}_reference")
+
+
+def _site_args(torch, kind, site, upcast=False):
+    args = [site[a] for a in VISION_KERNELS[kind][1]]
+    if upcast:
+        args = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    return args
+
+
+def kernel_at_site(torch, kind, site):
+    """The kernel (or, for CPU tensors, its plain version) on the site's inputs."""
+    return _site_fns(kind)[0](*_site_args(torch, kind, site))
+
+
+def plain_at_site(torch, kind, site, upcast=False):
+    """The plain version on the site's inputs (upcast to fp32 if asked)."""
+    return _site_fns(kind)[1](*_site_args(torch, kind, site, upcast))
+
+
+def capture_sites(torch, modules, run):
+    """Run ``run()`` once with forward hooks on the drop-in sites of K5-K8
+    inside ``modules`` (every ``LayerNorm``; each ``ConvNeXtBlock``'s dwconv
+    and its pwconv1/pwconv2 pair; every SVA ``Mlp``) and a recording wrapper
+    around the SVA module's ``windowed_cross_attention``, which returns the
+    main path's own result. Returns {kind: {shape key: site}}: the inputs
+    and output of the first site of each shape, in the kernel's layout, and
+    ``count``, the sites of that shape in the run. Hooks and wrapper are
+    removed on return."""
+    from cambrian_tpu_torch.models import sva
+    from cambrian_tpu_torch.models.encoders.convnext import ConvNeXtBlock
+    from cambrian_tpu_torch.ops.norms import LayerNorm
+
+    sites = {kind: {} for kind in VISION_KERNELS}
+
+    def keep(kind, key, make):
+        if key not in sites[kind]:
+            sites[kind][key] = dict(make(), count=0)
+        sites[kind][key]["count"] += 1
+
+    def grab(t):
+        return t.detach().contiguous().clone()
+
+    def on_norm(mod, inputs, out):
+        x = inputs[0]
+        c = x.shape[-1]
+        keep("fused_layer_norm", (c, x.numel() // c), lambda: dict(
+            x=grab(x.reshape(-1, c)), weight=mod.weight.detach(), bias=mod.bias.detach(),
+            eps=mod.eps, out=grab(out.reshape(-1, c))))
+
+    def on_dwconv(conv, inputs, out):
+        x = inputs[0]                                    # NCHW
+        keep("depthwise_conv7x7", (x.shape[0], x.shape[2], x.shape[3], x.shape[1]), lambda: dict(
+            x=grab(x.permute(0, 2, 3, 1)), w=conv.weight.detach()[:, 0].permute(1, 2, 0),
+            bias=conv.bias.detach(), out=grab(out.permute(0, 2, 3, 1)),
+            x_nchw=x.detach().clone(), conv_w=conv.weight.detach(), conv_b=conv.bias.detach()))
+
+    def mlp_site(x, lin1, lin2, out):
+        return dict(x=grab(x), w1=lin1.weight.detach().t(),
+                    b1=None if lin1.bias is None else lin1.bias.detach(),
+                    w2=lin2.weight.detach().t(),
+                    b2=None if lin2.bias is None else lin2.bias.detach(), out=grab(out))
+
+    def on_pair(block):
+        pending = {}
+
+        def first(lin, inputs, out):
+            pending["x"] = inputs[0]
+
+        def second(lin, inputs, out):
+            x = pending.pop("x").reshape(-1, block.pwconv1.in_features)
+            out = out.reshape(x.shape[0], -1)
+            keep("fused_mlp", ("convnext", x.shape[0], x.shape[1], block.pwconv1.out_features,
+                               out.shape[1]),
+                 lambda: mlp_site(x, block.pwconv1, block.pwconv2, out))
+
+        return first, second
+
+    def on_mlp(mod, inputs, out):
+        x = inputs[0].reshape(-1, mod.linear_1.in_features)
+        out = out.reshape(x.shape[0], -1)
+        keep("fused_mlp", ("sva_mlp", x.shape[0], x.shape[1], mod.linear_1.out_features,
+                           out.shape[1]), lambda: mlp_site(x, mod.linear_1, mod.linear_2, out))
+
+    original = sva.windowed_cross_attention
+
+    def recording(q, k, v, mask=None, scale=None):
+        out = original(q, k, v, mask, scale)
+        key = (*k.shape, 0 if mask is None else mask.dim())
+        keep("fused_windowed_cross_attention", key, lambda: dict(
+            q=grab(q), k=grab(k), v=grab(v), mask=None if mask is None else grab(mask),
+            out=grab(out)))
+        return out
+
+    handles = []
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, LayerNorm):
+                handles.append(m.register_forward_hook(on_norm))
+            elif isinstance(m, ConvNeXtBlock):
+                handles.append(m.dwconv.register_forward_hook(on_dwconv))
+                first, second = on_pair(m)
+                handles.append(m.pwconv1.register_forward_hook(first))
+                handles.append(m.pwconv2.register_forward_hook(second))
+            elif isinstance(m, sva.Mlp):
+                handles.append(m.register_forward_hook(on_mlp))
+    sva.windowed_cross_attention = recording
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        sva.windowed_cross_attention = original
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def site_work(kind, site):
+    """(bytes moved once, operations, the rate's dtype) of one call at a site:
+    each input read once, each output written once; K5-K7 run on the CUDA
+    cores in fp32, K8 on the bf16 tensor cores."""
+    if kind == "fused_layer_norm":
+        x = site["x"]
+        return 2 * x.numel() * x.element_size() + 8 * x.shape[-1], 8 * x.numel(), "float32"
+    if kind == "depthwise_conv7x7":
+        x = site["x"]
+        # 49 multiply-adds and the bias per output element
+        return 2 * x.numel() * x.element_size() + 50 * x.shape[-1] * 4, 99 * x.numel(), "float32"
+    if kind == "fused_mlp":
+        x, w1, w2 = site["x"], site["w1"], site["w2"]
+        m, (c, h), c2 = x.shape[0], w1.shape, w2.shape[1]
+        n_bytes = (m * c + c * h + h * c2 + m * c2) * x.element_size() + sum(
+            4 * b.numel() for b in (site["b1"], site["b2"]) if b is not None)
+        return n_bytes, 2 * m * h * (c + c2), str(x.dtype).replace("torch.", "")
+    q, k = site["q"], site["k"]
+    b, n_q, w, h, d = k.shape
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + (
+        0 if site["mask"] is None else site["mask"].numel())
+    # q.k and p.v (2 operations a multiply-add) and ~5 for the softmax, per key
+    return n_bytes, b * n_q * h * w * (4 * d + 5), "float32"
+
+
+def library_call(torch, kind, site):
+    """{name: fn} of the PyTorch calls the main path (or a library) makes
+    for the same function at this site; the first is ``library_ms``."""
+    import torch.nn.functional as F
+
+    from cambrian_tpu_torch.ops.activations import gelu_exact
+    from cambrian_tpu_torch.ops.attention import NEG_INF, windowed_cross_attention
+    from cambrian_tpu_torch.ops.norms import layer_norm
+
+    if kind == "fused_layer_norm":
+        x, w, b, eps = site["x"], site["weight"], site["bias"], site["eps"]
+        wd, bd = w.to(x.dtype), b.to(x.dtype)
+        return {"F.layer_norm": lambda: F.layer_norm(x, (x.shape[-1],), wd, bd, eps),
+                "port layer_norm": lambda: layer_norm(x, w, b, eps)}
+    if kind == "depthwise_conv7x7":
+        xn, cw, cb = site["x_nchw"], site["conv_w"], site["conv_b"]
+        return {"cudnn conv2d": lambda: F.conv2d(xn, cw, cb, padding=3, groups=xn.shape[1])}
+    if kind == "fused_mlp":
+        x, w1, b1, w2, b2 = (site[a] for a in ("x", "w1", "b1", "w2", "b2"))
+        w1l, w2l = w1.t(), w2.t()      # nn.Linear's weights, read in place
+        return {"nn.Linear x2 + gelu": lambda: F.linear(gelu_exact(F.linear(x, w1l, b1)), w2l, b2)}
+    q, k, v, mask = site["q"], site["k"], site["v"], site["mask"]
+    b, n_q, w, h, d = k.shape
+    # batch-flattened: [B*Q, H, 1, D] queries over [B*Q, H, W, D] windows
+    qf = q.reshape(b * n_q, h, 1, d)
+    kf = k.reshape(b * n_q, w, h, d).transpose(1, 2).contiguous()
+    vf = v.reshape(b * n_q, w, h, d).transpose(1, 2).contiguous()
+    fmask = None
+    if mask is not None:
+        keep = mask.reshape(b * n_q, 1, 1, w)
+        fmask = torch.zeros(keep.shape, dtype=q.dtype, device=q.device).masked_fill(~keep, NEG_INF)
+    return {"sdpa": lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=fmask),
+            "einsum path": lambda: windowed_cross_attention(q, k, v, mask)}
+
+
+def extra_sites(torch, sites):
+    """Cases beside the captured ones, not on the path: the training batch
+    (B = 8) of K5 and of K7 at (64^2, 1536), made by repeating the captured
+    request; one small fp32 case per kernel; a 4096-wide bf16 LayerNorm."""
+    extra = []
+    for key, s in sites["fused_windowed_cross_attention"].items():
+        if key[0] == 1:
+            rep = dict(q=s["q"].repeat(8, 1, 1, 1), k=s["k"].repeat(8, 1, 1, 1, 1),
+                       v=s["v"].repeat(8, 1, 1, 1, 1), out=None,
+                       mask=None if s["mask"] is None else s["mask"].repeat(
+                           8, *([1] * (s["mask"].dim() - 1))))
+            extra.append(("fused_windowed_cross_attention", ("train_b8", *rep["k"].shape), rep))
+            break
+    for key, s in sites["depthwise_conv7x7"].items():
+        if key[1:] == (64, 64, 1536):
+            xn = s["x_nchw"].repeat(8, 1, 1, 1)
+            extra.append(("depthwise_conv7x7", ("train_b8", 8, 64, 64, 1536), dict(
+                s, x=s["x"].repeat(8, 1, 1, 1), x_nchw=xn, out=None)))
+    dev = site_device(sites)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    mask = rnd(2, 70, 19) > -0.5
+    mask[:, ::7] = False                # dead windows: uniform weights
+    extra += [
+        ("fused_windowed_cross_attention", ("fp32", 2, 70, 19, 3, 72), dict(
+            q=rnd(2, 70, 3, 72), k=rnd(2, 70, 19, 3, 72), v=rnd(2, 70, 19, 3, 72), mask=mask,
+            out=None)),
+        ("fused_layer_norm", ("fp32", 100, 300), dict(
+            x=rnd(300, 100) * 3 + 1, weight=rnd(100), bias=rnd(100), eps=1e-6, out=None)),
+        # the decoder's width at the prompt's length (its norms are RMSNorms,
+        # so the path has no LayerNorm this wide)
+        ("fused_layer_norm", ("width4096", 4096, 645), dict(
+            x=(rnd(645, 4096) * 3 + 1).bfloat16(), weight=rnd(4096), bias=rnd(4096), eps=1e-5,
+            out=None)),
+        ("depthwise_conv7x7", ("fp32", 2, 13, 11, 96), dict(
+            x=rnd(2, 13, 11, 96), w=rnd(7, 7, 96) * 0.2, bias=rnd(96), out=None)),
+        ("fused_mlp", ("fp32", 300, 48, 192, 40), dict(
+            x=rnd(300, 48), w1=rnd(48, 192) * 0.1, b1=rnd(192) * 0.1, w2=rnd(192, 40) * 0.1,
+            b2=rnd(40) * 0.1, out=None)),
+    ]
+    return extra
+
+
+def site_device(sites):
+    """The device the captured sites' tensors lie on."""
+    return next(s for found in sites.values() for s in found.values())["out"].device
+
+
+def max_err(torch, out, ref):
+    return float((out.float() - ref.float()).abs().max()), max(1.0, float(ref.abs().max()))
+
+
+def backward_checks(torch, sites):
+    """K5, K6 and K7 through their autograd Functions on the card (bf16)
+    against the plain backward on the fp32-upcast inputs, at one site each;
+    returns {kind: {"err", "tol", "key"}}."""
+    from cambrian_tpu_torch.ops import dwconv, norms, sva_attention
+
+    picks = {
+        "fused_windowed_cross_attention": lambda k: k[0] == 1,
+        "fused_layer_norm": lambda k: k[0] == 1024,
+        "depthwise_conv7x7": lambda k: k[1:] == (64, 64, 1536),
+    }
+    dev = site_device(sites)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for kind, pick in picks.items():
+        key = next((k for k in sites[kind] if pick(k)), next(iter(sites[kind])))
+        s = sites[kind][key]
+        # copies: the sites were captured under the engine's inference mode
+        args = [a.clone() if torch.is_tensor(a) else a for a in _site_args(torch, kind, s)]
+        leaves = [a.requires_grad_(True) for a in args[:3]]
+        fwd = _site_fns(kind)[0](*leaves, *args[3:])
+        cot = torch.randn(fwd.shape, generator=g, device=dev).to(fwd.dtype)
+        got = torch.autograd.grad(fwd, leaves, cot)
+        up = [a.detach().float() if torch.is_tensor(a) and a.is_floating_point() else a
+              for a in args]
+        if kind == "fused_layer_norm":
+            want = norms.fused_layer_norm_bwd_reference(up[0], up[1], cot.float(), up[3])
+        elif kind == "depthwise_conv7x7":
+            want = dwconv.depthwise_conv7x7_bwd_reference(up[0], up[1], cot.float())
+        else:
+            want = sva_attention.fused_windowed_cross_attention_bwd_reference(
+                up[0], up[1], up[2], up[3], cot.float())
+        errs, tols = [], []
+        for name, a, e in zip(("d0", "d1", "d2"), got, want):
+            check(torch.isfinite(a).all().item(), f"{kind} backward {name}: non-finite")
+            err, scale = max_err(torch, a, e)
+            errs.append(err)
+            tols.append(SITE_REL_PLAIN * scale)
+            check(err <= tols[-1], f"{kind} backward {key} {name}: max abs error {err} > "
+                  f"{tols[-1]}")
+        out[kind] = dict(key=list(key), errs=errs, tols=tols)
+        print(f"backward {kind} at {key}: max abs errors {[f'{e:.3e}' for e in errs]} (tol "
+              f"{[f'{t:.2e}' for t in tols]})", flush=True)
+        del leaves, fwd, got, want, cot
+    return out
+
+
+def vision_kernel_phase(torch, fa, quant, sites):
+    """K5-K8 on the inputs captured at their drop-in sites of one warm
+    Cambrian-8B bf16 request: a drop-in pass (every site shape once, counts
+    zeroed before and read after), then each kernel against its plain version
+    on fp32-upcast inputs and against the main path's output at the site,
+    CUDA-event times (L2 flushed before each call) of the kernel, the plain
+    version and the library call, the bound, and backward checks."""
+    dev = site_device(sites)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
+    counters = all_counters(fa, quant)
+    zero_counts(counters)                              # this slice's path starts here
+    outs = {(kind, key): kernel_at_site(torch, kind, s)
+            for kind, found in sites.items() for key, s in found.items()}
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    want = {name: len(sites.get(name, {})) for name in counters}
+    check(launches == want, f"K5-K8 drop-in pass launched {launches}, not {want} (one per site "
+          f"shape)")
+    l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
+    flush = l2.sum
+    records = []
+    cases = [(kind, key, s, True) for kind, found in sites.items() for key, s in found.items()]
+    cases += [(kind, key, s, False) for kind, key, s in extra_sites(torch, sites)]
+    for kind, key, s, on_path in cases:
+        out = outs.pop((kind, key)) if on_path else kernel_at_site(torch, kind, s)
+        torch.cuda.synchronize()
+        label = f"{kind} {key}"
+        x0 = _site_args(torch, kind, s)[0]
+        dtype_name = str(x0.dtype).replace("torch.", "")
+        check(torch.isfinite(out).all().item(), f"{label}: non-finite output")
+        ref = plain_at_site(torch, kind, s, upcast=True)
+        check(out.shape == ref.shape and out.dtype == x0.dtype,
+              f"{label}: {tuple(out.shape)} {out.dtype}")
+        err, scale = max_err(torch, out, ref)
+        tol = (SITE_REL_PLAIN if x0.dtype == torch.bfloat16 else 1e-4) * scale
+        check(err <= tol, f"{label}: max abs error {err} against the plain version > {tol}")
+        main_err = main_tol = None
+        if s.get("out") is not None:
+            main_err, scale = max_err(torch, out, s["out"])
+            main_tol = SITE_REL_MAIN * scale
+            check(main_err <= main_tol, f"{label}: max abs error {main_err} against the main "
+                  f"path's output > {main_tol}")
+        del out, ref
+        big = kind == "fused_mlp" or key[0] == "train_b8"
+        iters = 5 if big else 10
+        ms = cuda_ms(torch, lambda: kernel_at_site(torch, kind, s), iters, flush,
+                     SITE_SPIN_CYCLES)
+        plain_ms = cuda_ms(torch, lambda: plain_at_site(torch, kind, s), iters, flush,
+                           SITE_SPIN_CYCLES)
+        library = {}
+        if "x_nchw" in s or kind != "depthwise_conv7x7":
+            library = {name: cuda_ms(torch, fn, iters, flush, SITE_SPIN_CYCLES)
+                       for name, fn in library_call(torch, kind, s).items()}
+        n_bytes, n_ops, rate = site_work(kind, s)
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, n_ops, rate)
+        rec = dict(kernel=kind, site=[str(k) for k in key], dtype=dtype_name,
+                   per_request=s.get("count", 0) if on_path else 0, max_abs_err=err, tol=tol,
+                   main_path_err=main_err, main_path_tol=main_tol, ms=ms, plain_ms=plain_ms,
+                   library=library, library_ms=next(iter(library.values()), None),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        records.append(rec)
+        lib = " ".join(f"{n}={t:.4f} ms" for n, t in library.items())
+        main = "" if main_err is None else f" main-path err={main_err:.3e} (tol {main_tol:.2e})"
+        print(f"kernel {kind:13s} {str(key):40s} x{rec['per_request']:<3d} {dtype_name:8s} "
+              f"err={err:.3e} (tol {tol:.2e}){main} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"{lib} bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+    del l2
+    bwd = backward_checks(torch, sites)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(records=records, launches=launches, backward=bwd,
+                sites={kind: {str(k): s["count"] for k, s in found.items()}
+                       for kind, found in sites.items()})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -964,7 +1396,8 @@ def main(argv=None):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    built = cuda_build.build("flash_attention", "flash_attention_bwd", "quant_matmul")
+    built = cuda_build.build("flash_attention", "flash_attention_bwd", "quant_matmul",
+                             "layer_norm", "dwconv", "sva_attention", "fused_mlp")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s in all", flush=True)
     for name, b in built.items():
         print(f"{name}: {b['seconds']:.2f} s -> {b['path']}", flush=True)
@@ -980,7 +1413,9 @@ def main(argv=None):
     quant_kernels = quant_kernel_phase(torch, quant, prompt_len)
     tiny = {q or "fp32": tiny_slice_phase(torch, fa, quant, rng, q)
             for q in (None, "int8", "int4")}
-    full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q)
+    sites = {}       # K5-K8's drop-in sites, captured in the bf16 serving phase
+    full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q,
+                                          sites=sites if q is None else None)
             for q in (None, "int8", "int4")}
     bwd_kernels = backward_kernel_phase(torch, fa)
     tiny_train = tiny_training_phase(torch, fa, quant)
@@ -988,6 +1423,10 @@ def main(argv=None):
     check(len(k2_path) == 1, "one K2 case at the training path's shape")
     k2 = k2_path[0]
     train = train_8b_phase(torch, fa, quant, k2)
+    t10 = time.perf_counter()
+    vision = vision_kernel_phase(torch, fa, quant, sites)
+    del sites
+    print(f"phase 10 (K5-K8): {time.perf_counter() - t10:.1f} s", flush=True)
 
     # launches: each 8B path's counts (serving, training), read just after
     # it, summed over paths
@@ -1061,13 +1500,38 @@ def main(argv=None):
     print(f"flash_attention_bwd: per training step kernel {rows[-1]['ms']:.1f} ms, plain "
           f"{rows[-1]['plain_ms']:.1f} ms, sdpa backward {rows[-1]['library_ms']:.1f} ms, bound "
           f"{rows[-1]['bound_ms']:.2f} ms ({k2['bound_by']})", flush=True)
+    # K5-K8: one request's drop-in sites (bf16); launches from the drop-in pass
+    for kind, (_, _, replaces, source) in VISION_KERNELS.items():
+        recs = [r for r in vision["records"] if r["kernel"] == kind and r["per_request"]]
+
+        def per_request(key, recs=recs):
+            return sum(r[key] * r["per_request"] for r in recs)
+
+        rows.append({
+            "name": kind,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": vision["launches"][kind],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": per_request("ms"),
+            "plain_ms": per_request("plain_ms"),
+            "bound_ms": per_request("bound_ms"),
+            "bound_by": ("bytes" if per_request("bytes_ms") >= per_request("ops_ms")
+                         else "operations"),
+            "library_ms": per_request("library_ms"),
+        })
+        r = rows[-1]
+        print(f"{kind}: per request ({sum(x['per_request'] for x in recs)} sites) kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     summary = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()},
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
-                           summary=summary), f, indent=1)
+                           vision=vision, summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

@@ -1,6 +1,7 @@
 """The port imports without JAX (nor flax, optax, orbax), without the JAX
 package and without a GPU toolchain: kernels are built on first use, never
-at import. The probe covers serving and the training path."""
+at import. The probe covers serving, the training path and the op modules
+of kernels K5-K8."""
 
 import json
 import os
@@ -20,6 +21,10 @@ import cambrian_tpu_torch.models.builder
 import cambrian_tpu_torch.serve.cli
 import cambrian_tpu_torch.ops.flash_attention as fa
 import cambrian_tpu_torch.ops.quant as quant
+import cambrian_tpu_torch.ops.norms as norms
+import cambrian_tpu_torch.ops.dwconv as dwconv
+import cambrian_tpu_torch.ops.sva_attention as sva_attention
+import cambrian_tpu_torch.ops.fused_mlp as fused_mlp
 import cambrian_tpu_torch.train.optimizer
 import cambrian_tpu_torch.train.train_step
 import cambrian_tpu_torch.train.trainer
@@ -33,8 +38,9 @@ print(json.dumps({
                                  "transformers", "safetensors") if m in sys.modules),
     "jax_package": sorted(m for m in sys.modules
                           if m == "cambrian_tpu" or m.startswith("cambrian_tpu.")),
-    "built": (fa._library.cache_info().currsize + fa._bwd_library.cache_info().currsize
-              + quant._library.cache_info().currsize),
+    "built": sum(lib.cache_info().currsize for lib in (
+        fa._library, fa._bwd_library, quant._library, norms._library, dwconv._library,
+        sva_attention._library, fused_mlp._library)),
 }))
 """
 
