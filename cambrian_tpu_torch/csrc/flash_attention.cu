@@ -12,35 +12,57 @@
 //   - a row whose running maximum never rises above NEG_INF / 2 (no key
 //     survives) is written as 0 through a select, never NaN;
 //   - output in the input dtype (bf16 or fp32).
+// On request it also writes each row's log-sum-exp of the masked logits
+// (fp32 [B, H, Sq]; +inf for a row with no live key), which the backward
+// (flash_attention_bwd.cu) reads instead of recomputing the row statistics.
 //
-// Design. The TPU kernel keeps the whole K/V stripe of a (batch, head) in
-// VMEM and does one row-complete softmax. A Hopper block has at most 227 KB
-// of shared memory, so here one block owns a 64-row q tile of one
-// (batch, head), walks the keys in 64-row K/V tiles staged in shared memory
-// (converted to fp32 on load), and keeps an online softmax: a running row
-// maximum and sum in shared memory and the [64, D] output accumulator in
-// registers, rescaled when the maximum moves. Causal tiles past the q tile's
-// last position, and sliding-window tiles before its first, are skipped.
+// The TPU kernel keeps the whole K/V stripe of a (batch, head) in VMEM and
+// does one row-complete softmax. A Hopper block has at most 227 KB of shared
+// memory, so here one block owns a 64-row q tile of one (batch, head) and
+// walks the keys in 64-row tiles with an online softmax (running row maximum
+// and sum, the output rescaled when the maximum moves). Key tiles past the q
+// tile's last causal position or before its sliding window are skipped.
 //
-// What bounds it on the card: the two products run on the CUDA cores in fp32
-// (SIMT FMAs fed from shared memory), not on the tensor cores, so the kernel
-// is bound by FMA issue and shared-memory bandwidth, far below the bf16
-// tensor-core rate. That keeps fp32 inputs exact to fp32 rounding. Moving the
-// bf16 products to wgmma with TMA-fed K/V tiles is later work.
+// bf16: the tensor-core kernel. One warpgroup computes, one producer warp
+// loads. Q stays in shared memory; K/V tiles arrive through a two-stage ring
+// loaded by TMA (tensor maps built on the host from the strides; swizzled
+// chunks of 32-, 64- or 128-byte rows, the head dimension padded with zeros
+// to a multiple of 16; see hopper.cuh) and completed on mbarriers. S = Q K^T
+// is a wgmma m64n64k16 chain with both operands in shared memory; the mask
+// and the online softmax run on the fp32 accumulator fragments in registers
+// (row maximum and sum by quad shuffles); P is rounded to bf16 in registers
+// (as the TPU kernel rounds its probabilities to v.dtype) and is the register
+// A operand of O += P V, with V read MN-major through the transpose bit. A
+// key tile whose keys are all invalid is skipped too (a warp vote): it adds
+// exactly 0 to a live row.
+// The mask is selects on the fragments, not branches: a branch a fragment
+// element kept the compiler from overlapping the elements' exponentials and
+// cost half the kernel's time.
+// What bounds it: the two products are 4 * D operations a live (query, key)
+// pair on the bf16 tensor cores, but one warpgroup waits for each product
+// before the next step, so the tensor cores idle while it computes the
+// exponentials; at the serving shapes (~2.5 GFLOP a call) there are only
+// 160-352 blocks for 132 SMs to hide that.
+//
+// fp32: SIMT FMAs on tiles converted to fp32 in shared memory, exact to fp32
+// rounding; it carries the card-vs-CPU parity of the fp32 paths.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16 grid: each thread owns 4 q rows
+constexpr int kThreads = 256;  // fp32 kernel: a 16 x 16 grid, each thread owns 4 q rows
 constexpr int kMaxD = 128;
 constexpr int kMaxCols = kMaxD / 16;
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;  // NEG_INF of the JAX package
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;                            // bf16 kernel: K/V ring
+constexpr int kConsumerThreads = 128;                 // one warpgroup
+constexpr int kTcThreads = kConsumerThreads + 32;     // and a producer warp
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -57,6 +79,7 @@ struct Params {
   const void* v;
   const uint8_t* key_valid;  // [B, Sk] contiguous, or null: every key valid
   void* o;
+  float* lse;                // [B, H, Sq], or null: not wanted
   int64_t q_sb, q_ss, q_sh;  // strides in elements: batch, sequence, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -67,6 +90,22 @@ struct Params {
   int window;  // <= 0: no sliding window
   int q_offset;
 };
+
+// The key range [begin, end) a q tile [q0, q0 + 64) can see; begin is
+// tile-aligned.
+__device__ __forceinline__ void key_range(const Params& p, int q0, int* begin, int* end) {
+  *begin = 0;
+  *end = p.Sk;
+  if (p.causal) {
+    const int last_q = min(q0 + kBlockQ, p.Sq) - 1 + p.q_offset;
+    *end = min(*end, last_q + 1);
+  }
+  if (p.window > 0) *begin = max(0, q0 + p.q_offset - p.window + 1) / kBlockK * kBlockK;
+}
+
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m > 0.5f * kNegInf ? m + logf(l) : INFINITY;
+}
 
 size_t smem_bytes(int d) {
   return sizeof(float) * (size_t)(kBlockQ * d            // Q tile
@@ -112,15 +151,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     sL[tid] = 0.f;
   }
 
-  int k_begin = 0;
-  int k_end = p.Sk;
-  if (p.causal) {
-    const int last_q = min(q0 + kBlockQ, p.Sq) - 1 + p.q_offset;
-    k_end = min(k_end, last_q + 1);
-  }
-  if (p.window > 0) {
-    k_begin = max(0, q0 + p.q_offset - p.window + 1) / kBlockK * kBlockK;
-  }
+  int k_begin, k_end;
+  key_range(p, q0, &k_begin, &k_end);
 
   float acc[4][kMaxCols];
 #pragma unroll
@@ -250,16 +282,228 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       if (c < D) store_as(O + qi * p.o_ss + c, alive ? acc[r][j] * inv : 0.f);
     }
   }
+  if (p.lse != nullptr && tid < kBlockQ && q0 + tid < p.Sq)
+    p.lse[((int64_t)b * p.H + h) * p.Sq + q0 + tid] = row_lse(sM[tid], sL[tid]);
 }
 
-template <typename T>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D);
+// -- bf16: tensor cores -------------------------------------------------------
+
+template <int DP>
+struct FwdSmem {
+  __nv_bfloat16 q[DP * kBlockQ];
+  __nv_bfloat16 k[kStages][DP * kBlockK];
+  __nv_bfloat16 v[kStages][DP * kBlockK];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads) fwd_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  FwdSmem<DP>& s = *reinterpret_cast<FwdSmem<DP>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = blockIdx.x * kBlockQ;
+  const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
+  int k_begin, k_end;
+  key_range(p, q0, &k_begin, &k_end);
+
+  if (tid == 0) {
+    mbar_init(&s.q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerThreads / 32) {
+    // producer: Q once, then the live K/V tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(&s.q_full, Tile<DP>::kBytes);
+      tma_load_tile<DP>(s.q, &tm_q, &s.q_full, q0, h, b);
+    }
+    int stage = 0, phase = 0;
+    for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+      if (!tile_has_valid_key(valid, k0, p.Sk)) continue;
+      if (lane == 0) {
+        mbar_wait(&s.empty[stage], phase ^ 1);
+        mbar_expect_tx(&s.full[stage], 2 * Tile<DP>::kBytes);
+        tma_load_tile<DP>(s.k[stage], &tm_k, &s.full[stage], k0, kvh, b);
+        tma_load_tile<DP>(s.v[stage], &tm_v, &s.full[stage], k0, kvh, b);
+      }
+      __syncwarp();
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread's rows are row0 and row0 + 8 of the tile,
+  // its columns col0 and col0 + 1 of each 8-column group
+  const int row0 = warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const int q_pos[2] = {q0 + row0 + p.q_offset, q0 + row0 + 8 + p.q_offset};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&s.q_full, 0);
+  int stage = 0, phase = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+    if (!tile_has_valid_key(valid, k0, p.Sk)) continue;
+    mbar_wait(&s.full[stage], phase);
+
+    // S = Q K^T
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k_major<DP>(s.q, kk), desc_k_major<DP>(s.k[stage], kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // mask (selects, no branches), then the online softmax on the fragments
+    const uint32_t bad = invalid_key_bits(valid, k0, col0, p.Sk);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * j + col0 + e;
+        const bool invalid = (bad >> (2 * j + e)) & 1;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = sc[4 * j + 2 * r + e] * p.scale;
+          x = in_window(p.causal, p.window, q_pos[r], kj) ? x : kNegInf;
+          x = invalid ? x + kNegInf : x;
+          x = kj < p.Sk ? x : -INFINITY;  // past the keys: contributes nothing
+          sc[4 * j + 2 * r + e] = x;
+          mt[r] = fmaxf(mt[r], x);
+        }
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      alpha[r] = m_new == -INFINITY ? 1.f : exp2_approx((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * r + e];
+          x = m[r] == -INFINITY ? 0.f : exp2_approx((x - m[r]) * kLog2e);
+          rs[r] += x;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j + 0] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+
+    // O += P V, P in bf16 from registers
+    uint32_t a[4][4];
+    acc_to_a(sc, a);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(o, a[kk], desc_mn_major<DP>(s.v[stage], kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(&s.empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= p.Sq) continue;
+    const bool alive = m[r] > 0.5f * kNegInf;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col0;
+      if (c < p.D) {
+        const float x0 = alive ? o[4 * j + 2 * r] * inv : 0.f;
+        const float x1 = alive ? o[4 * j + 2 * r + 1] * inv : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(O + qi * p.o_ss + c) = __floats2bfloat162_rn(x0, x1);
+      }
+    }
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[((int64_t)b * p.H + h) * p.Sq + qi] = row_lse(m[r], l[r]);
+  }
+}
+
+template <int DP>
+int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  using hopper_host::bf16_tile_map;
+  if (!bf16_tile_map(&tm_q, p.q, batch, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, DP) ||
+      !bf16_tile_map(&tm_k, p.k, batch, p.Sk, p.KVH, p.D, p.k_sb, p.k_ss, p.k_sh, DP) ||
+      !bf16_tile_map(&tm_v, p.v, batch, p.Sk, p.KVH, p.D, p.v_sb, p.v_ss, p.v_sh, DP))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(FwdSmem<DP>);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  fwd_bf16_kernel<DP><<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16_any(const Params& p, int batch, cudaStream_t stream) {
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_bf16<16>(p, batch, stream);
+    case 2: return launch_bf16<32>(p, batch, stream);
+    case 3: return launch_bf16<48>(p, batch, stream);
+    case 4: return launch_bf16<64>(p, batch, stream);
+    case 5: return launch_bf16<80>(p, batch, stream);
+    case 6: return launch_bf16<96>(p, batch, stream);
+    case 7: return launch_bf16<112>(p, batch, stream);
+    case 8: return launch_bf16<128>(p, batch, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_f32(const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.D);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
+  flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -267,10 +511,12 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel; head_dim
+// a multiple of 8, 16-byte aligned bases and strides). lse: [B, H, Sq] fp32,
+// or null. Returns a cudaError_t (0 on success).
 int cambrian_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v,
-    const uint8_t* key_valid, void* o,
+    const uint8_t* key_valid, void* o, float* lse,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -279,12 +525,12 @@ int cambrian_flash_attention_fwd(
     float scale, int causal, int window, int q_offset, void* stream) {
   if (head_dim < 1 || head_dim > kMaxD || kv_heads < 1 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, key_valid, o,
+  Params p{q, k, v, key_valid, o, lse,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            heads, kv_heads, s_q, s_k, head_dim, scale, causal, window, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, batch, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, batch, st);
+  if (dtype == 0) return launch_f32(p, batch, st);
+  if (dtype == 1 && head_dim % 8 == 0) return launch_bf16_any(p, batch, st);
   return (int)cudaErrorInvalidValue;
 }
 

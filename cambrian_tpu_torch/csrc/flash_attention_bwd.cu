@@ -6,52 +6,65 @@
 // semantics:
 //   - q, o, do [B, Sq, H, D], k/v [B, Sk, KVH, D] (BQHD; head h reads kv head
 //     h / (H / KVH) in place), key_valid [B, Sk];
-//   - the probabilities are recomputed in fp32 from a whole-row maximum and
-//     sum of the masked logits (q . k) * scale, p = exp(x - max) / max(sum,
-//     1e-30), masked entries 0; a row with no live key has p = 0 throughout,
-//     so its dq is 0 and it adds nothing to dk/dv;
+//   - the probabilities are the whole-row softmax of the masked logits
+//     (q . k) * scale, here p = exp(x - lse) from the row's log-sum-exp that
+//     the forward (flash_attention.cu) wrote; masked entries are 0 by
+//     predicate; a row with no live key has lse = +inf, so p = 0 throughout,
+//     its dq is 0 and it adds nothing to dk/dv;
 //   - delta = rowsum(do * o) in fp32, ds = p * (do . v - delta) * scale,
 //     dq = ds k, dk = ds^T q, dv = p^T do;
 //   - dk/dv of a kv head sum its group of H / KVH query heads in fp32 (the JAX
 //     package repeats K/V and sums the bf16 per-head dk/dv instead);
 //   - outputs in the input dtype (bf16 or fp32), fp32 inside.
 //
-// Design. The TPU kernel keeps a (batch, head)'s whole K/V stripe and its fp32
-// dk/dv accumulators in VMEM and carries them across a sequential grid of q
-// blocks. Hopper blocks run in parallel in no order, so the work is split into
-// three launches with no atomics, deterministic:
-//   1. bwd_stats: one block per (batch, head, 64-row q tile) walks the keys and
-//      keeps the row maximum and sum of the masked logits online (as K1 does),
-//      and computes delta; written to fp32 [B, H, Sq] scratch;
-//   2. bwd_dkdv: one block per (batch, kv head, 64-row K tile) holds its K/V
-//      tile and the fp32 dk/dv accumulators, and loops over the group's query
-//      heads and their q tiles, skipping the tiles the causal mask or the
-//      sliding window leaves empty;
-//   3. bwd_dq: one block per (batch, head, 64-row q tile) loops over the K
+// The TPU kernel keeps a (batch, head)'s whole K/V stripe and its fp32 dk/dv
+// accumulators in VMEM and carries them across a sequential grid of q blocks.
+// Hopper blocks run in parallel in no order, so the work is three launches
+// with no atomics, deterministic:
+//   1. bwd_delta: delta = rowsum(do * o), one warp a row (bytes-bound);
+//   2. dk/dv: one block per (batch, kv head, 64-row K tile) holds its K/V tile
+//      and the fp32 dk/dv accumulators, and loops over the group's query heads
+//      and their q tiles, skipping the tiles the causal mask or the sliding
+//      window leaves empty; a K tile with no valid key writes zeros;
+//   3. dq: one block per (batch, head, 64-row q tile) loops over the live K
 //      tiles and accumulates dq.
-// Tiles are staged in shared memory as fp32; K/V rows are padded by one float
-// so that the column walks are free of bank conflicts.
+// Splitting dk/dv from dq costs 7 products a live tile pair instead of 5
+// (Q K^T and dO V^T run in both); that is the price of having no atomics.
 //
-// What bounds it on the card: about 5 * S^2 * D multiply-adds per head
-// (causal: half), which the products here run as SIMT fp32 FMAs fed from
-// shared memory, not on the tensor cores; the pre-pass adds one more Q K^T.
-// So it is bound by FMA throughput and shared-memory bandwidth, far below the bf16
-// tensor-core rate. Moving the products to wgmma with TMA-fed tiles, and the
-// statistics into K1's forward, is later work.
+// bf16: the tensor-core kernels. One warpgroup computes, one producer warp
+// loads; the resident tiles and a two-stage ring of the walked tiles arrive
+// by TMA (hopper.cuh) on mbarriers. In dk/dv the key tile is wgmma's M side:
+// S^T = K Q^T and dP^T = V dO^T (both operands in shared memory, K-major)
+// leave P^T and dS^T in registers, rounded to bf16, as the register A operand
+// of dV += P^T dO and dK += dS^T Q (dO and Q read MN-major through the
+// transpose bit). dq: S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K.
+// P and dS are rounded to bf16 before their products (the JAX backward keeps
+// them in fp32); the products accumulate in fp32.
+// What bounds it: 7 products of 2 * D operations a live (query, key) pair on
+// the bf16 tensor cores, with the exponentials and masks between them on the
+// CUDA cores of the same warpgroup. The dk/dv kernel holds two fp32 [64, D]
+// accumulators, S^T, dP^T and their bf16 copies: 255 registers at D = 128,
+// so one block an SM.
+//
+// fp32: SIMT FMAs on tiles staged as fp32 in shared memory (rows of K/V padded
+// by one float against bank conflicts), exact to fp32 rounding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16 grid: each thread owns 4 rows x 4 (or 8) columns
+constexpr int kThreads = 256;  // fp32 kernels: a 16 x 16 grid, 4 rows x 4 (or 8) columns each
 constexpr int kMaxD = 128;
 constexpr int kMaxCols = kMaxD / 16;
 constexpr int kLdp = kBlockK + 1;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;                          // bf16 kernels: the walked tiles' ring
+constexpr int kConsumerThreads = 128;               // one warpgroup
+constexpr int kTcThreads = kConsumerThreads + 32;   // and a producer warp
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -72,9 +85,8 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* row_max;    // [B, H, Sq] scratch; -inf for a row with no live key
-  float* row_sum;
-  float* row_delta;
+  const float* lse;          // [B, H, Sq] from the forward; +inf for a row with no live key
+  float* delta;              // [B, H, Sq] scratch
   int64_t q_sb, q_ss, q_sh;  // strides in elements: batch, sequence, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -110,6 +122,34 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int* begin, i
   }
   if (p.window > 0) *begin = max(0, q0 + p.q_offset - p.window + 1) / kBlockK * kBlockK;
 }
+
+// The q range [begin, end) that can see a key of the tile [k0, k0 + 64);
+// begin is tile-aligned.
+__device__ __forceinline__ void query_range(const Params& p, int k0, int* begin, int* end) {
+  const int k_last = min(k0 + kBlockK, p.Sk) - 1;
+  *begin = 0;
+  *end = p.Sq;
+  if (p.causal) *begin = max(0, k0 - p.q_offset) / kBlockQ * kBlockQ;
+  if (p.window > 0) *end = min(*end, k_last + p.window - p.q_offset);
+}
+
+// 1. delta = rowsum(do * o): one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bwd_delta_kernel(Params p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int qi = blockIdx.x * (kThreads / 32) + warp;
+  if (qi >= p.Sq) return;
+  const T* O = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + qi * p.o_ss;
+  const T* dO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + qi * p.do_ss;
+  float acc = 0.f;
+  for (int c = lane; c < p.D; c += 32) acc = fmaf(load_f32(dO + c), load_f32(O + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[((int64_t)b * p.H + h) * p.Sq + qi] = acc;
+}
+
+// -- fp32: SIMT ---------------------------------------------------------------
 
 // Stage rows [r0, r0 + rows_cap) of a [S, D] slice (stride ld_g between rows)
 // into shared memory as fp32 with row stride ld_s; rows past S are 0.
@@ -158,137 +198,31 @@ __device__ __forceinline__ void two_products(const float* A, const float* B, con
 // dp = do . v, written to sP / sdS ([64][65]) when given.
 __device__ __forceinline__ void probs_and_ds(const Params& p, const uint8_t* valid, int q0,
                                              int k0, int ty, int tx, const float s[4][4],
-                                             const float dp[4][4], const float* sM,
-                                             const float* sL, const float* sDelta,
-                                             float* sP, float* sdS) {
+                                             const float dp[4][4], const float* sLse,
+                                             const float* sDelta, float* sP, float* sdS) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = ty * 4 + r;
-    const float m = sM[row];
-    const float denom = fmaxf(sL[row], 1e-30f);
+    const float lse = sLse[row];
     const float delta = sDelta[row];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
       float pr = 0.f;
-      if (m != -INFINITY && live(p, valid, q0 + row, k0 + col))
-        pr = expf(s[r][j] * p.scale - m) / denom;
+      if (live(p, valid, q0 + row, k0 + col)) pr = expf(s[r][j] * p.scale - lse);
       if (sP) sP[row * kLdp + col] = pr;
       sdS[row * kLdp + col] = pr * (dp[r][j] - delta) * p.scale;
     }
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void load_stats(const Params& p, int b, int h, int q0, float* sM,
-                                           float* sL, float* sDelta) {
+__device__ __forceinline__ void load_stats(const Params& p, int b, int h, int q0, float* sLse,
+                                           float* sDelta) {
   if (threadIdx.x < kBlockQ) {
     const int qi = q0 + threadIdx.x;
     const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + qi;
-    sM[threadIdx.x] = qi < p.Sq ? p.row_max[idx] : -INFINITY;
-    sL[threadIdx.x] = qi < p.Sq ? p.row_sum[idx] : 0.f;
-    sDelta[threadIdx.x] = qi < p.Sq ? p.row_delta[idx] : 0.f;
-  }
-}
-
-// 1. Row statistics: maximum and sum of the masked, scaled logits; delta.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bwd_stats_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ldk = D + 1;
-  float* sQ = smem;
-  float* sK = sQ + kBlockQ * D;
-  float* sS = sK + kBlockK * ldk;
-  float* sM = sS + kBlockQ * kLdp;
-  float* sL = sM + kBlockQ;
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int q0 = blockIdx.x * kBlockQ;
-  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* O = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const T* dO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
-  const int64_t stat0 = ((int64_t)b * p.H + h) * p.Sq;
-
-  stage(sQ, D, Q, p.q_ss, q0, p.Sq, D);
-  if (tid < kBlockQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  // delta = rowsum(do * o): warp w owns rows 8w .. 8w + 7
-  for (int rr = 0; rr < 8; ++rr) {
-    const int qi = q0 + warp * 8 + rr;
-    float acc = 0.f;
-    if (qi < p.Sq)
-      for (int c = lane; c < D; c += 32)
-        acc = fmaf(load_f32(dO + qi * p.do_ss + c), load_f32(O + qi * p.o_ss + c), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0 && qi < p.Sq) p.row_delta[stat0 + qi] = acc;
-  }
-
-  int k_begin, k_end;
-  key_range(p, q0, &k_begin, &k_end);
-  __syncthreads();
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    stage(sK, ldk, K, p.k_ss, k0, p.Sk, D);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = sQ[(ty * 4 + r) * D + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * ldk + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[r][j] = fmaf(a[r], bk[j], s[r][j]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = ty * 4 + r, col = tx + 16 * j;
-        sS[row * kLdp + col] =
-            live(p, valid, q0 + row, k0 + col) ? s[r][j] * p.scale : -INFINITY;
-      }
-    __syncthreads();
-    for (int rr = 0; rr < 8; ++rr) {
-      const int row = warp * 8 + rr;
-      const float x0 = sS[row * kLdp + lane], x1 = sS[row * kLdp + lane + 32];
-      float mt = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = sM[row];
-      const float m_new = fmaxf(m_old, mt);
-      if (m_new != -INFINITY) {
-        float sum = expf(x0 - m_new) + expf(x1 - m_new);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (lane == 0) {
-          sL[row] = sL[row] * expf(m_old - m_new) + sum;
-          sM[row] = m_new;
-        }
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-  if (tid < kBlockQ && q0 + tid < p.Sq) {
-    p.row_max[stat0 + q0 + tid] = sM[tid];
-    p.row_sum[stat0 + q0 + tid] = sL[tid];
+    sLse[threadIdx.x] = qi < p.Sq ? p.lse[idx] : INFINITY;
+    sDelta[threadIdx.x] = qi < p.Sq ? p.delta[idx] : 0.f;
   }
 }
 
@@ -305,9 +239,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
   float* sdO = sQ + kBlockQ * D;
   float* sP = sdO + kBlockQ * D;
   float* sdS = sP + kBlockQ * kLdp;
-  float* sM = sdS + kBlockQ * kLdp;
-  float* sL = sM + kBlockQ;
-  float* sDelta = sL + kBlockQ;
+  float* sLse = sdS + kBlockQ * kLdp;
+  float* sDelta = sLse + kBlockQ;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.y / p.KVH;
@@ -327,13 +260,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j) acc_dk[r][j] = acc_dv[r][j] = 0.f;
 
-  // the q rows that can see a key of this tile
-  const int k_last = min(k0 + kBlockK, p.Sk) - 1;
-  int q_begin = 0;
-  int q_end = p.Sq;
-  if (p.causal) q_begin = max(0, k0 - p.q_offset) / kBlockQ * kBlockQ;
-  if (p.window > 0) q_end = min(q_end, k_last + p.window - p.q_offset);
-
+  int q_begin, q_end;
+  query_range(p, k0, &q_begin, &q_end);
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
     const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -342,11 +270,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
       __syncthreads();  // the previous tile's readers are done
       stage(sQ, D, Q, p.q_ss, q0, p.Sq, D);
       stage(sdO, D, dO, p.do_ss, q0, p.Sq, D);
-      load_stats<T>(p, b, h, q0, sM, sL, sDelta);
+      load_stats(p, b, h, q0, sLse, sDelta);
       __syncthreads();
       float s[4][4], dp[4][4];
       two_products(sQ, sK, sdO, sV, D, ty, tx, s, dp);
-      probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sM, sL, sDelta, sP, sdS);
+      probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, sP, sdS);
       __syncthreads();
       // dv[k][c] += sum_q p[q][k] do[q][c];  dk[k][c] += sum_q ds[q][k] q[q][c]
       for (int qq = 0; qq < kBlockQ; ++qq) {
@@ -401,9 +329,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
   float* sK = sdO + kBlockQ * D;
   float* sV = sK + kBlockK * ldk;
   float* sdS = sV + kBlockK * ldk;
-  float* sM = sdS + kBlockQ * kLdp;
-  float* sL = sM + kBlockQ;
-  float* sDelta = sL + kBlockQ;
+  float* sLse = sdS + kBlockQ * kLdp;
+  float* sDelta = sLse + kBlockQ;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.y / p.H;
@@ -418,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
 
   stage(sQ, D, Q, p.q_ss, q0, p.Sq, D);
   stage(sdO, D, dO, p.do_ss, q0, p.Sq, D);
-  load_stats<T>(p, b, h, q0, sM, sL, sDelta);
+  load_stats(p, b, h, q0, sLse, sDelta);
 
   float acc[4][kMaxCols];
 #pragma unroll
@@ -435,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
     __syncthreads();
     float s[4][4], dp[4][4];
     two_products(sQ, sK, sdO, sV, D, ty, tx, s, dp);
-    probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sM, sL, sDelta, nullptr, sdS);
+    probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, nullptr, sdS);
     __syncthreads();
     // dq[q][c] += sum_k ds[q][k] k[k][c]
     for (int kk = 0; kk < kBlockK; ++kk) {
@@ -467,51 +394,429 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
   }
 }
 
-size_t stats_smem(int d) {
-  return sizeof(float) * (size_t)(kBlockQ * d + kBlockK * (d + 1) + kBlockQ * kLdp + 2 * kBlockQ);
-}
 size_t dkdv_smem(int d) {
   return sizeof(float) * (size_t)(2 * kBlockK * (d + 1) + 2 * kBlockQ * d + 2 * kBlockQ * kLdp +
-                                  3 * kBlockQ);
+                                  2 * kBlockQ);
 }
 size_t dq_smem(int d) {
   return sizeof(float) * (size_t)(2 * kBlockQ * d + 2 * kBlockK * (d + 1) + kBlockQ * kLdp +
-                                  3 * kBlockQ);
+                                  2 * kBlockQ);
 }
 
-template <typename Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                       const Params& p) {
+// -- bf16: tensor cores -------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// One fp32 accumulator fragment pair (two adjacent columns) as bf16.
+__device__ __forceinline__ void store_pair(bf16* dst, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+}
+
+template <int DP>
+struct DkdvSmem {
+  bf16 k[DP * kBlockK];  // resident
+  bf16 v[DP * kBlockK];
+  bf16 q[kStages][DP * kBlockQ];  // walked
+  bf16 dout[kStages][DP * kBlockQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  DkdvSmem<DP>& sm = *reinterpret_cast<DkdvSmem<DP>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH, group = p.H / p.KVH;
+  const int k0 = blockIdx.x * kBlockK;
+  const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
+  bf16* dK = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  bf16* dV = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+
+  if (!tile_has_valid_key(valid, k0, p.Sk)) {
+    // no valid key in the tile: no row sees it, dk = dv = 0
+    const int pairs = p.D / 2;
+    for (int i = tid; i < kBlockK * pairs; i += kTcThreads) {
+      const int kj = k0 + i / pairs, c = 2 * (i % pairs);
+      if (kj < p.Sk) {
+        store_pair(dK + kj * p.dk_ss + c, 0.f, 0.f);
+        store_pair(dV + kj * p.dv_ss + c, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+
+  if (tid == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  int q_begin, q_end;
+  query_range(p, k0, &q_begin, &q_end);
+
+  if (warp == kConsumerThreads / 32) {
+    // producer: K and V once, then Q and dO of each head of the group and
+    // each q tile that can see the key tile
+    if (lane == 0) {
+      mbar_expect_tx(&sm.kv_full, 2 * Tile<DP>::kBytes);
+      tma_load_tile<DP>(sm.k, &tm_k, &sm.kv_full, k0, kvh, b);
+      tma_load_tile<DP>(sm.v, &tm_v, &sm.kv_full, k0, kvh, b);
+      int stage = 0, phase = 0;
+      for (int hh = 0; hh < group; ++hh) {
+        const int h = kvh * group + hh;
+        for (int q0 = q_begin; q0 < q_end; q0 += kBlockQ) {
+          mbar_wait(&sm.empty[stage], phase ^ 1);
+          mbar_expect_tx(&sm.full[stage], 2 * Tile<DP>::kBytes);
+          tma_load_tile<DP>(sm.q[stage], &tm_q, &sm.full[stage], q0, h, b);
+          tma_load_tile<DP>(sm.dout[stage], &tm_do, &sm.full[stage], q0, h, b);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread's rows (keys) are row0 and row0 + 8 of the
+  // tile, its columns (queries) col0 and col0 + 1 of each 8-column group
+  const int row0 = warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  int kj[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kj[r] = k0 + row0 + 8 * r;
+    key_ok[r] = kj[r] < p.Sk && (valid == nullptr || valid[kj[r]] != 0);
+  }
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(&sm.kv_full, 0);
+  int stage = 0, phase = 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = kvh * group + hh;
+    const float* lse_h = p.lse + ((int64_t)b * p.H + h) * p.Sq;
+    const float* delta_h = p.delta + ((int64_t)b * p.H + h) * p.Sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kBlockQ) {
+      mbar_wait(&sm.full[stage], phase);
+
+      // S^T = K Q^T and dP^T = V dO^T
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(st, desc_k_major<DP>(sm.k, kk), desc_k_major<DP>(sm.q[stage], kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dpt, desc_k_major<DP>(sm.v, kk), desc_k_major<DP>(sm.dout[stage], kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp(S^T scale - lse), masked; dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + 8 * j + col0 + e;
+          const bool in = qi < p.Sq;
+          const float lse = lse_h[min(qi, p.Sq - 1)];  // unused past Sq
+          const float delta = delta_h[min(qi, p.Sq - 1)];
+          const int q_pos = qi + p.q_offset;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const bool ok = in & key_ok[r] & in_window(p.causal, p.window, q_pos, kj[r]);
+            const int i = 4 * j + 2 * r + e;
+            const float pt = ok ? exp2_approx((st[i] * p.scale - lse) * kLog2e) : 0.f;
+            st[i] = pt;
+            dpt[i] = pt * (dpt[i] - delta) * p.scale;
+          }
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T in bf16 from registers
+      uint32_t a_p[4][4], a_ds[4][4];
+      acc_to_a(st, a_p);
+      acc_to_a(dpt, a_ds);
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dv, a_p[kk], desc_mn_major<DP>(sm.dout[stage], kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dk, a_ds[kk], desc_mn_major<DP>(sm.q[stage], kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(&sm.empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kj[r] >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col0;
+      if (c < p.D) {
+        store_pair(dK + kj[r] * p.dk_ss + c, dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        store_pair(dV + kj[r] * p.dv_ss + c, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DP>
+struct DqSmem {
+  bf16 q[DP * kBlockQ];  // resident
+  bf16 dout[DP * kBlockQ];
+  bf16 k[kStages][DP * kBlockK];  // walked
+  bf16 v[kStages][DP * kBlockK];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads) bwd_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  DqSmem<DP>& sm = *reinterpret_cast<DqSmem<DP>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = blockIdx.x * kBlockQ;
+  const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
+  int k_begin, k_end;
+  key_range(p, q0, &k_begin, &k_end);
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerThreads / 32) {
+    // producer: Q and dO once, then the live K/V tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(&sm.q_full, 2 * Tile<DP>::kBytes);
+      tma_load_tile<DP>(sm.q, &tm_q, &sm.q_full, q0, h, b);
+      tma_load_tile<DP>(sm.dout, &tm_do, &sm.q_full, q0, h, b);
+    }
+    int stage = 0, phase = 0;
+    for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+      if (!tile_has_valid_key(valid, k0, p.Sk)) continue;
+      if (lane == 0) {
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full[stage], 2 * Tile<DP>::kBytes);
+        tma_load_tile<DP>(sm.k[stage], &tm_k, &sm.full[stage], k0, kvh, b);
+        tma_load_tile<DP>(sm.v[stage], &tm_v, &sm.full[stage], k0, kvh, b);
+      }
+      __syncwarp();
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows (queries) row0 and row0 + 8, columns (keys)
+  // col0 and col0 + 1 of each 8-column group
+  const int row0 = warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  int qi[2], q_pos[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + row0 + 8 * r;
+    q_pos[r] = qi[r] + p.q_offset;
+    const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + qi[r];
+    lse[r] = qi[r] < p.Sq ? p.lse[idx] : INFINITY;
+    delta[r] = qi[r] < p.Sq ? p.delta[idx] : 0.f;
+  }
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(&sm.q_full, 0);
+  int stage = 0, phase = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+    if (!tile_has_valid_key(valid, k0, p.Sk)) continue;
+    mbar_wait(&sm.full[stage], phase);
+
+    // S = Q K^T and dP = dO V^T
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k_major<DP>(sm.q, kk), desc_k_major<DP>(sm.k[stage], kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k_major<DP>(sm.dout, kk), desc_k_major<DP>(sm.v[stage], kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) scale, P = exp(S scale - lse) masked (no branches)
+    const uint32_t bad = invalid_key_bits(valid, k0, col0, p.Sk);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * j + col0 + e;
+        const bool key_ok = (kj < p.Sk) & !((bad >> (2 * j + e)) & 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bool ok =
+              key_ok & (qi[r] < p.Sq) & in_window(p.causal, p.window, q_pos[r], kj);
+          const int i = 4 * j + 2 * r + e;
+          const float pr = ok ? exp2_approx((sc[i] * p.scale - lse[r]) * kLog2e) : 0.f;
+          sc[i] = pr * (dp[i] - delta[r]) * p.scale;
+        }
+      }
+    }
+
+    // dQ += dS K, dS in bf16 from registers, K read MN-major
+    uint32_t a_ds[4][4];
+    acc_to_a(sc, a_ds);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dq, a_ds[kk], desc_mn_major<DP>(sm.k[stage], kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    mbar_arrive(&sm.empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  bf16* dQ = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col0;
+      if (c < p.D) store_pair(dQ + qi[r] * p.dq_ss + c, dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// -- launches -------------------------------------------------------------------
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                       Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+cudaError_t launch_delta(const Params& p, int batch, cudaStream_t stream) {
+  const int rows = kThreads / 32;
+  return launch_one(bwd_delta_kernel<T>, dim3((p.Sq + rows - 1) / rows, batch * p.H), kThreads,
+                    0, stream, p);
+}
+
+int launch_f32(const Params& p, int batch, cudaStream_t stream) {
   const int q_tiles = (p.Sq + kBlockQ - 1) / kBlockQ;
   const int k_tiles = (p.Sk + kBlockK - 1) / kBlockK;
-  cudaError_t err = launch_one(bwd_stats_kernel<T>, dim3(q_tiles, batch * p.H),
-                               stats_smem(p.D), stream, p);
+  cudaError_t err = launch_delta<float>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_one(bwd_dkdv_kernel<T>, dim3(k_tiles, batch * p.KVH), dkdv_smem(p.D), stream, p);
+  err = launch_one(bwd_dkdv_kernel<float>, dim3(k_tiles, batch * p.KVH), kThreads,
+                   dkdv_smem(p.D), stream, p);
   if (err != cudaSuccess) return (int)err;
-  err = launch_one(bwd_dq_kernel<T>, dim3(q_tiles, batch * p.H), dq_smem(p.D), stream, p);
-  return (int)err;
+  return (int)launch_one(bwd_dq_kernel<float>, dim3(q_tiles, batch * p.H), kThreads,
+                         dq_smem(p.D), stream, p);
+}
+
+template <int DP>
+int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
+  using hopper_host::bf16_tile_map;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!bf16_tile_map(&tm_q, p.q, batch, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, DP) ||
+      !bf16_tile_map(&tm_k, p.k, batch, p.Sk, p.KVH, p.D, p.k_sb, p.k_ss, p.k_sh, DP) ||
+      !bf16_tile_map(&tm_v, p.v, batch, p.Sk, p.KVH, p.D, p.v_sb, p.v_ss, p.v_sh, DP) ||
+      !bf16_tile_map(&tm_do, p.dout, batch, p.Sq, p.H, p.D, p.do_sb, p.do_ss, p.do_sh, DP))
+    return (int)cudaErrorInvalidValue;
+  const int q_tiles = (p.Sq + kBlockQ - 1) / kBlockQ;
+  const int k_tiles = (p.Sk + kBlockK - 1) / kBlockK;
+  cudaError_t err = launch_delta<bf16>(p, batch, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_one(bwd_dkdv_bf16_kernel<DP>, dim3(k_tiles, batch * p.KVH), kTcThreads,
+                   sizeof(DkdvSmem<DP>), stream, tm_q, tm_k, tm_v, tm_do, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_one(bwd_dq_bf16_kernel<DP>, dim3(q_tiles, batch * p.H), kTcThreads,
+                         sizeof(DqSmem<DP>), stream, tm_q, tm_k, tm_v, tm_do, p);
+}
+
+int launch_bf16_any(const Params& p, int batch, cudaStream_t stream) {
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_bf16<16>(p, batch, stream);
+    case 2: return launch_bf16<32>(p, batch, stream);
+    case 3: return launch_bf16<48>(p, batch, stream);
+    case 4: return launch_bf16<64>(p, batch, stream);
+    case 5: return launch_bf16<80>(p, batch, stream);
+    case 6: return launch_bf16<96>(p, batch, stream);
+    case 7: return launch_bf16<112>(p, batch, stream);
+    case 8: return launch_bf16<128>(p, batch, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
-// row_max / row_sum / row_delta: fp32 scratch of B * H * Sq floats each.
+// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (tensor-core kernels;
+// head_dim a multiple of 8, 16-byte aligned bases and strides). lse: the
+// forward's fp32 [B, H, Sq] row statistic; delta: fp32 scratch of B * H * Sq.
+// Returns a cudaError_t (0 on success).
 int cambrian_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const uint8_t* key_valid,
     const void* o, const void* dout, void* dq, void* dk, void* dv,
-    float* row_max, float* row_sum, float* row_delta,
+    const float* lse, float* delta,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -524,13 +829,13 @@ int cambrian_flash_attention_bwd(
     float scale, int causal, int window, int q_offset, void* stream) {
   if (head_dim < 1 || head_dim > kMaxD || kv_heads < 1 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, key_valid, o, dout, dq, dk, dv, row_max, row_sum, row_delta,
+  Params p{q, k, v, key_valid, o, dout, dq, dk, dv, lse, delta,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh,
            heads, kv_heads, s_q, s_k, head_dim, scale, causal, window, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, batch, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, batch, st);
+  if (dtype == 0) return launch_f32(p, batch, st);
+  if (dtype == 1 && head_dim % 8 == 0) return launch_bf16_any(p, batch, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,7 @@ library, all at once, and waits for them.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,8 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/{name}.cu`` lives once built."""
+    """Where the library of ``csrc/{name}.cu`` lives once built. The hash
+    covers the source, the ``csrc/*.cuh`` headers it includes, and the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include "([\w.]+\.cuh)"', src)))
+    for header in headers:
+        src += (CSRC / header.decode()).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

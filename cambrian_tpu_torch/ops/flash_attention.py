@@ -9,7 +9,14 @@
 tensors go to the plain PyTorch version, ``flash_attention_reference`` (the
 semantics of that module's ``_xla_reference``), and autograd differentiates
 it, as JAX differentiates ``_xla_reference`` off the TPU.
-``flash_attention_bwd_reference`` is K2's plain version.
+``flash_attention_bwd_reference`` is K2's plain version, and
+``flash_attention_lse_reference`` the plain version of the row statistic that
+K1 writes for K2 (the log-sum-exp of each row's masked logits).
+
+On the card, bf16 takes the tensor-core kernels (wgmma on TMA-fed tiles),
+which round the probabilities P (forward and backward) and dS (backward) to
+bf16 before their products, as the TPU forward rounds P; fp32 takes the SIMT
+kernels, exact to fp32 rounding.
 
 The kernels are compiled with ``nvcc`` for sm_90a on first use
 (``ops/cuda_build.py``) and loaded with ctypes. Nothing is compiled or
@@ -67,15 +74,34 @@ def _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, device):
     return mask
 
 
+def flash_attention_lse_reference(q, k, key_valid=None, causal=False, sliding_window=None,
+                                  q_offset=0, scale=None):
+    """Plain PyTorch version of K1's row statistic: the log-sum-exp over each
+    row's live keys of the logits (q . k) * scale, fp32 [B, H, Sq]; +inf for a
+    row with no live key, so that ``exp(x - lse)`` is 0 throughout it."""
+    b, s_q, h, d = q.shape
+    s_k, kvh = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, q.device)
+    lse = torch.logsumexp(torch.where(mask, logits, -torch.inf), dim=-1)
+    return torch.where(mask.any(-1), lse, torch.inf)
+
+
 def flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal=False,
-                                  sliding_window=None, q_offset=0, scale=None):
+                                  sliding_window=None, q_offset=0, scale=None, lse=None):
     """Plain PyTorch version of K2, the math of the TPU kernel
     ``_attn_bwd_kernel``: fp32 probabilities recomputed from a whole-row
-    maximum and sum (denominator floored at 1e-30, masked entries 0),
-    ``delta = rowsum(do * o)``, ``ds = p * (do . v - delta) * scale``,
-    ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T do``. With GQA a kv head's
-    ``dk``/``dv`` sum its group of query heads in fp32. Shapes as
-    ``flash_attention_reference``; returns (dq, dk, dv) in the input dtype.
+    maximum and sum (denominator floored at 1e-30, masked entries 0), or,
+    given the forward's row statistic ``lse`` [B, H, Sq], ``exp(x - lse)``
+    with masked entries 0; ``delta = rowsum(do * o)``,
+    ``ds = p * (do . v - delta) * scale``, ``dq = ds k``, ``dk = ds^T q``,
+    ``dv = p^T do``. With GQA a kv head's ``dk``/``dv`` sum its group of
+    query heads in fp32. Shapes as ``flash_attention_reference``; returns
+    (dq, dk, dv) in the input dtype.
     """
     b, s_q, h, d = q.shape
     s_k, kvh = k.shape[1], k.shape[2]
@@ -87,10 +113,13 @@ def flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal=False,
     v32 = v.float().repeat_interleave(group, dim=2)
     mask = _mask(key_valid, b, s_q, s_k, causal, sliding_window, q_offset, q.device)
     logits = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
-    probs = torch.where(mask, probs, 0.0)
-    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    if lse is None:
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+        probs = torch.where(mask, probs, 0.0)
+        probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    else:
+        probs = torch.where(mask, torch.exp(logits - lse.float()[..., None]), 0.0)
     delta = (do32 * o32).sum(-1).permute(0, 2, 1)[..., None]      # [B, H, Sq, 1]
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
     ds = probs * (dp - delta) * scale
@@ -107,7 +136,7 @@ def flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal=False,
 def _library() -> ctypes.CDLL:
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     return cuda_build.load("flash_attention", {
-        "cambrian_flash_attention_fwd": [i32] + [ptr] * 5 + [i64] * 12 + [i32] * 6
+        "cambrian_flash_attention_fwd": [i32] + [ptr] * 6 + [i64] * 12 + [i32] * 6
                                         + [ctypes.c_float, i32, i32, i32, ptr]})
 
 
@@ -115,7 +144,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     return cuda_build.load("flash_attention_bwd", {
-        "cambrian_flash_attention_bwd": [i32] + [ptr] * 12 + [i64] * 24 + [i32] * 6
+        "cambrian_flash_attention_bwd": [i32] + [ptr] * 11 + [i64] * 24 + [i32] * 6
                                         + [ctypes.c_float, i32, i32, i32, ptr]})
 
 
@@ -145,12 +174,32 @@ def _check_inputs(q, k, v, key_valid):
                          f"got {tuple(key_valid.shape)}")
 
 
+def _check_tma(what, d, **tensors):
+    """The bf16 kernels read their [B, S, heads, D] operands through TMA
+    tensor maps: a row is a multiple of 16 bytes, and every base address and
+    stride (of a dimension longer than 1) a multiple of 16 bytes."""
+    if d % 8 != 0:
+        raise ValueError(f"{what} in bfloat16 takes head_dim a multiple of 8 "
+                         f"(16-byte rows for TMA), got {d}")
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{what} in bfloat16: {name}'s base address must be 16-byte "
+                             f"aligned for TMA")
+        for dim in range(3):
+            if t.shape[dim] > 1 and t.stride(dim) % 8 != 0:
+                raise ValueError(f"{what} in bfloat16: {name}'s stride {t.stride(dim)} on "
+                                 f"dimension {dim} must be a multiple of 8 elements (16 "
+                                 f"bytes) for TMA")
+
+
 def _card_args(what, q, k, v, key_valid, sliding_window, scale):
     """Check the inputs of a kernel call on the card; returns the key
     validity as contiguous bool (or None) and the scale as a float."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
     _check_inputs(q, k, v, key_valid)
+    if q.dtype == torch.bfloat16:
+        _check_tma(what, q.shape[-1], q=q, k=k, v=v)
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     valid = None
@@ -180,42 +229,53 @@ def flash_attention(
         return flash_attention_reference(q, k, v, key_valid, causal,
                                          sliding_window, q_offset, scale)
     valid, scale = _card_args("flash_attention", q, k, v, key_valid, sliding_window, scale)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        # no backward will run (serving): no autograd node, no row statistic
+        return _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale)[0]
     return FlashAttentionFunction.apply(q, k, v, valid, causal, sliding_window, q_offset, scale)
 
 
-def _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale):
-    """Launch K1 on checked CUDA inputs; ``valid`` is None or contiguous bool."""
+def _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale, with_lse=False):
+    """Launch K1 on checked CUDA inputs; ``valid`` is None or contiguous bool.
+    Returns the output and, with ``with_lse``, the row statistic (fp32
+    [B, H, Sq] log-sum-exp, +inf for a row with no live key), else None."""
     b, s_q, h, d = q.shape
     s_k, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention.launches += 1
     err = lib.cambrian_flash_attention_fwd(
         cuda_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         *_strides(q, k, v, out), b, h, kvh, s_q, s_k, d, scale, int(bool(causal)),
         -1 if sliding_window is None else int(sliding_window), int(q_offset), stream)
     cuda_build.check_launch(lib, err, "flash_attention")
-    return out
+    return out, lse
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """K1 forward, K2 backward (the JAX package's ``custom_vjp`` around
     ``_flash``). Saves ``(q, k, v, key_valid, out)``, the residuals of JAX
-    ``_flash_fwd``; the backward recomputes the probabilities."""
+    ``_flash_fwd``, and the row statistic K1 wrote, which K2 reads instead
+    of recomputing the row maximum and sum. ``flash_attention`` takes it only
+    when a backward can run."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, causal, sliding_window, q_offset, scale):
-        out = _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale)
-        ctx.save_for_backward(q, k, v, valid, out)
+        out, lse = _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale,
+                              with_lse=True)
+        ctx.save_for_backward(q, k, v, valid, out, lse)
         ctx.options = (causal, sliding_window, q_offset, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, valid, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, dout.contiguous(), *ctx.options)
+        q, k, v, valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, dout.contiguous(), *ctx.options,
+                                         lse=lse)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -230,34 +290,45 @@ def flash_attention_bwd(
     sliding_window: Optional[int] = None,
     q_offset: int = 0,
     scale: Optional[float] = None,
+    lse: Optional[torch.Tensor] = None,        # [B, H, Sq] fp32, K1's row statistic
 ):
     """(dq, dk, dv) of ``flash_attention``. CPU tensors go to
     ``flash_attention_bwd_reference``; CUDA tensors launch K2 (three kernels
     behind one call, counted once in ``flash_attention_bwd.launches``) or
-    raise."""
+    raise. ``lse`` is the row statistic the forward wrote (what
+    ``FlashAttentionFunction`` saves); without it, one K1 launch (counted in
+    ``flash_attention.launches``) writes it first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal,
-                                             sliding_window, q_offset, scale)
+                                             sliding_window, q_offset, scale, lse)
     valid, scale = _card_args("flash_attention_bwd", q, k, v, key_valid, sliding_window, scale)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit stride on head_dim")
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_attention_bwd", q.shape[-1], do=do)
     b, s_q, h, d = q.shape
     s_k, kvh = k.shape[1], k.shape[2]
+    if lse is None:
+        _, lse = _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale,
+                            with_lse=True)
+    elif (tuple(lse.shape) != (b, h, s_q) or lse.dtype != torch.float32
+          or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [B, H, Sq] = {(b, h, s_q)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, s_k, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s_k, kvh, d), dtype=v.dtype, device=q.device)
-    stats = torch.empty((3, b, h, s_q), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention_bwd.launches += 1
     err = lib.cambrian_flash_attention_bwd(
         cuda_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *_strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s_q, s_k, d, scale,
         int(bool(causal)), -1 if sliding_window is None else int(sliding_window),
         int(q_offset), stream)

@@ -7,12 +7,16 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    kernel from the repository's sources (one nvcc per source, all started
-   together, sm_90a);
+   together, sm_90a), ptxas' registers and spills of each kernel, and the
+   tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA) of each
+   kernel function of K1 and K2; every bf16 one must have HGMMA;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
-   dead rows; max abs error against the fp32 plain result, CUDA-event times
-   of the kernel, the plain version and ``F.scaled_dot_product_attention``
+   dead rows; max abs error against the fp32 plain result (and of the row
+   statistic K1 writes for the backward against its plain version),
+   CUDA-event times (each call alone behind a spin kernel) of the kernel,
+   the plain version and ``F.scaled_dot_product_attention``
    (the library yardstick), and the bound from the case's bytes and
    operations;
 3. K3, K4 and K4b/K4c, the int8 / int4 dequant-matmuls, against their plain
@@ -42,9 +46,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    the card (serving models freed): the stage-1 decoder shape (batch 8 x
    2048, 32/8 heads, D 128, causal, right padding), a causal case with a
    sliding window and dead rows, and the three tower shapes, in bf16 and
-   fp32; max abs error of dq/dk/dv, CUDA-event times of the kernel, the
-   plain version and the backward of ``F.scaled_dot_product_attention``
-   (forward+backward less forward; the library yardstick), and the bound;
+   fp32, given the forward's row statistic as the training step gives it;
+   max abs error of dq/dk/dv, CUDA-event times of the kernel, the plain
+   version and the backward of ``F.scaled_dot_product_attention``
+   (forward+backward less forward; the library yardstick), the bound, and
+   the statistic's own cost (K1 with it less K1 without);
 8. a tiny Cambrian through ``make_train_step``, 3 optimizer steps of stage 1
    and 3 of stage 2 with remat, on the card (K1/K2, fp32, TF32 off) against
    the plain path on the CPU from the same weights and batches: losses and
@@ -58,7 +64,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    2048 on pre-tokenized samples made with numpy; finite losses, a moved
    connector, bitwise-unchanged frozen weights, exactly 154 K1 and 32 K2
    launches per micro-batch; step times, throughput, peak memory, and one
-   more step under ``torch.profiler`` for where a step's device time goes;
+   more step under ``torch.profiler`` for where a step's device time goes
+   (no kernel may recompute the row statistics there);
 10. K5-K8 (SVA windowed attention, fused LayerNorm, depthwise 7x7 conv,
    fused GELU MLP), which no site of the path calls (as in the JAX
    package), on the inputs that one more warm bf16 request of phase 5 gave
@@ -79,6 +86,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -129,15 +137,16 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(torch, fn, iters=10, flush=None, spin=SPIN_CYCLES):
+def cuda_ms(torch, fn, iters=10, flush=None, spin=None):
     """Mean device time of ``fn`` over ``iters`` calls, after one warm-up.
-    With ``flush``, each call is timed alone after ``flush()`` has run; a
-    spin kernel (``spin`` cycles) then holds the stream until the host has
-    queued the timed call, so that its launch cost on the host is not read
-    as device time."""
+    With ``flush`` or ``spin``, each call is timed alone, after ``flush()``
+    has run if given; a spin kernel (``spin`` cycles, by default
+    SPIN_CYCLES) then holds the stream until the host has queued the timed
+    call, so that its launch cost on the host is not read as device time.
+    Without either, the calls run back to back."""
     fn()
     torch.cuda.synchronize()
-    if flush is None:
+    if flush is None and spin is None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -148,8 +157,9 @@ def cuda_ms(torch, fn, iters=10, flush=None, spin=SPIN_CYCLES):
         return start.elapsed_time(end) / iters
     events = []
     for _ in range(iters):
-        flush()
-        torch.cuda._sleep(spin)
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(spin or SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -197,6 +207,51 @@ def zero_counts(counters):
 
 def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def kernel_name(mangled):
+    """A K1/K2 kernel function's mangled name as ``name<template argument>``
+    (the padded head dimension, bf16 or float); other names as they are."""
+    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS)})"
+                  r"I(?:Li(\d+)E|13__nv_bfloat16|f)E", mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{m.group(2) or ('bf16' if 'bfloat16' in mangled else 'float')}>"
+
+
+def tensor_core_instructions(path):
+    """{kernel function: [HGMMA, HMMA]}: the tensor-core instructions of each
+    kernel function of a built library, counted in ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = kernel_name(line.split(":", 1)[1].strip())
+            out[name] = [0, 0]
+        elif name is not None and "HGMMA" in line:
+            out[name][0] += 1
+        elif name is not None and "HMMA" in line:
+            out[name][1] += 1
+    return out
+
+
+def register_use(log):
+    """{kernel function: (registers, spill store bytes)} from ptxas' -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), out.get(name, (0, 0))[1])
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            out[name] = (out.get(name, (0, 0))[0], int(m.group(1)))
+    return out
 
 
 def build_prompts(cfg, rng):
@@ -254,12 +309,26 @@ def kernel_phase(torch, fa, prompt):
             tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
             check(torch.isfinite(out).all().item(), f"{name} {dtype}: non-finite output")
             check(err <= tol, f"{name} {dtype}: max abs error {err} > {tol}")
+            # the row statistic K1 writes for the backward: +inf on the same
+            # (dead) rows; elsewhere the fp32 log-sum-exp of the same logits,
+            # summed in another order (|lse| < 20 here)
+            _, lse = fa._flash_fwd(q, k, v, valid, causal, None, 0, d ** -0.5, True)
+            lse_ref = fa.flash_attention_lse_reference(q.float(), k.float(), valid, causal)
+            live = torch.isfinite(lse_ref)
+            check(torch.equal(live, torch.isfinite(lse)) and bool((lse[~live] > 0).all()),
+                  f"{name} {dtype}: the statistic's +inf rows differ from the plain version's")
+            lse_err = float((lse - lse_ref)[live].abs().max()) if live.any() else 0.0
+            check(lse_err <= 1e-3, f"{name} {dtype}: row statistic error {lse_err} > 1e-3")
             if name == "dead_rows":
                 check((out[1] == 0).all().item() and (out[0, :50] == 0).all().item(),
                       "dead rows are not exactly 0")
-            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, valid, causal))
+            # each call alone behind a spin kernel: at the serving shapes the
+            # wrapper's host work outlasts the kernel, so calls back to back
+            # would time the host
+            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, valid, causal),
+                         spin=SITE_SPIN_CYCLES)
             plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
-                q, k, v, valid, causal))
+                q, k, v, valid, causal), spin=SITE_SPIN_CYCLES)
             dtype_name = str(dtype).replace("torch.", "")
             # the (query, key) pairs this case's mask lets through
             keep = torch.ones((b, s_q, s_k), dtype=torch.bool, device=dev)
@@ -280,15 +349,17 @@ def kernel_phase(torch, fa, prompt):
                 vt = v.repeat_interleave(h // kvh, 2).transpose(1, 2).contiguous()
                 dense = None if valid is None and not causal else keep[:, None]
                 library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=dense))
+                    qt, kt, vt, attn_mask=dense), spin=SITE_SPIN_CYCLES)
             rec = dict(case=name, dtype=dtype_name, b=b, s_q=s_q,
                        s_k=s_k, h=h, kvh=kvh, d=d, causal=causal, max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       tol=tol, lse_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
-                       ops_ms=ops_ms, per_request=per_req)
+                       ops_ms=ops_ms, per_request=per_req,
+                       tflops=4 * h * d * pairs / ms / 1e9)
             lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
             print(f"kernel {name:16s} {dtype_name:8s} Sq={s_q} Sk={s_k} H={h}/{kvh} D={d} "
-                  f"err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib} "
+                  f"err={err:.3e} lse_err={lse_err:.1e} kernel={ms:.4f} ms "
+                  f"({rec['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib} "
                   f"bound={bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
             records.append(rec)
     return records
@@ -597,8 +668,11 @@ def backward_kernel_phase(torch, fa):
             k = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
             v = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
             do = torch.randn((b, s_q, h, d), generator=g, device=dev).to(dtype)
-            o = fa.flash_attention(q, k, v, valid, causal, window)
-            got = fa.flash_attention_bwd(q, k, v, valid, o, do, causal, window)
+            # as FlashAttentionFunction runs it: the forward's output and row
+            # statistic saved, then the backward given both
+            scale = d ** -0.5
+            o, lse = fa._flash_fwd(q, k, v, valid, causal, window, 0, scale, True)
+            got = fa.flash_attention_bwd(q, k, v, valid, o, do, causal, window, lse=lse)
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), valid,
                                                     o.float(), do.float(), causal, window)
@@ -622,10 +696,17 @@ def backward_kernel_phase(torch, fa):
                 check(all((x[1] == 0).all().item() and (x[0, :50] == 0).all().item()
                           for x in (dk, dv)), "K2: dk/dv of keys no row sees are not exactly 0")
             del got, want
+            # each call alone behind a spin kernel, as in phase 2
+            alone = dict(spin=SITE_SPIN_CYCLES)
             ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, valid, o, do, causal,
-                                                               window))
+                                                               window, lse=lse), **alone)
+            # the statistic's own cost: K1 writing it less K1 without
+            fwd_ms = cuda_ms(torch, lambda: fa._flash_fwd(q, k, v, valid, causal, window, 0,
+                                                          scale), **alone)
+            stat_ms = cuda_ms(torch, lambda: fa._flash_fwd(q, k, v, valid, causal, window, 0,
+                                                           scale, True), **alone) - fwd_ms
             plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
-                q, k, v, valid, o, do, causal, window))
+                q, k, v, valid, o, do, causal, window), **alone)
             # the (batch, query, key) pairs the mask lets through
             keep = torch.ones((b, s_q, s_k), dtype=torch.bool, device=dev)
             if valid is not None:
@@ -649,9 +730,9 @@ def backward_kernel_phase(torch, fa):
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense,
                                                       scale=d ** -0.5)
 
-            sdpa_fwd_ms = cuda_ms(torch, sdpa)
+            sdpa_fwd_ms = cuda_ms(torch, sdpa, **alone)
             sdpa_fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
-                                                                         dot))
+                                                                         dot), **alone)
             library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
             del qt, kt, vt, dot, dense, keep
             # each input read once (q, k, v, o, do) and each output written
@@ -665,15 +746,16 @@ def backward_kernel_phase(torch, fa):
                        tols=tols, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bytes_ms=bytes_ms, ops_ms=ops_ms, per_step=per_step,
-                       tflops=10 * h * d * pairs / ms / 1e9)
+                       tflops=10 * h * d * pairs / ms / 1e9, k1_ms=fwd_ms, stat_ms=stat_ms)
             print(f"kernel flash_attention_bwd {name:16s} {dtype_name:8s} B={b} Sq={s_q} "
                   f"Sk={s_k} H={h}/{kvh} D={d} err dq/dk/dv="
                   f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} (tol "
                   f"{tols['dq']:.2e}/{tols['dk']:.2e}/{tols['dv']:.2e}) kernel={ms:.4f} ms "
                   f"({rec['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
-                  f"sdpa_bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+                  f"sdpa_bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}); K1 "
+                  f"{fwd_ms:.4f} ms, its row statistic {stat_ms:+.4f} ms", flush=True)
             records.append(rec)
-            del q, k, v, o, do
+            del q, k, v, o, do, lse
     torch.backends.cuda.matmul.allow_tf32 = tf32
     gc.collect()
     torch.cuda.empty_cache()
@@ -832,14 +914,21 @@ def kernel_events(prof):
     return sorted(out, reverse=True)
 
 
+# kernel function names of K1 (fp32 SIMT, bf16 tensor cores) and K2 (delta,
+# dk/dv and dq passes, each dtype)
+K1_FUNCTIONS = ("flash_fwd_kernel", "fwd_bf16_kernel")
+K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkdv_bf16_kernel",
+                "bwd_dq_bf16_kernel")
+
+
 def device_time_by_kind(prof):
     """Device ms of a profiled run by kernel kind: K1, K2, GEMMs, others."""
     kinds = {"K1": 0.0, "K2": 0.0, "gemm": 0.0, "other": 0.0}
     for us, _, key in kernel_events(prof):
         name = key.lower()
-        if "flash_fwd_kernel" in name:
+        if any(s in name for s in K1_FUNCTIONS):
             kind = "K1"
-        elif any(s in name for s in ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")):
+        elif any(s in name for s in K2_FUNCTIONS):
             kind = "K2"
         elif any(s in name for s in ("gemm", "xmma", "nvjet", "cutlass")):
             kind = "gemm"
@@ -972,6 +1061,8 @@ def train_8b_phase(torch, fa, quant, k2_record):
     kinds = device_time_by_kind(prof)
     busy = sum(kinds.values())
     check(kinds["K1"] > 0 and kinds["K2"] > 0, f"8B profiled step: no K1/K2 device time {kinds}")
+    check(not any("stats" in key for _, _, key in kernel_events(prof)),
+          "8B profiled step: a kernel recomputed the row statistics")
     rec.update(profiled_wall_ms=prof_wall_ms, device_ms=kinds, device_busy_ms=busy,
                idle_share=1 - busy / prof_wall_ms)
     print(f"8B train profiled step: wall {prof_wall_ms:.1f} ms, device busy {busy:.1f} ms "
@@ -1403,8 +1494,24 @@ def main(argv=None):
         print(f"{name}: {b['seconds']:.2f} s -> {b['path']}", flush=True)
         # ptxas: registers, shared memory and spills of each kernel
         for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(line.strip(), flush=True)
+    # K1 and K2 on the tensor cores: every bf16 kernel function (one per
+    # padded head dimension 16 .. 128) must contain wgmma (HGMMA)
+    sass = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        regs = register_use(built[lib]["log"])
+        for fn, (hgmma, hmma) in tensor_core_instructions(built[lib]["path"]).items():
+            n_regs, spills = regs.get(fn, (None, None))
+            sass[fn] = dict(library=lib, hgmma=hgmma, hmma=hmma, registers=n_regs,
+                            spill_bytes=spills)
+            print(f"sass {lib}: {fn}: {hgmma} HGMMA, {hmma} HMMA, {n_regs} registers, "
+                  f"{spills} bytes spilled", flush=True)
+    bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
+    check(len(bf16_fns) == 24, f"expected 3 x 8 bf16 kernel functions of K1/K2, found {bf16_fns}")
+    check(all(sass[fn]["hgmma"] > 0 for fn in bf16_fns),
+          f"bf16 K1/K2 functions without HGMMA: "
+          f"{[fn for fn in bf16_fns if not sass[fn]['hgmma']]}")
 
     rng = np.random.default_rng(SEED)
     prompts = build_prompts(cambrian_8b(), rng)
@@ -1528,7 +1635,7 @@ def main(argv=None):
     summary = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()},
+            json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()}, sass=sass,
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
                            vision=vision, summary=summary), f, indent=1)

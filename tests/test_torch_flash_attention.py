@@ -1,7 +1,8 @@
 """Parity of the port's flash attention (cambrian_tpu_torch/ops/flash_attention.py)
 with the JAX package's: the plain version against the Pallas kernel in
-interpret mode and against ``_xla_reference``, on the CPU in fp32; and the
-CUDA kernel against the plain version on the card (marker ``cuda``).
+interpret mode and against ``_xla_reference``, on the CPU in fp32; the plain
+row statistic (the log-sum-exp K1 writes for the backward) against numpy;
+and the CUDA kernel against the plain versions on the card (marker ``cuda``).
 
 JAX is imported inside the helpers, so that on a machine with a card and no
 JAX ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from cambrian_tpu_torch.ops.flash_attention import (
+    _flash_fwd,
     flash_attention,
+    flash_attention_lse_reference,
     flash_attention_reference,
 )
 
@@ -99,6 +102,52 @@ def test_fully_masked_rows_are_zero():
     np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
 
 
+def _numpy_lse(q, k, valid, causal, window, q_offset):
+    """log-sum-exp of each row's live logits in float64; +inf where no key
+    is live. A key masked twice (invalid and outside the causal window) is
+    as dead as one masked once."""
+    b, s_q, h, d = q.shape
+    s_k, kvh = k.shape[1], k.shape[2]
+    k = np.repeat(k, h // kvh, axis=2).astype(np.float64)
+    logits = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k) * d ** -0.5
+    q_pos = q_offset + np.arange(s_q)[:, None]
+    k_pos = np.arange(s_k)[None, :]
+    live = np.broadcast_to(valid[:, None, None, :], logits.shape).copy()
+    if causal:
+        live &= k_pos <= q_pos
+    if window is not None:
+        live &= (q_pos - k_pos) < window
+    out = np.full((b, h, s_q), np.inf)
+    for idx in np.ndindex(b, h, s_q):
+        x = logits[idx][live[idx]]
+        if x.size:
+            out[idx] = x.max() + np.log(np.exp(x - x.max()).sum())
+    return out
+
+
+LSE_CASES = dict(CASES, dead_rows=(2, 40, 40, 2, 2, 16, [40, 0], True, None, 0))
+
+
+@pytest.mark.parametrize("name", sorted(LSE_CASES))
+def test_plain_row_statistic_matches_numpy(name):
+    b, s_q, s_k, h, kvh, d, lens, causal, window, q_offset = LSE_CASES[name]
+    q, k, _, valid = _inputs(b, s_q, s_k, h, kvh, d, seed=len(name) + 2, valid_len=lens)
+    if name == "dead_rows":
+        # batch 0: keys 0..9 invalid, so causal rows 0..9 see none, and each
+        # row's keys past it are masked twice; batch 1: no valid key
+        valid[0, :10] = False
+    got = flash_attention_lse_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(valid), causal=causal,
+        sliding_window=window, q_offset=q_offset)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, s_q)
+    want = _numpy_lse(q, k, valid, causal, window, q_offset)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    if name == "dead_rows":
+        assert np.isposinf(got[1].numpy()).all() and np.isposinf(got[0, :, :10].numpy()).all()
+        assert np.isfinite(got[0, :, 10:].numpy()).all()
+
+
 def test_wrapper_routes_cpu_tensors_to_plain():
     q, k, v, valid = _inputs(1, 20, 24, 4, 2, 8, seed=3, valid_len=[21])
     args = [torch.from_numpy(x) for x in (q, k, v, valid)]
@@ -116,32 +165,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (b, s_q, s_k, h, kvh, d, causal, window, q_offset, with_padding)
+# (b, s_q, s_k, h, kvh, d, causal, window, q_offset, key mask): "pad" has
+# dead causal rows at the start and padding at the end, "hole" a key tile
+# (keys 64..127) with no valid key in the middle
 KERNEL_CASES = {
-    "siglip": (1, 729, 729, 16, 16, 72, False, None, 0, False),
-    "clip": (1, 577, 577, 16, 16, 64, False, None, 0, False),
-    "dinov2": (1, 730, 730, 24, 24, 64, False, None, 0, False),
-    "prefill_gqa": (1, 640, 672, 32, 8, 128, True, None, 0, True),
-    "window_offset": (2, 100, 180, 4, 2, 48, True, 33, 50, True),
+    "siglip": (1, 729, 729, 16, 16, 72, False, None, 0, None),
+    "clip": (1, 577, 577, 16, 16, 64, False, None, 0, None),
+    "dinov2": (1, 730, 730, 24, 24, 64, False, None, 0, None),
+    "prefill_gqa": (1, 640, 672, 32, 8, 128, True, None, 0, "pad"),
+    "window_offset": (2, 100, 180, 4, 2, 48, True, 33, 50, "pad"),
+    "dead_key_tile": (2, 300, 300, 4, 2, 64, True, None, 0, "hole"),
+    "ragged_q": (3, 70, 200, 4, 4, 40, False, None, 0, "pad"),
+    "d72_window": (2, 150, 150, 4, 2, 72, True, 40, 0, "hole"),
+    "d96": (2, 130, 130, 4, 2, 96, True, None, 0, None),
+    "d24_offset": (2, 40, 100, 2, 1, 24, True, None, 60, "pad"),
 }
+
+
+def _card_inputs(device, dtype, b, s_q, s_k, h, kvh, d, mask):
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    q, k, v = rand(b, s_q, h, d), rand(b, s_k, kvh, d), rand(b, s_k, kvh, d)
+    valid = torch.ones((b, s_k), dtype=torch.bool, device=device)
+    if mask == "pad":
+        valid[:, : s_k // 7] = False     # dead causal rows at the start
+        valid[:, -s_k // 5:] = False     # padding at the end
+    elif mask == "hole":
+        valid[:, 64:128] = False         # a whole key tile with no valid key
+    return q, k, v, valid
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
-    b, s_q, s_k, h, kvh, d, causal, window, q_offset, pad = KERNEL_CASES[name]
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    dt = getattr(torch, dtype)
-
-    def rand(*shape):
-        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
-
-    q, k, v = rand(b, s_q, h, d), rand(b, s_k, kvh, d), rand(b, s_k, kvh, d)
-    valid = torch.ones((b, s_k), dtype=torch.bool, device=cuda_device)
-    if pad:
-        valid[:, : s_k // 7] = False     # dead causal rows at the start
-        valid[:, -s_k // 5:] = False     # padding at the end
+    b, s_q, s_k, h, kvh, d, causal, window, q_offset, mask = KERNEL_CASES[name]
+    q, k, v, valid = _card_inputs(cuda_device, getattr(torch, dtype), b, s_q, s_k, h, kvh, d,
+                                  mask)
+    dt = q.dtype
     before = flash_attention.launches
     got = flash_attention(q, k, v, valid, causal, window, q_offset)
     torch.cuda.synchronize()
@@ -153,3 +217,44 @@ def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
     # unit-variance inputs
     tol = 1e-4 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_row_statistic_matches_plain_on_card(cuda_device, name, dtype):
+    """The log-sum-exp K1 writes for the backward: +inf on the rows with no
+    live key, elsewhere the plain statistic of the same (upcast) inputs to
+    fp32 summation order (|lse| < 20 here)."""
+    b, s_q, s_k, h, kvh, d, causal, window, q_offset, mask = KERNEL_CASES[name]
+    q, k, v, valid = _card_inputs(cuda_device, getattr(torch, dtype), b, s_q, s_k, h, kvh, d,
+                                  mask)
+    out, lse = _flash_fwd(q, k, v, valid, causal, window, q_offset, d ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, flash_attention(q, k, v, valid, causal, window, q_offset),
+                               atol=0, rtol=0)
+    ref = flash_attention_lse_reference(q.float(), k.float(), valid, causal, window, q_offset)
+    assert lse.dtype == torch.float32 and lse.shape == ref.shape
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref)) and (lse[torch.isinf(lse)] > 0).all()
+    live = torch.isfinite(ref)
+    torch.testing.assert_close(lse[live], ref[live], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["head_dim", "base", "stride"])
+def test_bf16_tma_layout_rules_raise(cuda_device, rule):
+    """The bf16 kernels read q/k/v through TMA: a call they cannot take
+    raises ValueError naming the rule, and launches nothing."""
+    b, s, h, d = 1, 100, 2, 64
+    if rule == "head_dim":
+        d = 36
+    q, k, v, _ = _card_inputs(cuda_device, torch.bfloat16, b, s, s, h, h, d, None)
+    if rule == "base":   # one element into a wider buffer: 2-byte aligned
+        q = torch.zeros((b, s, h, d + 8), dtype=q.dtype, device=cuda_device)[..., 1:d + 1]
+    elif rule == "stride":   # rows h * d + 4 elements apart
+        q = torch.zeros((b, s, h * d + 4), dtype=q.dtype, device=cuda_device)[
+            ..., : h * d].unflatten(-1, (h, d))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before

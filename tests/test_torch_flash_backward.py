@@ -1,6 +1,7 @@
 """Parity of K2, the port's flash-attention backward
 (cambrian_tpu_torch/ops/flash_attention.py), with the JAX package's: the
-plain version ``flash_attention_bwd_reference`` against the Pallas kernel
+plain version ``flash_attention_bwd_reference`` (recomputing the row
+statistics, or given the forward's log-sum-exp) against the Pallas kernel
 ``_flash_bwd_impl`` in interpret mode, and autograd through the port's CPU
 ``flash_attention`` against ``jax.grad`` through JAX ``flash_attention``, on
 the CPU in fp32; the CUDA kernel against the plain version on the card, and a
@@ -16,9 +17,11 @@ import pytest
 import torch
 
 from cambrian_tpu_torch.ops.flash_attention import (
+    _flash_fwd,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
+    flash_attention_lse_reference,
     flash_attention_reference,
 )
 
@@ -94,6 +97,35 @@ def test_plain_backward_matches_pallas_interpret(name):
         np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL, err_msg=what)
 
 
+@pytest.mark.parametrize("name", sorted(CASES) + ["dead_rows"])
+def test_plain_backward_given_statistic_matches_pallas_interpret(name):
+    """Given the forward's row statistic (as K2 runs), p = exp(x - lse) with
+    masked entries 0 is the JAX backward's whole-row recomputation; a row
+    with no live key (lse = +inf) gives p = 0, dq = 0 and adds nothing."""
+    if name == "dead_rows":
+        b, s_q, s_k, h, kvh, d, lens, causal, window, q_offset = 2, 40, 40, 2, 2, 16, None, \
+            True, None, 0
+    else:
+        b, s_q, s_k, h, kvh, d, lens, causal, window, q_offset = CASES[name]
+    q, k, v, valid, do = _inputs(b, s_q, s_k, h, kvh, d, seed=len(name) + 3, valid_len=lens)
+    if name == "dead_rows":
+        valid[0, :10] = False
+        valid[1] = False
+    tq, tk, tv, tvalid, tdo = _t(q, k, v, valid, do)
+    o = flash_attention_reference(tq, tk, tv, tvalid, causal, window, q_offset)
+    lse = flash_attention_lse_reference(tq, tk, tvalid, causal, window, q_offset)
+    got = flash_attention_bwd_reference(tq, tk, tv, tvalid, o, tdo, causal, window, q_offset,
+                                        lse=lse)
+    want = _jax_bwd(q, k, v, valid, o.numpy(), do, causal, window, q_offset)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, what
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL, err_msg=what)
+    if name == "dead_rows":
+        dq, dk, dv = got
+        assert (dq[1] == 0).all() and (dq[0, :10] == 0).all()
+        assert (dk[1] == 0).all() and (dv[1] == 0).all() and (dk[0, :10] == 0).all()
+
+
 def test_dead_rows_backward_is_zero():
     # batch 1 has no valid key; in batch 0 the causal rows before the first
     # valid key (keys 0..9 invalid) have none either
@@ -157,6 +189,19 @@ def test_wrapper_routes_cpu_tensors_to_plain():
         torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
+def test_wrapper_routes_cpu_tensors_with_statistic_to_plain():
+    q, k, v, valid, do = _inputs(2, 30, 30, 4, 2, 8, seed=4, valid_len=[30, 11])
+    args = _t(q, k, v, valid)
+    o = flash_attention_reference(*args, causal=True, sliding_window=9)
+    lse = flash_attention_lse_reference(args[0], args[1], args[3], True, 9)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    got = flash_attention_bwd(*args, o, torch.from_numpy(do), True, 9, lse=lse)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (f0, b0)
+    want = flash_attention_bwd_reference(*args, o, torch.from_numpy(do), True, 9)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -164,17 +209,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (b, s_q, s_k, h, kvh, d, causal, window, q_offset, with_padding)
+# (b, s_q, s_k, h, kvh, d, causal, window, q_offset, key mask): "pad" has
+# dead causal rows at the start, padding at the end and a batch row with no
+# valid key; "hole" a key tile (keys 64..127) with no valid key in the middle
 KERNEL_CASES = {
-    "siglip": (1, 729, 729, 16, 16, 72, False, None, 0, False),
-    "clip": (1, 577, 577, 16, 16, 64, False, None, 0, False),
-    "decoder_gqa": (2, 640, 640, 32, 8, 128, True, None, 0, True),
-    "window_offset": (2, 100, 180, 4, 2, 48, True, 33, 50, True),
-    "ragged": (3, 130, 70, 6, 3, 40, False, None, 0, True),
+    "siglip": (1, 729, 729, 16, 16, 72, False, None, 0, None),
+    "clip": (1, 577, 577, 16, 16, 64, False, None, 0, None),
+    "decoder_gqa": (2, 640, 640, 32, 8, 128, True, None, 0, "pad"),
+    "window_offset": (2, 100, 180, 4, 2, 48, True, 33, 50, "pad"),
+    "ragged": (3, 130, 70, 6, 3, 40, False, None, 0, "pad"),
+    "dead_key_tile": (2, 300, 300, 4, 2, 64, True, None, 0, "hole"),
+    "ragged_q": (3, 70, 200, 4, 4, 40, False, None, 0, "pad"),
+    "d72_window": (2, 150, 150, 4, 2, 72, True, 40, 0, "hole"),
+    "d96": (2, 130, 130, 4, 2, 96, True, None, 0, None),
+    "d24_offset": (2, 40, 100, 2, 1, 24, True, None, 60, "pad"),
 }
 
 
-def _card_inputs(device, dtype, b, s_q, s_k, h, kvh, d, pad):
+def _card_inputs(device, dtype, b, s_q, s_k, h, kvh, d, mask):
     g = torch.Generator(device=device).manual_seed(0)
 
     def rand(*shape):
@@ -182,10 +234,12 @@ def _card_inputs(device, dtype, b, s_q, s_k, h, kvh, d, pad):
 
     q, k, v, do = rand(b, s_q, h, d), rand(b, s_k, kvh, d), rand(b, s_k, kvh, d), rand(b, s_q, h, d)
     valid = torch.ones((b, s_k), dtype=torch.bool, device=device)
-    if pad:
+    if mask == "pad":
         valid[:, : s_k // 7] = False     # dead causal rows at the start
         valid[:, -s_k // 5:] = False     # padding at the end
         valid[-1] = False                # a batch row with no valid key
+    elif mask == "hole":
+        valid[:, 64:128] = False         # a whole key tile with no valid key
     return q, k, v, valid, do
 
 
@@ -200,12 +254,12 @@ def _card_tol(dtype, ref):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_kernel_backward_matches_plain_on_card(cuda_device, name, dtype):
-    b, s_q, s_k, h, kvh, d, causal, window, q_offset, pad = KERNEL_CASES[name]
+    b, s_q, s_k, h, kvh, d, causal, window, q_offset, mask = KERNEL_CASES[name]
     dt = getattr(torch, dtype)
-    q, k, v, valid, do = _card_inputs(cuda_device, dt, b, s_q, s_k, h, kvh, d, pad)
-    o = flash_attention(q, k, v, valid, causal, window, q_offset)
+    q, k, v, valid, do = _card_inputs(cuda_device, dt, b, s_q, s_k, h, kvh, d, mask)
+    o, lse = _flash_fwd(q, k, v, valid, causal, window, q_offset, d ** -0.5, with_lse=True)
     before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, valid, o, do, causal, window, q_offset)
+    got = flash_attention_bwd(q, k, v, valid, o, do, causal, window, q_offset, lse=lse)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
     want = flash_attention_bwd_reference(q.float(), k.float(), v.float(), valid, o.float(),
@@ -214,16 +268,42 @@ def test_kernel_backward_matches_plain_on_card(cuda_device, name, dtype):
         assert g.dtype == dt and g.shape == w.shape, what
         assert torch.isfinite(g).all(), what
         torch.testing.assert_close(g.float(), w, atol=_card_tol(dt, w), rtol=0, msg=what)
-    if pad:
+    if mask == "pad":
         assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all() and (got[2][-1] == 0).all()
+    if mask == "hole":
+        assert (got[1][:, 64:128] == 0).all() and (got[2][:, 64:128] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["d72_window", "decoder_gqa", "ragged"])
+def test_backward_with_saved_statistic_matches_direct_call(cuda_device, name, dtype):
+    """FlashAttentionFunction's backward (the statistic K1 wrote in the
+    forward, saved) against ``flash_attention_bwd`` called without it (one
+    more K1 launch writes it): the same kernels on the same inputs, so the
+    same bits."""
+    b, s_q, s_k, h, kvh, d, causal, window, q_offset, mask = KERNEL_CASES[name]
+    q, k, v, valid, do = _card_inputs(cuda_device, getattr(torch, dtype), b, s_q, s_k, h, kvh,
+                                      d, mask)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, valid, causal, window, q_offset)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (1, 1)
+    got = flash_attention_bwd(q, k, v, valid, out.detach(), do, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (2, 2)
+    for leaf, g in zip(leaves, got):
+        torch.testing.assert_close(leaf.grad, g, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
 def test_autograd_on_card_matches_cpu(cuda_device):
     """FlashAttentionFunction: K1 forward and K2 backward on the card, fp32,
     against autograd through the plain version on the CPU."""
-    b, s_q, s_k, h, kvh, d, causal, window, q_offset, pad = KERNEL_CASES["window_offset"]
-    q, k, v, valid, do = _card_inputs(cuda_device, torch.float32, b, s_q, s_k, h, kvh, d, pad)
+    b, s_q, s_k, h, kvh, d, causal, window, q_offset, mask = KERNEL_CASES["window_offset"]
+    q, k, v, valid, do = _card_inputs(cuda_device, torch.float32, b, s_q, s_k, h, kvh, d, mask)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     cpu_leaves = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
     f0, b0 = flash_attention.launches, flash_attention_bwd.launches
