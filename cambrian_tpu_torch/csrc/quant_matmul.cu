@@ -24,26 +24,74 @@
 //       TPU compiler a stride-2 lane slice; here the two nibbles of a byte
 //       are two registers, so K4c is this mode too.
 //
-// What bounds it on the card. At decode (M <= 8) the product is a GEMV: the
-// weight read is all the work (int8: K*N bytes, int4: K*N/2 bytes plus the
-// fp32 scales) and the memory rate bounds it. The GEMV kernel gives each
-// block a 32-column slab of N and loops over all of K inside the block:
-// 4 threads cover the slab along N with 8-byte loads (8 columns each), 64
-// such K slices split the rows, each keeping 8 or 16 row loads in flight,
-// and the slices are summed in registers (warp shuffles) and shared memory
-// at the end. No K split across blocks, so no second pass. At prefill
-// (M ~ 650) the product is compute-bound. With bf16 x it runs on the tensor
-// cores (mma.sync m16n8k16, fp32 sums): 128 x 128 output tiles, 32-row K
-// tiles of x and of the weights dequantized to bf16 in shared memory, the
-// next tile's global loads staged in registers during the current tile's
-// products. fp32 x takes a SIMT tiled product (64 x 64 tiles, 4 x 4 outputs
-// per thread) on the CUDA cores. wgmma with TMA-fed tiles is later work.
+// Decode (M <= 8) is a GEMV: the weight read is all the work (int8: K*N
+// bytes, int4: K*N/2 bytes plus the fp32 scales) and the memory rate bounds
+// it. The GEMV kernel gives each block a 32-column slab of N and loops over
+// all of K inside the block: 4 threads cover the slab along N with 8-byte
+// loads (8 columns each), 64 such K slices split the rows, each keeping 8 or
+// 16 row loads in flight, and the slices are summed in registers (warp
+// shuffles) and shared memory at the end. No K split across blocks.
+//
+// Prefill (M = 645-659 on the 8B path) is bound by operations: the seven
+// projections of a layer are 2 M N K = 281.4 GFLOP at M = 645, 9.103 ms a
+// request (32 layers) at the bf16 tensor-core peak; the weight bytes (int8
+// 0.218 GB a layer) take under a quarter of that at the memory rate. With
+// bf16 x and operands TMA can address, gemm_wgmma_kernel runs it on wgmma:
+//   - a block owns a 128 x BN output tile (BN = 128, or 64 where blocks of
+//     128 columns would not give every SM one; pick_bn) and walks K in
+//     64-row tiles through a ring of 4 stages in shared memory;
+//   - one producer warp loads each stage by TMA, completing on the stage's
+//     mbarrier: the x tile (bf16, K-major, 128-byte swizzle), the raw weight
+//     tile (int8 [64, BN] or packed int4 [32, BN] bytes, no swizzle) and, for
+//     int4, the tile's row of BN scales (a 64-row tile lies in one group);
+//   - two consumer warpgroups, 64 rows of x each, issue the tile's four
+//     m64nBNk16 wgmma (x K-major as A, the bf16 weight tile MN-major as B,
+//     fp32 accumulators in registers) and, while those run, dequantize the
+//     next tile's raw weights to bf16 in the swizzled MN-major layout wgmma
+//     reads with the transpose bit, each thread 16 bytes of the raw tile at a
+//     time, with exact bit tricks (int8x2_to_bf16, int4x8_to_bf16: the
+//     integer in the mantissa of bf16 128.0, less a bf16 constant; checked
+//     for every input value by the card tests). Mode 2 then multiplies by
+//     the scale in bf16 (one rounding of q * bf16(scale));
+//   - one wgmma group stays in flight while the next is issued; a warp
+//     releases a stage to the producer once its products have completed;
+//   - mode 1 accumulates each scale group's products into a second fp32
+//     accumulator (the group's first wgmma overwrites it) and, after the
+//     group's last tile, waits and adds part * scale[g, n] into acc; a group
+//     of 128 rows is two tiles, so the wait falls every second tile;
+//   - the epilogue applies mode 0's scale and stores bf16 pairs.
+// Blocks run M-tile first (blockIdx.x), so the M tiles that share a weight
+// tile run together and the weights come from device memory once.
+// Tiles and waves on 132 SMs (one block an SM) at M = 645 (6 M tiles, the
+// last holding 5 rows): q_proj, o_proj (N 4096) and down_proj (K 14336, N
+// 4096): 32 x 6 = 192 blocks of BN 128, 1.45 waves; k_proj, v_proj (N 1024):
+// 16 x 6 = 96 blocks of BN 64, 0.73 wave; gate_proj, up_proj (N 14336):
+// 112 x 6 = 672 blocks of BN 128, 5.09 waves.
+// What holds it well below the tensor-core peak (PERF.md has the rates):
+// without the dequantization the same loop is faster but still far from
+// the peak (the x and weight tiles, 24 KB a tile read from L2, likely near
+// its rate on the MLP shapes), and the dequantization sits between one
+// tile's products and the next. Tried on the card and slower or no faster:
+// 256 columns for int8 and mode 2 (a little faster, but spills), two tiles
+// dequantized ahead, a dequantizing warpgroup of its own (128 threads
+// convert too slowly), x multicast to clusters of two blocks.
+// TMA needs 16-byte-aligned bases and row strides: x's base and row stride,
+// the weights' and scales' bases and N % 16 == 0; the int4 modes also need a
+// scale group of a multiple of 64 rows, or one group over K. Every main-path
+// shape satisfies this. Operands that do not (the card tests' N = 20, 72 and
+// 100, x offset by 4 elements) take gemm_tc_kernel: mma.sync m16n8k16 on
+// 128 x 128 tiles, 32-row K tiles dequantized to bf16 in shared memory with
+// the next tile's loads staged in registers.
+// fp32 x takes a SIMT tiled product (64 x 64 tiles, 4 x 4 outputs per
+// thread) on the CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -365,7 +413,7 @@ __global__ void __launch_bounds__(kGmThreads) gemm_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core GEMM: M > 8, bf16 x
+// mma.sync GEMM: M > 8, bf16 x that gemm_wgmma_kernel does not take
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = 256;        // 8 warps: 2 along M x 4 along N, 64 x 32 each
@@ -565,6 +613,321 @@ __global__ void __launch_bounds__(kTcThreads) gemm_tc_kernel(Args a) {
       }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma GEMM: M > 8, bf16 x, TMA-addressable operands (see the note above)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;                      // x rows per block, 64 per consumer warpgroup
+constexpr int kWgBK = 64;                       // K rows per tile (32 packed rows in int4)
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 256;               // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;   // and a producer warp
+constexpr int kWgChunkBytes = kWgBK * 128;      // 64 columns of the bf16 weight tile
+
+template <int BN>
+struct WgStage {
+  __nv_bfloat16 x[kWgBM * kWgBK];  // 128 rows of 128 bytes, 128-byte swizzle (TMA)
+  __nv_bfloat16 w[kWgBK * BN];     // BN / 64 chunks of 64 K rows x 128 bytes, 128-byte swizzle
+  uint8_t raw[kWgBK * BN];         // int8 [64][BN] or packed int4 [32][BN] (TMA, no swizzle)
+};
+
+template <int BN>
+struct WgSmem {
+  WgStage<BN> st[kWgStages];
+  float scale[kWgStages][BN];  // modes 1 and 2: the tile's row of scales (TMA)
+  uint64_t full[kWgStages];    // the stage's TMA loads have landed
+  uint64_t deq[kWgStages];     // its weights are dequantized (every consumer thread)
+  uint64_t empty[kWgStages];   // its products have completed (every consumer warp)
+};
+
+template <int BN>
+constexpr size_t wg_smem_bytes() {
+  return sizeof(WgSmem<BN>) + 1024;  // room to align the base to the 128-byte swizzle's 1024
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Two int8 values, in bytes 0 and 2 of p, as a bf16 pair, exactly: the low
+// 7 bits in the mantissa of bf16 128.0 (0x4300), less 128.0 (0x4300) or,
+// where the sign bit is set, 256.0 (0x4380): 128 + v - 128 = v for v >= 0,
+// 128 + (v + 128) - 256 = v for v < 0.
+__device__ __forceinline__ uint32_t int8x2_to_bf16(uint32_t p) {
+  return bf16x2_sub((p & 0x007F007Fu) | 0x43004300u, (p & 0x00800080u) | 0x43004300u);
+}
+
+// Four int8 values (a little-endian word: columns c .. c + 3) as two bf16
+// pairs, exactly.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = int8x2_to_bf16(__byte_perm(w, 0, 0x1110));  // bytes 0, 1 to bytes 0, 2
+  hi = int8x2_to_bf16(__byte_perm(w, 0, 0x3332));  // bytes 2, 3
+}
+
+// A word of four packed int4 bytes (columns c .. c + 3; low nibble row 2r,
+// high nibble row 2r + 1) as bf16 pairs of each row, exactly: q + 8 (the
+// nibble with its sign bit flipped) in the mantissa of bf16 128.0 (0x4300),
+// less 136 (0x4308).
+__device__ __forceinline__ void int4x8_to_bf16(uint32_t w, uint32_t (&lo)[2], uint32_t (&hi)[2]) {
+  const uint32_t u = w ^ 0x88888888u;
+  const uint32_t l = u & 0x0F0F0F0Fu, h = (u >> 4) & 0x0F0F0F0Fu;
+  constexpr uint32_t kBias = 0x43084308u;
+  lo[0] = bf16x2_sub(__byte_perm(l, 0x43434343u, 0x4140), kBias);
+  lo[1] = bf16x2_sub(__byte_perm(l, 0x43434343u, 0x4342), kBias);
+  hi[0] = bf16x2_sub(__byte_perm(h, 0x43434343u, 0x4140), kBias);
+  hi[1] = bf16x2_sub(__byte_perm(h, 0x43434343u, 0x4342), kBias);
+}
+
+// 16 bf16 (8 pairs) into row r, columns c .. c + 15 (c % 16 == 0), of the
+// swizzled MN-major weight tile: column chunk c / 64, 16-byte group g of a
+// 128-byte row stored at g ^ (r % 8).
+__device__ __forceinline__ void store_w16(uint8_t* tile, int r, int c, const uint32_t (&o)[8]) {
+  uint8_t* row = tile + (c >> 6) * kWgChunkBytes + r * 128;
+  const int g = (c & 63) >> 3;
+  *reinterpret_cast<uint4*>(row + ((g ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(row + (((g + 1) ^ (r & 7)) << 4)) = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// Dequantize tile u's raw weights to the stage's bf16 tile: wait for its
+// loads, convert this thread's share (16 raw bytes at a time), make the
+// stores visible to wgmma and arrive on the stage's deq barrier.
+template <int MODE, int BN>
+__device__ __forceinline__ void dequant_tile(WgSmem<BN>& s, int u, int tid) {
+  using namespace hopper;
+  const int stage = u % kWgStages;
+  mbar_wait(&s.full[stage], (u / kWgStages) & 1);
+  constexpr int kRawRows = MODE == kInt8 ? kWgBK : kWgBK / 2;
+  constexpr int kSegsPerRow = BN / 16;
+  constexpr int kSegs = kRawRows * kSegsPerRow;
+  const uint8_t* raw = s.st[stage].raw;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(s.st[stage].w);
+#pragma unroll
+  for (int i = 0; i < (kSegs + kWgConsumers - 1) / kWgConsumers; ++i) {
+    const int seg = tid + i * kWgConsumers;
+    if (kSegs % kWgConsumers != 0 && seg >= kSegs) break;
+    const int r = seg / kSegsPerRow, c = (seg % kSegsPerRow) * 16;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * BN + c);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (MODE == kInt8) {
+      uint32_t o[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) int8x4_to_bf16(words[j], o[2 * j], o[2 * j + 1]);
+      store_w16(tile, r, c, o);
+    } else {
+      uint32_t lo[8], hi[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t l2[2], h2[2];
+        int4x8_to_bf16(words[j], l2, h2);
+        lo[2 * j] = l2[0];
+        lo[2 * j + 1] = l2[1];
+        hi[2 * j] = h2[0];
+        hi[2 * j + 1] = h2[1];
+      }
+      if constexpr (MODE == kInt4ScaleOnWeights) {
+        // the tile lies in one scale group: q * bf16(scale), rounded once
+        // by the bf16 product
+        const float4* sc = reinterpret_cast<const float4*>(&s.scale[stage][c]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 f = sc[q];
+          const uint32_t s01 = pack_bf16(f.x, f.y), s23 = pack_bf16(f.z, f.w);
+          lo[2 * q] = bf16x2_mul(lo[2 * q], s01);
+          hi[2 * q] = bf16x2_mul(hi[2 * q], s01);
+          lo[2 * q + 1] = bf16x2_mul(lo[2 * q + 1], s23);
+          hi[2 * q + 1] = bf16x2_mul(hi[2 * q + 1], s23);
+        }
+      }
+      store_w16(tile, 2 * r, c, lo);
+      store_w16(tile, 2 * r + 1, c, hi);
+    }
+  }
+  fence_proxy_async();
+  mbar_arrive(&s.deq[stage]);
+}
+
+// The two consumer warpgroups: products, dequantization, epilogue.
+template <int MODE, int BN>
+__device__ __forceinline__ void wgmma_consumer(const Args& a, WgSmem<BN>& s, int m0, int n0) {
+  using namespace hopper;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles = (a.K + kWgBK - 1) / kWgBK;
+  const int wg = warp / 4;  // multiplies x rows 64 wg .. 64 wg + 63 of the tile
+  float acc[BN / 2];
+  float part[MODE == kInt4 ? BN / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  dequant_tile<MODE, BN>(s, 0, tid);
+  int released = 0;  // tiles whose stage this warp has released
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % kWgStages;
+    const int k0 = t * kWgBK;
+    mbar_wait(&s.deq[stage], (t / kWgStages) & 1);
+    const __nv_bfloat16* xt = s.st[stage].x + wg * 64 * kWgBK;
+    const __nv_bfloat16* wt = s.st[stage].w;
+    if constexpr (MODE == kInt4) {
+      const int first = k0 % a.group == 0;  // the group's first tile overwrites part
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_ss_mn(part, desc_k_major<64>(xt, kk), desc_mn_major<BN>(wt, kk), kk > 0 || !first);
+      wgmma_commit();
+      fence_regs(part);
+    } else {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_ss_mn(acc, desc_k_major<64>(xt, kk), desc_mn_major<BN>(wt, kk), 1);
+      wgmma_commit();
+      fence_regs(acc);
+    }
+    if (t + 1 < tiles) dequant_tile<MODE, BN>(s, t + 1, tid);
+    bool group_end = false;  // mode 1: the last tile of a scale group
+    if constexpr (MODE == kInt4) group_end = (k0 + kWgBK) % a.group == 0 || k0 + kWgBK >= a.K;
+    int done;  // tiles whose products have completed
+    if (group_end) {
+      // acc += part * scale[g, n], the scales from the stage (zero past N)
+      wgmma_wait<0>();
+      if constexpr (MODE == kInt4) {
+        fence_regs(part);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 sc =
+              *reinterpret_cast<const float2*>(&s.scale[stage][8 * j + 2 * (lane % 4)]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            acc[4 * j + 2 * r] = fmaf(part[4 * j + 2 * r], sc.x, acc[4 * j + 2 * r]);
+            acc[4 * j + 2 * r + 1] = fmaf(part[4 * j + 2 * r + 1], sc.y, acc[4 * j + 2 * r + 1]);
+          }
+        }
+      }
+      done = t + 1;
+    } else {
+      wgmma_wait<1>();
+      done = t;
+    }
+    // release: one arrival a warp on the stage's empty barrier
+    for (; released < done; ++released) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[released % kWgStages]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.out);
+  const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= a.N) continue;
+    float2 sc = make_float2(1.f, 1.f);
+    if constexpr (MODE == kInt8) sc = __ldg(reinterpret_cast<const float2*>(a.scale + col));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.M)
+        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row * a.N + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] * sc.x, acc[4 * j + 2 * r + 1] * sc.y);
+    }
+  }
+}
+
+template <int MODE, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1) gemm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_s, Args a) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  WgSmem<BN>& s = *reinterpret_cast<WgSmem<BN>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * kWgBM, n0 = blockIdx.y * BN;
+
+  if (tid == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.deq[i], kWgConsumers);
+      mbar_init(&s.empty[i], kWgConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kWgConsumers / 32) {
+    // producer: x, raw weight and scale tiles through the ring
+    if (lane == 0) {
+      constexpr uint32_t kTx = kWgBM * kWgBK * 2 + (MODE == kInt8 ? kWgBK : kWgBK / 2) * BN +
+                               (MODE == kInt8 ? 0 : BN * 4);
+      const int tiles = (a.K + kWgBK - 1) / kWgBK;
+      for (int t = 0; t < tiles; ++t) {
+        const int stage = t % kWgStages, k0 = t * kWgBK;
+        mbar_wait(&s.empty[stage], ((t / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[stage], kTx);
+        tma_load_2d(s.st[stage].x, &tm_x, &s.full[stage], k0, m0);
+        tma_load_2d(s.st[stage].raw, &tm_w, &s.full[stage], n0, MODE == kInt8 ? k0 : k0 / 2);
+        if constexpr (MODE != kInt8)
+          tma_load_2d(s.scale[stage], &tm_s, &s.full[stage], n0, k0 / a.group);
+      }
+    }
+  } else {
+    wgmma_consumer<MODE, BN>(a, s, m0, n0);
+  }
+}
+
+// Whether gemm_wgmma_kernel takes the operands: TMA's 16-byte alignment of
+// x's base and row stride, of the weights' base and row (N bytes); for int4,
+// scale groups that do not split a 64-row K tile.
+bool wgmma_takes(int mode, const Args& a) {
+  return reinterpret_cast<uintptr_t>(a.x) % 16 == 0 && a.ldx % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(a.w) % 16 == 0 && a.N % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(a.scale) % 16 == 0 &&
+         (mode == kInt8 || a.group % kWgBK == 0 || a.group == a.K);
+}
+
+// The output tile's width: 64 where blocks of 128 columns would not give
+// every SM of the card one, else 128.
+int pick_bn(int m, int n) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  return (long)((m + kWgBM - 1) / kWgBM) * ((n + 127) / 128) < sms ? 64 : 128;
+}
+
+template <int MODE, int BN>
+int launch_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap tm_x, tm_w, tm_s;
+  const uint64_t w_rows = MODE == kInt8 ? a.K : a.K / 2;
+  const uint64_t s_rows = MODE == kInt8 ? 1 : a.K / a.group;
+  using hopper_host::tile_map_2d;
+  if (!tile_map_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K, a.M, (uint64_t)a.ldx * 2,
+                   kWgBK, kWgBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map_2d(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.N, w_rows, a.N, BN,
+                   MODE == kInt8 ? kWgBK : kWgBK / 2, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tile_map_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scale, a.N, s_rows,
+                   (uint64_t)a.N * 4, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes<BN>();
+  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<MODE, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.M + kWgBM - 1) / kWgBM, (a.N + BN - 1) / BN);
+  gemm_wgmma_kernel<MODE, BN><<<grid, kWgThreads, smem, st>>>(tm_x, tm_w, tm_s, a);
+  return (int)cudaGetLastError();
+}
+
+
 template <typename T, int MODE>
 int launch(const Args& a, cudaStream_t st) {
   if (a.M <= 8) {
@@ -578,6 +941,9 @@ int launch(const Args& a, cudaStream_t st) {
     else
       gemv_kernel<T, MODE, 8><<<grid, kGvThreads, 0, st>>>(a);
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (wgmma_takes(MODE, a))
+      return pick_bn(a.M, a.N) == 64 ? launch_wgmma<MODE, 64>(a, st)
+                                     : launch_wgmma<MODE, 128>(a, st);
     const dim3 grid((a.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM);
     gemm_tc_kernel<MODE><<<grid, kTcThreads, 0, st>>>(a);
   } else {

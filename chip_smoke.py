@@ -9,7 +9,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    kernel from the repository's sources (one nvcc per source, all started
    together, sm_90a), ptxas' registers and spills of each kernel, and the
    tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA) of each
-   kernel function of K1 and K2; every bf16 one must have HGMMA;
+   kernel function of K1, K2 and the quant matmuls; every bf16 K1/K2 one
+   must have HGMMA, and each of the six bf16 prefill functions of K3, K4 and
+   K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) must
+   be there, with HGMMA and no HMMA;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -25,7 +28,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    fp32: max abs error against the plain version on the inputs upcast to
    fp32, CUDA-event times with the L2 cache flushed before each call (as a
    decode step finds the weights) of the kernel, the plain version and
-   ``torch.matmul`` on the dequantized weight, and the bound;
+   ``torch.matmul`` on the dequantized weight, and the bound; each bf16
+   prefill case also runs once under ``torch.profiler``, which must show
+   ``gemm_wgmma_kernel``, and its TFLOP/s (2 M N K / time) are printed;
 4. a tiny Cambrian, unquantized, int8 and int4: the kernel path on the card
    in fp32 (TF32 off) against the plain path on the CPU; greedy tokens must
    be identical and the kernels launched exactly as often as the path needs;
@@ -42,6 +47,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    7 x 32 x (1 + 32) = 7,392 times and whose tokens must equal
    ``generate``'s on the same prompt; with int4, one more request under
    ``CAMBRIAN_INT4_V2=1`` runs the scale-on-weights kernel 7,168 times;
+   each quantized request's prefill ms is printed beside the bf16 model's
+   on the same prompt;
 7. K2, the flash-attention backward, against its plain PyTorch version on
    the card (serving models freed): the stage-1 decoder shape (batch 8 x
    2048, 32/8 heads, D 128, causal, right padding), a causal case with a
@@ -210,13 +217,16 @@ def read_counts(counters):
 
 
 def kernel_name(mangled):
-    """A K1/K2 kernel function's mangled name as ``name<template argument>``
-    (the padded head dimension, bf16 or float); other names as they are."""
-    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS)})"
-                  r"I(?:Li(\d+)E|13__nv_bfloat16|f)E", mangled)
+    """A K1/K2 or quant-matmul kernel function's mangled name as
+    ``name<template arguments>`` (integers, bf16 or float); other names as
+    they are."""
+    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS)})"
+                  r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled)
     if m is None:
         return mangled
-    return f"{m.group(1)}<{m.group(2) or ('bf16' if 'bfloat16' in mangled else 'float')}>"
+    args = [n or ("bf16" if bf16 else "float")
+            for n, bf16, _ in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def tensor_core_instructions(path):
@@ -368,6 +378,8 @@ def kernel_phase(torch, fa, prompt):
 def quant_kernel_phase(torch, quant, prompt_len):
     """K3, K4 and K4b/K4c against their plain versions at the 8B decoder's
     projection shapes; returns per-case records."""
+    from torch.profiler import ProfilerActivity, profile
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -391,6 +403,7 @@ def quant_kernel_phase(torch, quant, prompt_len):
                 lambda x, wq, sc: quant.int4_matmul_reference(x, wq, sc, scale_on_weights=True),
                 q4, s4, quant.dequantize_int4),
         }
+        prefill = {}     # name: (x, the record) of each bf16 prefill case
         for name, (fn, plain, wq, sc, dequant) in cases.items():
             for m in (1, prompt_len):
                 for dtype in (torch.bfloat16, torch.float32):
@@ -432,18 +445,38 @@ def quant_kernel_phase(torch, quant, prompt_len):
                     n_bytes = wq.numel() + sc.numel() * 4 + (m * k + m * n) * x.element_size()
                     bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 2 * m * n * k,
                                                                  dtype_name)
+                    tflops = 2 * m * n * k / (ms * 1e9)
                     rec = dict(kernel=name, site=site, m=m, k=k, n=n, dtype=dtype_name,
                                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                                library_ms=library_ms, library_int8pack_ms=int8pack_ms,
                                bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
-                               ops_ms=ops_ms)
+                               ops_ms=ops_ms, tflops=tflops, function=None)
                     print(f"kernel {name:29s} {site:9s} {dtype_name:8s} M={m:<4d} K={k:<5d} "
                           f"N={n:<5d} err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
                           f"matmul={library_ms:.4f} ms"
                           + ("" if int8pack_ms is None else f" int8pack={int8pack_ms:.4f} ms")
-                          + f" bound={bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+                          + f" bound={bound_ms * 1e3:.2f} us ({bound_by}) {tflops:.1f} TFLOP/s",
+                          flush=True)
                     records.append(rec)
-        del q8, s8, q4, s4, w
+                    if dtype == torch.bfloat16 and m == prompt_len:
+                        prefill[name] = (x, rec)
+        # the bf16 prefill of each kernel must run the wgmma kernel of its
+        # mode, by name: one profiled run a shape (after some twenty
+        # profiler sessions in one process, traces came back empty)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for name, (x, _) in prefill.items():
+                cases[name][0](x, cases[name][2], cases[name][3])
+            torch.cuda.synchronize()
+        names = [key for _, _, key in kernel_events(prof)]
+        for name, (_, rec) in prefill.items():
+            mode = list(QUANT_KERNELS).index(name)   # K3, K4, K4b: modes 0, 1, 2
+            found = [re.search(rf"gemm_wgmma_kernel<{mode}, \d+>", key) for key in names]
+            rec["function"] = next((f.group(0) for f in found if f), None)
+            check(rec["function"] is not None,
+                  f"{name} {site} M={prompt_len}: the prefill ran {names}, "
+                  f"not gemm_wgmma_kernel<{mode}, ...>")
+            print(f"kernel {name:29s} {site:9s} prefill ran {rec['function']}", flush=True)
+        del q8, s8, q4, s4, w, prefill
     del l2
     return records
 
@@ -919,6 +952,11 @@ def kernel_events(prof):
 K1_FUNCTIONS = ("flash_fwd_kernel", "fwd_bf16_kernel")
 K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkdv_bf16_kernel",
                 "bwd_dq_bf16_kernel")
+# the quant matmuls' kernel functions: decode GEMV, fp32 SIMT GEMM, the
+# mma.sync GEMM for bf16 operands TMA cannot address, the wgmma prefill GEMM
+QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel")
+# the wgmma prefill GEMM's functions: <mode, tile columns>
+WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
 
 
 def device_time_by_kind(prof):
@@ -1497,9 +1535,10 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(line.strip(), flush=True)
     # K1 and K2 on the tensor cores: every bf16 kernel function (one per
-    # padded head dimension 16 .. 128) must contain wgmma (HGMMA)
+    # padded head dimension 16 .. 128) must contain wgmma (HGMMA); so must
+    # the quant matmuls' bf16 prefill functions, without mma.sync (HMMA)
     sass = {}
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_bwd", "quant_matmul"):
         regs = register_use(built[lib]["log"])
         for fn, (hgmma, hmma) in tensor_core_instructions(built[lib]["path"]).items():
             n_regs, spills = regs.get(fn, (None, None))
@@ -1512,6 +1551,11 @@ def main(argv=None):
     check(all(sass[fn]["hgmma"] > 0 for fn in bf16_fns),
           f"bf16 K1/K2 functions without HGMMA: "
           f"{[fn for fn in bf16_fns if not sass[fn]['hgmma']]}")
+    missing = [fn for fn in WGMMA_FUNCTIONS if fn not in sass]
+    check(not missing, f"quant_matmul lacks its wgmma prefill functions {missing}")
+    check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in WGMMA_FUNCTIONS),
+          f"quant prefill functions not on wgmma alone: "
+          f"{ {fn: sass[fn] for fn in WGMMA_FUNCTIONS} }")
 
     rng = np.random.default_rng(SEED)
     prompts = build_prompts(cambrian_8b(), rng)
@@ -1524,6 +1568,15 @@ def main(argv=None):
     full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q,
                                           sites=sites if q is None else None)
             for q in (None, "int8", "int4")}
+    # time to first token: each quantized request's prefill beside the bf16
+    # model's on the same prompt (bf16 request 0 is the cold one)
+    for q in ("int8", "int4"):
+        for rec in full[q]["requests"]:
+            ref = full["bf16"]["requests"][rec["request"]]
+            label = ("stream " if rec["stream"] else "") + ("scale-on-weights " if rec.get(
+                "scale_on_weights") else "")
+            print(f"prefill {q} {label}request {rec['request']}: {rec['prefill_ms']:.1f} ms, "
+                  f"bf16 {ref['prefill_ms']:.1f} ms", flush=True)
     bwd_kernels = backward_kernel_phase(torch, fa)
     tiny_train = tiny_training_phase(torch, fa, quant)
     k2_path = [k for k in bwd_kernels if k["per_step"] and k["dtype"] == "bfloat16"]
@@ -1584,7 +1637,9 @@ def main(argv=None):
                                "bound_ms")}
             int8pack = (f" int8pack {per['library_int8pack_ms']:.3f} ms"
                         if per["library_int8pack_ms"] else "")
-            print(f"{name}: decoder GEMMs per {label}: kernel {per['ms']:.3f} ms, "
+            flops = LAYERS * sum(2 * r["m"] * r["n"] * r["k"] for r in recs if r["m"] == m)
+            print(f"{name}: decoder GEMMs per {label}: kernel {per['ms']:.3f} ms "
+                  f"({flops / (per['ms'] * 1e9):.1f} TFLOP/s), "
                   f"plain {per['plain_ms']:.3f} ms, matmul {per['library_ms']:.3f} ms"
                   f"{int8pack}, bound {per['bound_ms']:.3f} ms", flush=True)
         print(f"{name}: per request {rows[-1]['ms']:.1f} ms (bound "

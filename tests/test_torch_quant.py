@@ -422,24 +422,38 @@ def cuda_device():
 
 
 # (M, K, N): decode (M <= 8) and prefill rows, groups of 128 and one group
-# spanning K (also one K % 32 != 0), N a multiple of 8 (8-byte loads) or not
+# spanning K (also one K % 32 != 0), N a multiple of 8 (8-byte loads) or not.
+# The bf16 prefill kernel (wgmma, TMA) takes N % 16 == 0 with 16-byte-aligned
+# rows of x; its edges: a full 645-row prefill tile row at the decoder's
+# N = 1024 and at the down_proj K, M not a multiple of any tile (200), M = 9
+# and 64 (one M tile, part or all of it live), one int4 group spanning a K of
+# three tiles (192), and a last tile of 16 columns (N = 1040 in tiles of 64,
+# 8208 in tiles of 128). The other shapes, and x off the 16-byte alignment,
+# take the mma.sync kernel.
 KERNEL_SHAPES = [(1, 4096, 1024), (3, 512, 96), (8, 130, 100), (40, 256, 72),
-                 (77, 4096, 1024), (9, 96, 20), (33, 130, 100), (645, 14336, 256)]
+                 (77, 4096, 1024), (9, 96, 20), (33, 130, 100), (645, 14336, 256),
+                 (645, 4096, 1024), (645, 14336, 4096), (200, 4096, 4096), (9, 4096, 1024),
+                 (64, 4096, 1024), (65, 192, 256), (100, 256, 1040), (300, 512, 8208)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "int4", "int4_scale_on_weights"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "row_stride"])
 def test_kernel_matches_plain_on_card(cuda_device, mode, dtype, shape, layout):
     m, k, n = shape
     g = torch.Generator(device=cuda_device).manual_seed(m * k + n)
     w = torch.randn((k, n), generator=g, device=cuda_device) * 0.02
-    x = torch.randn((m, k + 8), generator=g, device=cuda_device)
+    # made in dtype before it is sliced: .to() of a slice would be contiguous
+    x = torch.randn((m, k + 8), generator=g, device=cuda_device).to(dtype)
     # strided: a column slice of a wider buffer, off the 16-byte alignment of
-    # vector loads, with a unit stride along K
-    x = (x[:, 4:4 + k] if layout == "strided" else x[:, :k].contiguous()).to(dtype)
+    # vector loads, with a unit stride along K; row_stride: rows of x K + 8
+    # elements apart, each starting on a 16-byte boundary when K % 8 == 0
+    if layout == "contiguous":
+        x = x[:, :k].contiguous()
+    else:
+        x = x[:, 4:4 + k] if layout == "strided" else x[:, :k]
     if mode == "int8":
         q, s = quant.quantize_int8(w)
         fn, plain = quant.int8_matmul, quant.int8_matmul_reference
@@ -461,6 +475,33 @@ def test_kernel_matches_plain_on_card(cuda_device, mode, dtype, shape, layout):
     tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * max(scale, 1.0)
     err = float((out.float() - want).abs().max())
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4", "int4_scale_on_weights"])
+def test_prefill_dequantizes_every_value_exactly(cuda_device, mode):
+    """x is the identity, so the bf16 prefill kernel returns the dequantized
+    weights, which hold every int8 value (every packed int4 byte), with
+    scales of 1: the result must be exact."""
+    k = n = 256
+    rng = np.random.default_rng(0)
+    x = torch.eye(k, device=cuda_device).to(torch.bfloat16)
+    if mode == "int8":
+        # each column a permutation of -128 .. 127
+        q = np.stack([rng.permutation(256) - 128 for _ in range(n)], axis=1)
+        q = torch.from_numpy(q.astype(np.int8)).to(cuda_device)
+        out = quant.int8_matmul(x, q, torch.ones(n, device=cuda_device))
+        want = q.float()
+    else:
+        # each pair of columns holds every byte: column j a permutation of
+        # the 128 bytes whose top bit is j % 2
+        b = np.stack([rng.permutation(128) + 128 * (j % 2) for j in range(n)], axis=1)
+        q = torch.from_numpy(b.astype(np.uint8).view(np.int8)).to(cuda_device)
+        fn = (quant.int4_matmul if mode == "int4" else quant.int4_matmul_scale_on_weights)
+        out = fn(x, q, torch.ones((1, n), device=cuda_device))
+        want = quant._unpack_int4(q).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out.float(), want)
 
 
 @pytest.mark.cuda
