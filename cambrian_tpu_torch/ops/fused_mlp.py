@@ -1,25 +1,89 @@
 """Fused two-layer GELU MLP, out = gelu(x @ W1 + b1) @ W2 + b2
 (cambrian_tpu/ops/fused_mlp.py): kernel K8 of the port.
 
-``fused_mlp`` launches the hand-written CUDA kernel of ``csrc/fused_mlp.cu``
-for CUDA tensors; it replaces the TPU kernel ``_fused_mlp_kernel`` and, like
-it, never writes the [M, H] hidden to device memory. CPU tensors take its
-plain version, ``fused_mlp_reference``, which follows the TPU kernel's
-roundings rather than the JAX off-TPU fallback's. The JAX function has no
-``custom_vjp`` and the kernel has no backward: on the card, an input that
-requires grad while grad is enabled raises. The port's ConvNeXt and SVA keep
-their ``nn.Linear`` pairs; nothing on their path calls this kernel. Nothing
-is compiled or loaded at import time.
+``fused_mlp`` launches the hand-written CUDA kernels of ``csrc/fused_mlp.cu``
+for CUDA tensors; they replace the TPU kernel ``_fused_mlp_kernel``. The TPU
+kernel keeps the [M, H] hidden on chip; no store on a Hopper SM holds a
+useful slab of it, but the 50 MB L2 does. So bf16 operands that TMA can
+address take two wgmma GEMMs, *up* (x @ W1 + b1, GELU, rounded to bf16) and
+*down* (h @ W2 + b2), over chunks of M whose bf16 hidden fits
+``HIDDEN_CHUNK_BYTES``: the hidden passes through one scratch of that size,
+allocated here and reused for every chunk, so that it stays in L2 between
+the two launches. ``_plan`` picks the route, the chunk and the output tiles'
+widths. Other bf16 operands take the first port's ``mma.sync`` kernel,
+which recomputes the hidden per block; fp32 takes its SIMT version. CPU
+tensors take the plain version, ``fused_mlp_reference``, which follows the
+TPU kernel's roundings rather than the JAX off-TPU fallback's. The JAX
+function has no ``custom_vjp`` and the kernels have no backward: on the
+card, an input that requires grad while grad is enabled raises. The port's
+ConvNeXt and SVA keep their ``nn.Linear`` pairs; nothing on their path calls
+this kernel. Nothing is compiled or loaded at import time.
 """
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import cuda_build
 
+# The bf16 hidden of one chunk of rows, meant to stay in the H100's 50 MB L2
+# between the up and the down GEMM. Chosen on the card from 16-40 MiB with
+# scripts/fused_mlp_sweep.py: less splits the ConvNeXt stage-3/4 sites into
+# more, narrower launches; more gains nothing.
+HIDDEN_CHUNK_BYTES = 24 << 20
+TILE_ROWS = 128                   # rows of a wgmma output tile
+TILE_COLS = (256, 192, 128, 64)   # the output tile widths the kernels are built for
+H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    """How ``fused_mlp`` runs one call on the card. ``route``: "wgmma" (the
+    up/down GEMMs), "mma_sync" (bf16 operands TMA cannot address) or "simt"
+    (fp32). For "wgmma": ``chunk_rows`` rows of x per up/down pair (all of M,
+    or a multiple of TILE_ROWS), ``chunks`` pairs, and the up and down output
+    tiles' widths."""
+    route: str
+    chunk_rows: int
+    chunks: int
+    bn_up: int
+    bn_down: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile_cols(m: int, n: int, sms: int) -> int:
+    """The output tile width whose waves cost least: with one 128 x BN tile
+    an SM at a time, ceil(tiles / sms) waves of BN columns each; ties go to
+    the wider tile (fewer loads of A a column)."""
+    tiles = {bn: _cdiv(m, TILE_ROWS) * _cdiv(n, bn) for bn in TILE_COLS}
+    return min(TILE_COLS, key=lambda bn: (_cdiv(tiles[bn], sms) * bn, -bn))
+
+
+def _plan(m: int, c: int, h: int, c2: int, ldx: int, ptrs: Sequence[int] = (0, 0, 0),
+          dtype: torch.dtype = torch.bfloat16, sms: int = H100_SMS,
+          budget: int = HIDDEN_CHUNK_BYTES) -> Plan:
+    """The route, chunking and tiles of a call with x [m, c] (row stride
+    ldx, at ptrs[0]), W1^T [h, c] and W2^T [c2, h] (at ptrs[1], ptrs[2]):
+    fp32 takes the SIMT kernel and bf16 operands TMA cannot address the
+    mma.sync kernel, each in one launch. TMA needs 16-byte rows and bases:
+    C, H, C2 and ldx multiples of 8 bf16, and x, W1^T and W2^T 16-byte
+    aligned. Otherwise the chunk is all of m if its bf16 hidden fits
+    ``budget``, else the fewest chunks of at most budget / (2 h) rows,
+    balanced and rounded up to TILE_ROWS."""
+    if dtype == torch.float32:
+        return Plan("simt", m, 1, 0, 0)
+    if any(n % 8 for n in (c, h, c2, ldx)) or any(p % 16 for p in ptrs):
+        return Plan("mma_sync", m, 1, 0, 0)
+    if m * h * 2 <= budget:
+        rows = m
+    else:
+        most = max(TILE_ROWS, budget // (2 * h) // TILE_ROWS * TILE_ROWS)
+        rows = _cdiv(_cdiv(m, _cdiv(m, most)), TILE_ROWS) * TILE_ROWS
+    return Plan("wgmma", rows, _cdiv(m, rows), _tile_cols(rows, h, sms), _tile_cols(rows, c2, sms))
 
 
 def gelu_as(x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +120,9 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("fused_mlp", {
         "cambrian_fused_mlp": [i32, ptr, ctypes.c_int64, ptr, ptr, ptr, ptr, ptr]
-                              + [i32] * 4 + [ptr]})
+                              + [i32] * 4 + [ptr],
+        "cambrian_fused_mlp_wgmma": [ptr, ctypes.c_int64, ptr, ptr, ptr, ptr, ptr, ptr]
+                                    + [i32] * 7 + [ptr]})
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
@@ -97,13 +163,22 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
         return out
     # nn.Linear's layout, [H, C] and [C2, H]: no copy for the .t() of its weight
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    ldx = x.stride(0) if m > 1 else c
+    plan = _plan(m, c, hdim, c2, ldx, (x.data_ptr(), w1t.data_ptr(), w2t.data_ptr()), x.dtype,
+                 torch.cuda.get_device_properties(x.device).multi_processor_count)
+    b1p, b2p = (None if b is None else b.data_ptr() for b in biases)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _library()
     fused_mlp.launches += 1
-    err = lib.cambrian_fused_mlp(
-        cuda_build.dtype_code(x), x.data_ptr(), x.stride(0) if m > 1 else c, w1t.data_ptr(),
-        None if biases[0] is None else biases[0].data_ptr(), w2t.data_ptr(),
-        None if biases[1] is None else biases[1].data_ptr(), out.data_ptr(), m, c, hdim, c2,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if plan.route == "wgmma":
+        hidden = torch.empty((plan.chunk_rows, hdim), dtype=x.dtype, device=x.device)
+        err = lib.cambrian_fused_mlp_wgmma(
+            x.data_ptr(), ldx, w1t.data_ptr(), b1p, w2t.data_ptr(), b2p, out.data_ptr(),
+            hidden.data_ptr(), m, c, hdim, c2, plan.chunk_rows, plan.bn_up, plan.bn_down, stream)
+    else:
+        err = lib.cambrian_fused_mlp(
+            cuda_build.dtype_code(x), x.data_ptr(), ldx, w1t.data_ptr(), b1p, w2t.data_ptr(),
+            b2p, out.data_ptr(), m, c, hdim, c2, stream)
     cuda_build.check_launch(lib, err, "fused_mlp")
     return out
 

@@ -9,10 +9,12 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    kernel from the repository's sources (one nvcc per source, all started
    together, sm_90a), ptxas' registers and spills of each kernel, and the
    tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA) of each
-   kernel function of K1, K2 and the quant matmuls; every bf16 K1/K2 one
+   kernel function of K1, K2, the quant matmuls and K8; every bf16 K1/K2 one
    must have HGMMA, and each of the six bf16 prefill functions of K3, K4 and
-   K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) must
-   be there, with HGMMA and no HMMA;
+   K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) and
+   the eight bf16 GEMM functions of K8 (``mlp_up_kernel`` and
+   ``mlp_down_kernel``, tiles of 64, 128, 192 and 256 columns) must be
+   there, with HGMMA and no HMMA;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -83,7 +85,13 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    inputs and against the main path's output at the site; CUDA-event
    times (L2 flushed) of the kernel, its plain version and the library
    call the main path makes there; the bound; training-batch (B = 8) and
-   small fp32 cases; K5-K7's backward against the plain backward.
+   small fp32 cases, and K8 on operands TMA cannot address (x one element
+   off its alignment); K5-K7's backward against the plain backward. One
+   ``torch.profiler`` run of every K8 case must show the up and down wgmma
+   functions that each bf16 site plans, the ``mma.sync`` kernel for the
+   unaligned case and the SIMT kernel for the fp32 one, each of those two
+   no more often than its own case's calls; K8's TFLOP/s (2 M H (C + C2) /
+   time) are printed.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -217,10 +225,10 @@ def read_counts(counters):
 
 
 def kernel_name(mangled):
-    """A K1/K2 or quant-matmul kernel function's mangled name as
+    """A K1/K2, quant-matmul or K8 GEMM kernel function's mangled name as
     ``name<template arguments>`` (integers, bf16 or float); other names as
     they are."""
-    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS)})"
+    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS)})"
                   r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled)
     if m is None:
         return mangled
@@ -957,6 +965,11 @@ K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkd
 QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel")
 # the wgmma prefill GEMM's functions: <mode, tile columns>
 WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
+# K8's bf16 GEMMs (bias + GELU, and bias): <tile columns>; its kernels for
+# operands TMA cannot address (mma.sync) and for fp32 (SIMT)
+MLP_FUNCTIONS = ("mlp_up_kernel", "mlp_down_kernel")
+MLP_WGMMA_FUNCTIONS = [f"{fn}<{bn}>" for fn in MLP_FUNCTIONS for bn in (64, 128, 192, 256)]
+MLP_TC_FUNCTION, MLP_SIMT_FUNCTION = "fused_mlp_tc_kernel", "fused_mlp_simt_kernel"
 
 
 def device_time_by_kind(prof):
@@ -1329,7 +1342,9 @@ def library_call(torch, kind, site):
 def extra_sites(torch, sites):
     """Cases beside the captured ones, not on the path: the training batch
     (B = 8) of K5 and of K7 at (64^2, 1536), made by repeating the captured
-    request; one small fp32 case per kernel; a 4096-wide bf16 LayerNorm."""
+    request; K8 at an SVA site with x moved one element off its alignment
+    (TMA cannot address it: the mma.sync kernel); one small fp32 case per
+    kernel; a 4096-wide bf16 LayerNorm."""
     extra = []
     for key, s in sites["fused_windowed_cross_attention"].items():
         if key[0] == 1:
@@ -1344,6 +1359,14 @@ def extra_sites(torch, sites):
             xn = s["x_nchw"].repeat(8, 1, 1, 1)
             extra.append(("depthwise_conv7x7", ("train_b8", 8, 64, 64, 1536), dict(
                 s, x=s["x"].repeat(8, 1, 1, 1), x_nchw=xn, out=None)))
+    for key, s in sites["fused_mlp"].items():
+        if key[0] == "sva_mlp":
+            m, c = s["x"].shape
+            store = torch.empty(1 + m * (c + 1), dtype=s["x"].dtype, device=s["x"].device)
+            x = store[1:].view(m, c + 1)[:, :c]     # base 2 bytes off, rows of c + 1
+            x.copy_(s["x"])
+            extra.append(("fused_mlp", ("unaligned", *key[1:]), dict(s, x=x)))
+            break
     dev = site_device(sites)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1375,6 +1398,62 @@ def extra_sites(torch, sites):
 def site_device(sites):
     """The device the captured sites' tensors lie on."""
     return next(s for found in sites.values() for s in found.values())["out"].device
+
+
+def mlp_functions(names):
+    """K8's kernel functions among profiled kernel names, as ``name<BN>``."""
+    pattern = rf"({'|'.join(MLP_FUNCTIONS)})<(\d+)>|({MLP_TC_FUNCTION}|{MLP_SIMT_FUNCTION})"
+    return sorted({f"{m[0]}<{m[1]}>" if m[0] else m[2]
+                   for n in names for m in re.findall(pattern, n)})
+
+
+def mlp_expected_functions(torch, site):
+    """The kernel functions K8's wrapper plans for a site's inputs."""
+    from cambrian_tpu_torch.ops import fused_mlp
+
+    x, w1, w2 = site["x"], site["w1"], site["w2"]
+    plan = fused_mlp._plan(
+        x.shape[0], x.shape[1], w1.shape[1], w2.shape[1], x.stride(0),
+        (x.data_ptr(), w1.t().contiguous().data_ptr(), w2.t().contiguous().data_ptr()),
+        x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan.route == "wgmma":
+        return plan.route, [f"{fn}<{bn}>" for fn, bn in zip(MLP_FUNCTIONS,
+                                                            (plan.bn_up, plan.bn_down))]
+    return plan.route, [MLP_TC_FUNCTION if plan.route == "mma_sync" else MLP_SIMT_FUNCTION]
+
+
+def mlp_kernel_check(torch, cases, calls=3):
+    """By kernel name, from one ``torch.profiler`` run of ``calls`` calls of
+    every K8 case (label, record, site): every bf16 site of the path plans and
+    runs the up and down wgmma GEMMs, the unaligned case the mma.sync kernel,
+    the fp32 case the SIMT kernel. The mma.sync and SIMT kernels may run at
+    most ``calls`` times, so no site but their own took them. One run for
+    all: after some ten profiler sessions in one process, traces came back
+    without kernels; and a trace of one call has lost one of its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    planned = {label: mlp_expected_functions(torch, s) for label, _, s in cases}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, _, s in cases:
+            for _ in range(calls):
+                kernel_at_site(torch, "fused_mlp", s)
+        torch.cuda.synchronize()
+    launched = {}
+    for _, n, key in kernel_events(prof):
+        for fn in mlp_functions([key]):
+            launched[fn] = launched.get(fn, 0) + n
+    for label, rec, s in cases:
+        route, functions = planned[label]
+        want = ("simt" if rec["dtype"] == "float32" else
+                "mma_sync" if "unaligned" in label else "wgmma")
+        check(route == want, f"{label}: planned the {route} route, not {want}")
+        check(all(fn in launched for fn in functions),
+              f"{label}: planned {functions}; the profiled run launched {launched}")
+        rec["functions"] = functions
+        print(f"kernel fused_mlp {label} ran {' + '.join(functions)}", flush=True)
+    for fn in (MLP_TC_FUNCTION, MLP_SIMT_FUNCTION):
+        check(launched.get(fn, 0) <= calls, f"{fn} launched {launched.get(fn, 0)} times, more "
+              f"than its own case's {calls}: a bf16 site took it")
 
 
 def max_err(torch, out, ref):
@@ -1450,6 +1529,7 @@ def vision_kernel_phase(torch, fa, quant, sites):
     l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
     flush = l2.sum
     records = []
+    mlp_cases = []      # K8's cases, checked by kernel name at the end
     cases = [(kind, key, s, True) for kind, found in sites.items() for key, s in found.items()]
     cases += [(kind, key, s, False) for kind, key, s in extra_sites(torch, sites)]
     for kind, key, s, on_path in cases:
@@ -1490,12 +1570,18 @@ def vision_kernel_phase(torch, fa, quant, sites):
                    library=library, library_ms=next(iter(library.values()), None),
                    bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
         records.append(rec)
+        rate = ""
+        if kind == "fused_mlp":
+            rec["flops"], rec["tflops"] = n_ops, n_ops / (ms * 1e9)
+            rate = f" {rec['tflops']:.1f} TFLOP/s"
+            mlp_cases.append((label, rec, s))
         lib = " ".join(f"{n}={t:.4f} ms" for n, t in library.items())
         main = "" if main_err is None else f" main-path err={main_err:.3e} (tol {main_tol:.2e})"
         print(f"kernel {kind:13s} {str(key):40s} x{rec['per_request']:<3d} {dtype_name:8s} "
               f"err={err:.3e} (tol {tol:.2e}){main} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"{lib} bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{lib} bound={bound_ms:.4f} ms ({bound_by}){rate}", flush=True)
     del l2
+    mlp_kernel_check(torch, mlp_cases)
     bwd = backward_checks(torch, sites)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     gc.collect()
@@ -1536,9 +1622,10 @@ def main(argv=None):
                 print(line.strip(), flush=True)
     # K1 and K2 on the tensor cores: every bf16 kernel function (one per
     # padded head dimension 16 .. 128) must contain wgmma (HGMMA); so must
-    # the quant matmuls' bf16 prefill functions, without mma.sync (HMMA)
+    # the quant matmuls' bf16 prefill functions and K8's bf16 GEMMs, without
+    # mma.sync (HMMA)
     sass = {}
-    for lib in ("flash_attention", "flash_attention_bwd", "quant_matmul"):
+    for lib in ("flash_attention", "flash_attention_bwd", "quant_matmul", "fused_mlp"):
         regs = register_use(built[lib]["log"])
         for fn, (hgmma, hmma) in tensor_core_instructions(built[lib]["path"]).items():
             n_regs, spills = regs.get(fn, (None, None))
@@ -1556,6 +1643,11 @@ def main(argv=None):
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in WGMMA_FUNCTIONS),
           f"quant prefill functions not on wgmma alone: "
           f"{ {fn: sass[fn] for fn in WGMMA_FUNCTIONS} }")
+    missing = [fn for fn in MLP_WGMMA_FUNCTIONS if fn not in sass]
+    check(not missing, f"fused_mlp lacks its wgmma GEMM functions {missing}")
+    check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in MLP_WGMMA_FUNCTIONS),
+          f"K8 GEMM functions not on wgmma alone: "
+          f"{ {fn: sass[fn] for fn in MLP_WGMMA_FUNCTIONS} }")
 
     rng = np.random.default_rng(SEED)
     prompts = build_prompts(cambrian_8b(), rng)
@@ -1684,9 +1776,15 @@ def main(argv=None):
             "library_ms": per_request("library_ms"),
         })
         r = rows[-1]
+        rate = ""
+        if kind == "fused_mlp":
+            flops = per_request("flops")
+            rate = (f" ({flops / (r['ms'] * 1e9):.1f} TFLOP/s; {r['ms'] / r['library_ms']:.2f}x "
+                    f"the library's)")
         print(f"{kind}: per request ({sum(x['per_request'] for x in recs)} sites) kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{r['ms']:.3f} ms{rate}, plain {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
     summary = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as f:
