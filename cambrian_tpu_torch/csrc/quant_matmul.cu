@@ -26,11 +26,25 @@
 //
 // Decode (M <= 8) is a GEMV: the weight read is all the work (int8: K*N
 // bytes, int4: K*N/2 bytes plus the fp32 scales) and the memory rate bounds
-// it. The GEMV kernel gives each block a 32-column slab of N and loops over
-// all of K inside the block: 4 threads cover the slab along N with 8-byte
-// loads (8 columns each), 64 such K slices split the rows, each keeping 8 or
-// 16 row loads in flight, and the slices are summed in registers (warp
-// shuffles) and shared memory at the end. No K split across blocks.
+// it. Two kernels, chosen by _gemv_plan in ops/quant.py:
+//   - gemv_m1_kernel<mode> takes bf16 x at M = 1 in modes 0 and 1 (every
+//     decode step of generate / generate_stream under load_8bit / load_4bit)
+//     where the operands allow 16-byte loads (N % 16 == 0, K % 8 == 0,
+//     16-byte-aligned x, weights and scales; int4 groups of a multiple of 128
+//     rows, or one group over a K of a multiple of 128). A thread-block
+//     cluster of 2-8 blocks owns a slab of 64 or 128 bytes of every weight
+//     row; its blocks split K, their warps split it again, each lane streams
+//     16 bytes of a row (ld.global.nc.L1::no_allocate) with 8 rows in flight,
+//     the weights are widened to fp32 without I2F, and the blocks' sums meet
+//     in distributed shared memory, in rank order: one launch, no
+//     workspace, no atomics. The plan, not this file, picks the launch
+//     shape; the C entry refuses any shape the plan would not give.
+//   - gemv_kernel takes the rest (fp32, M = 2..8, mode 2, other operands).
+//     It gives each block a 32-column slab of N and loops over all of K
+//     inside the block: 4 threads cover the slab along N with 8-byte loads
+//     (8 columns each), 64 such K slices split the rows, each keeping 8 or 16
+//     row loads in flight, and the slices are summed in registers (warp
+//     shuffles) and shared memory at the end. No K split across blocks.
 //
 // Prefill (M = 645-659 on the 8B path) is bound by operations: the seven
 // projections of a layer are 2 M N K = 281.4 GFLOP at M = 645, 9.103 ms a
@@ -85,6 +99,7 @@
 // fp32 x takes a SIMT tiled product (64 x 64 tiles, 4 x 4 outputs per
 // thread) on the CUDA cores.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -927,6 +942,324 @@ int launch_wgmma(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// GEMV: M = 1, bf16 x, modes 0 and 1, split over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// These match GEMV_LOADS, GEMV_MAX_WARPS and GEMV_SMEM_BYTES in ops/quant.py.
+constexpr int kM1Loads = 8;              // 16-byte loads of a lane's batch
+constexpr int kM1MaxWarps = 8;
+constexpr int kM1SmemBytes = 48 * 1024;  // x, the scales of the block's rows and its sums
+constexpr int kM1Stage = 2;              // 16-byte loads of x (and scales) a thread sends first
+
+struct M1Args {
+  const __nv_bfloat16* x;  // [K], 16-byte aligned
+  const uint8_t* w;        // int8 [K, N] or packed int4 [K/2, N], 16-byte aligned
+  const float* scale;      // [N] (mode 0) or [K/group, N], 16-byte aligned
+  __nv_bfloat16* out;      // [N]
+  int N, K, group;
+  int slab;                // stored bytes of a row a cluster owns: 64 or 128
+  int rows_per_block, rows_per_warp;  // stored rows
+};
+
+// the low and high bf16 of a pair as fp32, exactly
+__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// Byte b of v, a value v_b < 128, as the fp32 128 + v_b, exactly: the byte
+// in the top of the mantissa of 128.0f (0x43000000), one byte permute.
+__device__ __forceinline__ float nibble_f32(uint32_t v, int b) {
+  return __uint_as_float(__byte_perm(v, 0x43u, 0x4055u | (b << 8)));
+}
+
+// The rows of scales a block stages: mode 0's one row; mode 1's scale
+// groups of the block's rows (one where a group spans K; otherwise the
+// block's rows are whole groups).
+__device__ __host__ __forceinline__ int m1_groups(int mode, const M1Args& a) {
+  return mode == kInt8 || a.group == a.K ? 1 : 2 * a.rows_per_block / a.group;
+}
+
+// the kernel's shared memory: x of the block's rows, the slab's scales, and
+// the sums of the columns the block finishes, from every warp of the cluster
+__host__ __forceinline__ size_t m1_smem_bytes(int mode, const M1Args& a, int warps) {
+  const size_t x_floats = (size_t)a.rows_per_block * (mode == kInt8 ? 1 : 2);
+  return 4 * (x_floats + (size_t)(m1_groups(mode, a) + warps) * a.slab);
+}
+
+// Run i of 8 elements of the block's x (i < runs), zero past K.
+__device__ __forceinline__ uint4 m1_x_load(const M1Args& a, int k0, int runs, int i) {
+  const int k = k0 + 8 * i;
+  return i < runs && k < a.K ? __ldg(reinterpret_cast<const uint4*>(a.x + k))
+                             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void m1_x_store(float* xs, int i, uint4 v) {
+  float4* dst = reinterpret_cast<float4*>(xs + 8 * i);
+  dst[0] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+  dst[1] = make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w), bf16_hi(v.w));
+}
+
+// float4 i (i < n) of the block's scales, row g0 + i / (slab / 4) of the
+// [rows, N] scales (mode 0: one row), zero past the last row or past N.
+__device__ __forceinline__ float4 m1_scale_load(const M1Args& a, int rows, int g0, int slab0,
+                                                int n, int i) {
+  const int per_group = a.slab / 4;
+  const int g = g0 + i / per_group, c = slab0 + 4 * (i % per_group);
+  return i < n && g < rows && c < a.N
+             ? __ldg(reinterpret_cast<const float4*>(a.scale + (int64_t)g * a.N + c))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// 16 bytes that are read once: past L1, not kept there
+__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// One batch of a lane's loads: stored rows rb + u * step at its 16 columns,
+// zero past the warp's last row or past N.
+__device__ __forceinline__ void m1_load(const M1Args& a, bool live, int col, int rb, int step,
+                                        int end, uint4 (&buf)[kM1Loads]) {
+#pragma unroll
+  for (int u = 0; u < kM1Loads; ++u) {
+    const int r = rb + u * step;
+    buf[u] = live && r < end ? ld_stream(a.w + (int64_t)r * a.N + col) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A lane's sums: 16 columns' fp32 accumulators and, in mode 1, the current
+// scale group's partials, its sum of x, its batches so far and its scales.
+template <int MODE>
+struct M1Sums {
+  float acc[16] = {};
+  float part[MODE == kInt4 ? 16 : 1] = {};
+  float xsum = 0.f;
+  int group_batch = 0;
+  const float* group_scale = nullptr;  // the lane's 16 columns of the group's staged scales
+  int scale_stride = 0;                // floats from one group's staged scales to the next
+};
+
+// Consume one batch: rows xr0 + u * step of the block's x (u < kM1Loads)
+// times the batch's weights; in mode 1, at the end of a scale group or of
+// the warp's rows (last), the group's partials times its scales into acc.
+template <int MODE>
+__device__ __forceinline__ void m1_consume(const float* xs, const uint4 (&buf)[kM1Loads], int xr0,
+                                           int step, bool last, int group_batches,
+                                           M1Sums<MODE>& s) {
+#pragma unroll
+  for (int u = 0; u < kM1Loads; ++u) {
+    const int xr = xr0 + u * step;  // < rows_per_block: x is zero past K
+    const uint32_t words[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
+    if constexpr (MODE == kInt8) {
+      const float xv = xs[xr];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t lo, hi;
+        int8x4_to_bf16(words[q], lo, hi);
+        s.acc[4 * q] = fmaf(xv, bf16_lo(lo), s.acc[4 * q]);
+        s.acc[4 * q + 1] = fmaf(xv, bf16_hi(lo), s.acc[4 * q + 1]);
+        s.acc[4 * q + 2] = fmaf(xv, bf16_lo(hi), s.acc[4 * q + 2]);
+        s.acc[4 * q + 3] = fmaf(xv, bf16_hi(hi), s.acc[4 * q + 3]);
+      }
+    } else {
+      const float2 xv = *reinterpret_cast<const float2*>(xs + 2 * xr);  // rows 2r, 2r + 1
+      s.xsum += xv.x + xv.y;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // q + 8 of each nibble as a byte: row 2r's (low nibbles) in lo,
+        // row 2r + 1's in hi; byte b is column 4 q + b
+        const uint32_t v = words[q] ^ 0x88888888u;
+        const uint32_t lo = v & 0x0F0F0F0Fu, hi = (v >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          s.part[4 * q + b] =
+              fmaf(xv.y, nibble_f32(hi, b), fmaf(xv.x, nibble_f32(lo, b), s.part[4 * q + b]));
+      }
+    }
+  }
+  if constexpr (MODE == kInt4) {
+    if (++s.group_batch == group_batches || last) {
+      // part holds sum x (136 + q) over the group's rows: less 136 sum x
+      const float4* sp = reinterpret_cast<const float4*>(s.group_scale);
+      const float bias = -136.f * s.xsum;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 sc = sp[q];
+        s.acc[4 * q] = fmaf(s.part[4 * q] + bias, sc.x, s.acc[4 * q]);
+        s.acc[4 * q + 1] = fmaf(s.part[4 * q + 1] + bias, sc.y, s.acc[4 * q + 1]);
+        s.acc[4 * q + 2] = fmaf(s.part[4 * q + 2] + bias, sc.z, s.acc[4 * q + 2]);
+        s.acc[4 * q + 3] = fmaf(s.part[4 * q + 3] + bias, sc.w, s.acc[4 * q + 3]);
+      }
+#pragma unroll
+      for (int c = 0; c < 16; ++c) s.part[c] = 0.f;
+      s.xsum = 0.f;
+      s.group_batch = 0;
+      s.group_scale += s.scale_stride;
+    }
+  }
+}
+
+// A cluster owns a slab of `slab` bytes of every stored row (int8: `slab`
+// columns; int4: `slab` columns of two K rows). Its blocks split the rows in
+// rank order and a block's warps split the block's rows, each in whole
+// batches and, in mode 1, whole scale groups (or units of 64 packed rows
+// where one group spans K). A warp's lanes cover slab / 16 lanes of a row,
+// 16 bytes each, and 32 / (slab / 16) rows at a time; a lane keeps a batch
+// of kM1Loads rows in flight and starts the next batch before it consumes
+// the current one (two batches in flight took more registers, so fewer
+// blocks fit an SM, and ran slower). x of the block's rows and the slab's
+// scales are staged in shared memory, their loads sent ahead of the
+// weights'. No I2F: int8 goes to bf16 by the exact bit trick of the wgmma
+// GEMM and to fp32 by a shift; each int4 nibble, plus 8, becomes the fp32
+// 136 + q by one byte permute, and 136 times the group's sum of x comes off
+// its partial (int4 is instruction-bound, and this is the cheapest exact
+// widening). 16 fp32 accumulators a lane (mode 1: a group's partial, times
+// the group's scale at its end). The sums: across a warp's rows by
+// shuffles; then each warp stores its sums of a column into the shared
+// memory of the rank that finishes the column (slab / cluster columns a
+// rank), through distributed shared memory, and after one cluster barrier
+// each rank adds its columns' sums, rank by rank and warp by warp, in order.
+template <int MODE>
+__global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float m1_smem[];
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int warps = blockDim.x / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lanes_per_row = a.slab / 16, step = 32 / lanes_per_row;
+  const int batch = kM1Loads * step;
+  const int rows = MODE == kInt8 ? a.K : a.K / 2;
+  const int slab0 = (blockIdx.x / n_ranks) * a.slab;
+  const int col = slab0 + (lane % lanes_per_row) * 16;
+  const bool live = col < a.N;
+  const int b0 = rank * a.rows_per_block;
+  const int w0 = b0 + warp * a.rows_per_warp;
+  const int w1 = min(w0 + a.rows_per_warp, rows);  // <= w0: a warp without rows
+  const int j = lane / lanes_per_row;
+
+  constexpr int kXPerRow = MODE == kInt8 ? 1 : 2;
+  const int xn = kXPerRow * a.rows_per_block;
+  // the scales of the slab: mode 0's row; mode 1's groups of the block's rows
+  const int groups = m1_groups(MODE, a);
+  const int g0 = MODE == kInt8 ? 0 : 2 * b0 / a.group;
+  const int scale_rows = MODE == kInt8 ? 1 : a.K / a.group;
+  const int share = a.slab / n_ranks;    // columns each rank finishes
+  float* xs = m1_smem;                    // x of the block's rows, zero past K
+  float* ss = xs + xn;                    // [groups][slab]: the scales, zero past N
+  float* sums = ss + groups * a.slab;     // [ranks][warps][share]: sums of this rank's columns
+  float4* ss4 = reinterpret_cast<float4*>(ss);
+
+  // x of the block's rows (fp32) and the slab's scales, their first loads
+  // sent ahead of the weights' so that they do not queue behind them
+  const int xk0 = kXPerRow * b0;
+  const int x_runs = xn / 8, n_scales = groups * (a.slab / 4);
+  uint4 xv[kM1Stage];
+  float4 sv[kM1Stage];
+#pragma unroll
+  for (int q = 0; q < kM1Stage; ++q) {
+    xv[q] = m1_x_load(a, xk0, x_runs, tid + q * blockDim.x);
+    sv[q] = m1_scale_load(a, scale_rows, g0, slab0, n_scales, tid + q * blockDim.x);
+  }
+  uint4 cur[kM1Loads];
+  m1_load(a, live, col, w0 + j, step, w1, cur);
+#pragma unroll
+  for (int q = 0; q < kM1Stage; ++q) {
+    const int i = tid + q * blockDim.x;
+    if (i < x_runs) m1_x_store(xs, i, xv[q]);
+    if (i < n_scales) ss4[i] = sv[q];
+  }
+  for (int i = tid + kM1Stage * blockDim.x; i < x_runs; i += blockDim.x)
+    m1_x_store(xs, i, m1_x_load(a, xk0, x_runs, i));
+  for (int i = tid + kM1Stage * blockDim.x; i < n_scales; i += blockDim.x)
+    ss4[i] = m1_scale_load(a, scale_rows, g0, slab0, n_scales, i);
+  __syncthreads();
+
+  M1Sums<MODE> mine;
+  // mode 1: batches a scale group takes (never, where one group spans K),
+  // and the warp's first group's row of the staged scales
+  const int group_batches = a.group == a.K ? rows : a.group / 2 / batch;
+  if constexpr (MODE == kInt4) {
+    mine.group_scale = ss + (2 * w0 / a.group - g0) * a.slab + col - slab0;
+    mine.scale_stride = a.slab;
+  }
+  for (int rb = w0; rb < w1; rb += batch) {
+    uint4 nxt[kM1Loads];  // the next batch goes out before this one is consumed
+    m1_load(a, live, col, rb + batch + j, step, w1, nxt);
+    m1_consume<MODE>(xs, cur, rb + j - b0, step, rb + batch >= w1, group_batches, mine);
+#pragma unroll
+    for (int u = 0; u < kM1Loads; ++u) cur[u] = nxt[u];
+  }
+  float (&acc)[16] = mine.acc;
+
+  // the warp's rows (lanes step apart share columns)
+  for (int off = lanes_per_row; off < 32; off *= 2)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+  // each column's sum to the rank that finishes it, through distributed
+  // shared memory; no rank reads another's shared memory, so the one
+  // cluster barrier (release, then acquire) is all the ordering there is
+  if (lane < lanes_per_row) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = lane * 16 + 4 * q, owner = c / share;
+      float* dst = cluster.map_shared_rank(sums, owner) + (rank * warps + warp) * share + c % share;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  }
+  cluster.sync();
+  // every warp of the cluster, rank by rank, in order
+  for (int t = tid; t < share; t += blockDim.x) {
+    float v = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < n_ranks * warps; ++i) v += sums[i * share + t];
+    const int n = slab0 + rank * share + t;
+    if (n < a.N) {
+      if constexpr (MODE == kInt8) v *= ss[rank * share + t];
+      a.out[n] = __float2bfloat16(v);
+    }
+  }
+}
+
+// Whether the launch shape is one _gemv_plan (ops/quant.py) can give; the
+// operands' alignment, N % 16 and K % 8 are checked by the caller.
+bool m1_takes(int mode, const M1Args& a, int cluster, int warps) {
+  if ((a.slab != 64 && a.slab != 128) || (cluster != 2 && cluster != 4 && cluster != 8) ||
+      warps < 1 || warps > kM1MaxWarps)
+    return false;
+  const int rows = mode == kInt8 ? a.K : a.K / 2;
+  const int batch = kM1Loads * 32 / (a.slab / 16);
+  const int unit = mode == kInt8 ? batch : (a.group == a.K ? 64 : a.group / 2);
+  return a.rows_per_warp > 0 && unit % batch == 0 && a.rows_per_warp % unit == 0 &&
+         a.rows_per_block == warps * a.rows_per_warp &&
+         (long)(cluster - 1) * a.rows_per_block < rows &&
+         rows <= (long)cluster * a.rows_per_block &&
+         m1_smem_bytes(mode, a, warps) <= kM1SmemBytes;
+}
+
+template <int MODE>
+int launch_gemv_m1(const M1Args& a, int cluster, int warps, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.N + a.slab - 1) / a.slab) * cluster);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = m1_smem_bytes(MODE, a, warps);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemv_m1_kernel<MODE>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 
 template <typename T, int MODE>
 int launch(const Args& a, cudaStream_t st) {
@@ -982,6 +1315,29 @@ int cambrian_quant_matmul(int mode, int dtype, const void* x, int64_t ldx, const
   if (dtype == 0) return dispatch<float>(mode, a, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(mode, a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 M = 1 GEMV of modes 0 and 1 (gemv_m1_kernel) under the launch
+// shape of a GemvPlan (ops/quant.py): x bf16 [K], out bf16 [N]. Returns
+// cudaErrorInvalidValue, launching nothing, for operands or a shape the
+// kernel does not take.
+int cambrian_quant_gemv_m1(int mode, const void* x, const void* w, const float* scale, void* out,
+                           int n, int k, int group, int slab, int cluster, int warps,
+                           int rows_per_block, int rows_per_warp, void* stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if ((mode != kInt8 && mode != kInt4) || n < 16 || n % 16 != 0 || k < 8 || k % 8 != 0 ||
+      misaligned(x) || misaligned(w) || misaligned(scale))
+    return (int)cudaErrorInvalidValue;
+  if (mode == kInt4 && (group < 1 || k % group != 0 ||
+                        (group % 128 != 0 && !(group == k && k % 128 == 0))))
+    return (int)cudaErrorInvalidValue;
+  const M1Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w), scale,
+                 static_cast<__nv_bfloat16*>(out), n, k, mode == kInt8 ? 1 : group, slab,
+                 rows_per_block, rows_per_warp};
+  if (!m1_takes(mode, a, cluster, warps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return mode == kInt8 ? launch_gemv_m1<kInt8>(a, cluster, warps, st)
+                       : launch_gemv_m1<kInt4>(a, cluster, warps, st);
 }
 
 const char* cambrian_cuda_error_string(int err) {

@@ -13,13 +13,16 @@ the hand-written CUDA kernels of ``csrc/quant_matmul.cu`` for CUDA tensors
 versions for CPU tensors; on the card there is no fallback. ``int4_matmul``
 hands over to ``int4_matmul_scale_on_weights`` under ``CAMBRIAN_INT4_V2=1``
 or ``CAMBRIAN_INT4_V1=1``, the JAX package's switches for those kernels.
-Nothing is compiled or loaded at import time.
+A bf16 decode call (M = 1) of K3 or K4 runs ``gemv_m1_kernel`` under the
+launch shape ``_gemv_plan`` gives it, where its operands allow; every other
+call at M <= 8 runs the first port's ``gemv_kernel``. Nothing is compiled or
+loaded at import time.
 """
 
 import ctypes
 import functools
 import os
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +37,18 @@ DECODER_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
 
 _MODE_INT8, _MODE_INT4, _MODE_INT4_SCALE_ON_WEIGHTS = 0, 1, 2
 _KERNEL_TILE_K = 32   # the kernel's K tile: int4 groups are a multiple of it, or K
+
+# The bf16 M = 1 decode GEMV (gemv_m1_kernel of csrc/quant_matmul.cu); these
+# must match its constants (kM1Loads, kM1MaxWarps, kM1SmemBytes).
+H100_SMS = 132
+GEMV_LOADS = 8                  # 16-byte loads of a lane's batch
+GEMV_MAX_WARPS = 8
+GEMV_WARPS = 4                  # warps a block the plan gives at most
+GEMV_BLOCKS_PER_SM = 2          # blocks an SM the plan aims for
+GEMV_SMEM_BYTES = 48 << 10      # x and scales of a block's rows (fp32) and its sums
+GEMV_MIN_BLOCK_BYTES = 32 << 10  # a block streams at least this much where it can
+GEMV_SLABS = (128, 64)          # stored bytes of a row a cluster owns
+GEMV_CLUSTERS = (2, 4, 8)
 
 
 # -- quantizers ---------------------------------------------------------------
@@ -146,20 +161,173 @@ def int4_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tens
     return (parts * scale[:, None, :]).sum(0).to(x.dtype)
 
 
+# -- the decode GEMV's plan -----------------------------------------------------
+
+class GemvPlan(NamedTuple):
+    """A launch of ``gemv_m1_kernel``. Each cluster of ``cluster`` blocks owns
+    a slab of ``slab`` stored bytes of every weight row (int8: that many
+    columns; packed int4: as many columns of two K rows each). Its blocks
+    split the stored rows in rank order, ``rows_per_block`` each, and a
+    block's ``warps`` warps split those, ``rows_per_warp`` each; the last
+    block's share ends at the last row."""
+    slab: int
+    cluster: int
+    warps: int
+    rows_per_block: int
+    rows_per_warp: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _gemv_unit(mode: int, k: int, group: int, slab: int) -> int:
+    """Stored rows that every split of K keeps whole: one batch of a warp's
+    loads (int8); a scale group's packed rows (int4), or 64 of them (128 K
+    rows) where one group spans K."""
+    if mode == _MODE_INT8:
+        return GEMV_LOADS * 32 // (slab // 16)
+    return 64 if group == k else group // 2
+
+
+def _gemv_takes(mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int,
+                ptrs: Sequence[int]) -> bool:
+    """The operands gemv_m1_kernel takes: bf16 x at M = 1, int8 or int4 with
+    partial-sum scaling (modes 0, 1), N a multiple of a lane's 16 columns,
+    K of whole 16-byte runs of x, 16-byte-aligned x, weights and scales, and
+    for int4 a scale group of a multiple of 128 K rows, or one group over a
+    K of a multiple of 128."""
+    if dtype != torch.bfloat16 or m != 1 or mode not in (_MODE_INT8, _MODE_INT4):
+        return False
+    if n % 16 or k % 8 or any(p % 16 for p in ptrs):
+        return False
+    return mode == _MODE_INT8 or group % 128 == 0 or (group == k and k % 128 == 0)
+
+
+def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan) -> bool:
+    """Whether the kernel takes the launch shape (the C side refuses the
+    same): splits on whole units, no block without rows, and x, the int4
+    scales and the sums within the kernel's shared memory."""
+    slab, cluster, warps, rows_per_block, rows_per_warp = plan
+    if slab not in GEMV_SLABS or cluster not in GEMV_CLUSTERS:
+        return False
+    rows = k if mode == _MODE_INT8 else k // 2
+    unit = _gemv_unit(mode, k, group, slab)
+    if not (1 <= warps <= GEMV_MAX_WARPS and rows_per_warp > 0
+            and unit % (GEMV_LOADS * 32 // (slab // 16)) == 0
+            and rows_per_warp % unit == 0
+            and rows_per_block == warps * rows_per_warp
+            and (cluster - 1) * rows_per_block < rows <= cluster * rows_per_block):
+        return False
+    # x of the block's rows, the slab's rows of scales (int8: one; int4: the
+    # block's groups), and the sums of the block's columns
+    if mode == _MODE_INT8:
+        floats = rows_per_block + (1 + warps) * slab
+    else:
+        groups = 1 if group == k else 2 * rows_per_block // group
+        floats = 2 * rows_per_block + (groups + warps) * slab
+    return 4 * floats <= GEMV_SMEM_BYTES
+
+
+def _gemv_split(mode: int, n: int, k: int, group: int, slab: int, cluster: int,
+                warps: Optional[int] = None) -> Optional[GemvPlan]:
+    """K split over ``cluster`` blocks and then over at most ``warps``
+    (GEMV_WARPS) warps a block, in whole units, as evenly as the units
+    allow; None if the kernel would not take it."""
+    rows = k if mode == _MODE_INT8 else k // 2
+    unit = _gemv_unit(mode, k, group, slab)
+    per_block = _cdiv(_cdiv(rows, unit), cluster)
+    per_warp = _cdiv(per_block, warps or GEMV_WARPS)
+    n_warps = _cdiv(per_block, per_warp)
+    plan = GemvPlan(slab, cluster, n_warps, n_warps * per_warp * unit, per_warp * unit)
+    return plan if _gemv_fits(mode, n, k, group, plan) else None
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[int] = None,
+                cluster: Optional[int] = None, warps: Optional[int] = None) -> Optional[GemvPlan]:
+    """The launch shape for an [N, K] weight on a card of ``sms`` SMs, so
+    that every SM gets GEMV_BLOCKS_PER_SM blocks of GEMV_WARPS warps where N
+    and K allow. Slabs of 128 bytes, or 64 where 128-byte slabs in clusters
+    of 8 would give fewer blocks. The smallest cluster that gives that many
+    blocks (8 at most), halved while a block would stream less than
+    GEMV_MIN_BLOCK_BYTES and every SM would still get a block, and again
+    while the split would leave a block without rows; larger where a
+    block's x and scales would not fit its shared memory. ``slab``,
+    ``cluster`` and ``warps`` force those choices."""
+    rows = k if mode == _MODE_INT8 else k // 2
+    blocks = GEMV_BLOCKS_PER_SM * sms
+    if slab is None:
+        slab = 128 if _cdiv(n, 128) * GEMV_CLUSTERS[-1] >= blocks else 64
+    if cluster is not None:
+        return _gemv_split(mode, n, k, group, slab, cluster, warps)
+    slabs = _cdiv(n, slab)
+    most = next((c for c in GEMV_CLUSTERS if slabs * c >= blocks), GEMV_CLUSTERS[-1])
+    while (most > GEMV_CLUSTERS[0] and rows * slab < most * GEMV_MIN_BLOCK_BYTES
+           and slabs * (most // 2) >= sms):
+        most //= 2
+    order = [c for c in reversed(GEMV_CLUSTERS) if c <= most]
+    for c in order + [c for c in GEMV_CLUSTERS if c > most]:
+        plan = _gemv_split(mode, n, k, group, slab, c, warps)
+        if plan is not None:
+            return plan
+    return None
+
+
+def _gemv_plan(mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int, x_ptr: int,
+               w_ptr: int, sms: int = H100_SMS, s_ptr: int = 0, slab: Optional[int] = None,
+               cluster: Optional[int] = None, warps: Optional[int] = None) -> Optional[GemvPlan]:
+    """How a call with x [m, k] (at x_ptr), weights at w_ptr and scales at
+    s_ptr runs: a GemvPlan of gemv_m1_kernel, or None for the first port's
+    gemv_kernel (M <= 8) and the GEMMs (M > 8). ``slab``, ``cluster`` and
+    ``warps`` force those choices (the sweep's settings); None where the
+    kernel would not take them."""
+    if not _gemv_takes(mode, dtype, m, n, k, group, (x_ptr, w_ptr, s_ptr)):
+        return None
+    return _gemv_shape(mode, n, k, group, sms, slab, cluster, warps)
+
+
+def _gemv_route(route, mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int,
+                ptrs: Sequence[int], sms: int) -> Optional[GemvPlan]:
+    """The plan a call launches. ``route`` None takes ``_gemv_plan``'s;
+    "gemv_kernel" forces the first port's kernel (for M <= 8; None); a
+    GemvPlan forces that plan, which raises here for operands the kernel
+    does not take and on the card, from the C side, for a launch shape it
+    refuses."""
+    if route is None:
+        return _gemv_plan(mode, dtype, m, n, k, group, *ptrs[:2], sms, ptrs[2])
+    if route == "gemv_kernel":
+        if m > 8:
+            raise ValueError(f"gemv_kernel runs M <= 8, got M = {m}")
+        return None
+    if not isinstance(route, GemvPlan):
+        raise ValueError(f"_route must be None, 'gemv_kernel' or a GemvPlan, got {route!r}")
+    if not _gemv_takes(mode, dtype, m, n, k, group, ptrs):
+        raise ValueError(f"gemv_m1_kernel does not take mode {mode}, {dtype}, M={m}, N={n}, "
+                         f"K={k}, group {group} at {[p % 16 for p in ptrs]} past 16 bytes")
+    return route
+
+
 # -- kernels ------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     return cuda_build.load("quant_matmul", {
-        "cambrian_quant_matmul": [i32, i32, ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr]})
+        "cambrian_quant_matmul": [i32, i32, ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
+        "cambrian_quant_gemv_m1": [i32, ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]})
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-            k: int, n: int, group: int) -> torch.Tensor:
+            k: int, n: int, group: int, route=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch on the
     current stream (counted in ``wrapper.launches``); raise on anything the
-    kernel refuses."""
+    kernel refuses. ``route`` is ``_gemv_route``'s."""
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -177,13 +345,19 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
     if m == 0:
         return torch.empty((0, n), dtype=x.dtype, device=x.device)
     ldx = x.stride(0) if m > 1 else k
+    plan = _gemv_route(route, mode, x.dtype, m, n, k, group,
+                       (x.data_ptr(), w.data_ptr(), scale.data_ptr()), _sms(x.device))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     wrapper.launches += 1
-    err = lib.cambrian_quant_matmul(mode, cuda_build.dtype_code(x), x.data_ptr(), ldx,
-                                    w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                    m, n, k, group, stream)
+    if plan is not None:
+        err = lib.cambrian_quant_gemv_m1(mode, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                                         out.data_ptr(), n, k, group, *plan, stream)
+    else:
+        err = lib.cambrian_quant_matmul(mode, cuda_build.dtype_code(x), x.data_ptr(), ldx,
+                                        w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                        m, n, k, group, stream)
     cuda_build.check_launch(lib, err, "quant matmul")
     return out
 
@@ -199,43 +373,46 @@ def _int4_shapes(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> Tu
     return k, n, group
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
+                _route=None) -> torch.Tensor:
     """x [M, K] (bf16/fp32) @ dequant(w_q int8 [K, N], scale fp32 [N]) ->
-    [M, N] in x.dtype. Kernel K3 on the card."""
+    [M, N] in x.dtype. Kernel K3 on the card. ``_route`` forces a decode
+    GEMV (``_gemv_route``), for timing one against the other."""
     if cuda_build.on_cpu(x, "int8_matmul"):
         return int8_matmul_reference(x, w_q, scale)
     k, n = w_q.shape
     if scale.shape != (n,):
         raise ValueError(f"scale must be [{n}], got {tuple(scale.shape)}")
-    return _launch(int8_matmul, _MODE_INT8, x, w_q, scale, k, n, 1)
+    return _launch(int8_matmul, _MODE_INT8, x, w_q, scale, k, n, 1, _route)
 
 
 def int4_matmul_scale_on_weights(x: torch.Tensor, w_q4: torch.Tensor,
-                                 scale: torch.Tensor) -> torch.Tensor:
+                                 scale: torch.Tensor, *, _route=None) -> torch.Tensor:
     """The int4 product with the scale applied to the weights in x.dtype
     (kernel K4b/K4c on the card)."""
     if cuda_build.on_cpu(x, "int4_matmul_scale_on_weights"):
         return int4_matmul_reference(x, w_q4, scale, scale_on_weights=True)
     k, n, group = _int4_shapes(x, w_q4, scale)
     return _launch(int4_matmul_scale_on_weights, _MODE_INT4_SCALE_ON_WEIGHTS, x, w_q4, scale,
-                   k, n, group)
+                   k, n, group, _route)
 
 
 def _scale_on_weights_selected() -> bool:
     return "1" in (os.environ.get("CAMBRIAN_INT4_V2"), os.environ.get("CAMBRIAN_INT4_V1"))
 
 
-def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor, *,
+                _route=None) -> torch.Tensor:
     """x [M, K] (bf16/fp32) @ dequant(w_q4 packed [K/2, N], scale [K/group, N])
     -> [M, N] in x.dtype, with the scale on fp32 partial sums (kernel K4 on
     the card); ``CAMBRIAN_INT4_V2=1`` or ``CAMBRIAN_INT4_V1=1`` selects
-    ``int4_matmul_scale_on_weights``."""
+    ``int4_matmul_scale_on_weights``. ``_route`` as in ``int8_matmul``."""
     if _scale_on_weights_selected():
-        return int4_matmul_scale_on_weights(x, w_q4, scale)
+        return int4_matmul_scale_on_weights(x, w_q4, scale, _route=_route)
     if cuda_build.on_cpu(x, "int4_matmul"):
         return int4_matmul_reference(x, w_q4, scale)
     k, n, group = _int4_shapes(x, w_q4, scale)
-    return _launch(int4_matmul, _MODE_INT4, x, w_q4, scale, k, n, group)
+    return _launch(int4_matmul, _MODE_INT4, x, w_q4, scale, k, n, group, _route)
 
 
 int8_matmul.launches = 0

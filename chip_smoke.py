@@ -14,7 +14,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) and
    the eight bf16 GEMM functions of K8 (``mlp_up_kernel`` and
    ``mlp_down_kernel``, tiles of 64, 128, 192 and 256 columns) must be
-   there, with HGMMA and no HMMA;
+   there, with HGMMA and no HMMA; the two functions of the bf16 M = 1 decode
+   GEMV of K3 and K4 (``gemv_m1_kernel<0>``, ``<1>``) must be there, with
+   their registers and count of I2F instructions printed, and none may
+   spill;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -33,6 +36,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    ``torch.matmul`` on the dequantized weight, and the bound; each bf16
    prefill case also runs once under ``torch.profiler``, which must show
    ``gemm_wgmma_kernel``, and its TFLOP/s (2 M N K / time) are printed;
+   each bf16 M = 1 case of K3 and K4 runs in the same profiled run, which
+   must show ``gemv_m1_kernel<mode>`` and no ``gemv_kernel``, and is timed
+   as the median of 30 calls beside the first port's ``gemv_kernel``
+   (``_route="gemv_kernel"``), with its TB/s, its share of the bound and a
+   decode step's sum of either kernel;
 4. a tiny Cambrian, unquantized, int8 and int4: the kernel path on the card
    in fp32 (TF32 off) against the plain path on the CPU; greedy tokens must
    be identical and the kernels launched exactly as often as the path needs;
@@ -139,6 +147,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 QUANT_SHAPES = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
                 ("o_proj", 4096, 4096), ("gate_proj", 4096, 14336),
                 ("up_proj", 4096, 14336), ("down_proj", 14336, 4096)]
+# K3 and K4, whose bf16 M = 1 calls run gemv_m1_kernel, timed as medians of
+# GEMV_ITERS calls beside the first port's gemv_kernel
+GEMV_M1_KERNELS = ("int8_matmul", "int4_matmul")
+GEMV_ITERS = 30
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
     "int4_matmul": ("cambrian_tpu/ops/quant.py:227", "int4"),
@@ -152,16 +164,18 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(torch, fn, iters=10, flush=None, spin=None):
+def cuda_ms(torch, fn, iters=10, flush=None, spin=None, median=False):
     """Mean device time of ``fn`` over ``iters`` calls, after one warm-up.
     With ``flush`` or ``spin``, each call is timed alone, after ``flush()``
     has run if given; a spin kernel (``spin`` cycles, by default
     SPIN_CYCLES) then holds the stream until the host has queued the timed
     call, so that its launch cost on the host is not read as device time.
-    Without either, the calls run back to back."""
+    Without either, the calls run back to back. ``median``: the median of
+    the calls' times instead of their mean (calls of a few microseconds,
+    where one slow call would move the mean)."""
     fn()
     torch.cuda.synchronize()
-    if flush is None and spin is None:
+    if flush is None and spin is None and not median:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -182,7 +196,8 @@ def cuda_ms(torch, fn, iters=10, flush=None, spin=None):
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    times = [s.elapsed_time(e) for s, e in events]
+    return float(np.median(times)) if median else sum(times) / iters
 
 
 def bound(n_bytes, n_ops, dtype_name):
@@ -238,8 +253,9 @@ def kernel_name(mangled):
 
 
 def tensor_core_instructions(path):
-    """{kernel function: [HGMMA, HMMA]}: the tensor-core instructions of each
-    kernel function of a built library, counted in ``cuobjdump -sass``."""
+    """{kernel function: [HGMMA, HMMA, I2F]}: the tensor-core instructions and
+    the int-to-float conversions (I2F, I2FP) of each kernel function of a
+    built library, counted in ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -248,11 +264,31 @@ def tensor_core_instructions(path):
         line = line.strip()
         if line.startswith("Function :"):
             name = kernel_name(line.split(":", 1)[1].strip())
-            out[name] = [0, 0]
+            out[name] = [0, 0, 0]
         elif name is not None and "HGMMA" in line:
             out[name][0] += 1
         elif name is not None and "HMMA" in line:
             out[name][1] += 1
+        elif name is not None and "I2F" in line:
+            out[name][2] += 1
+    return out
+
+
+def resource_usage(path):
+    """{kernel function: (registers, stack bytes, local bytes)} of a built
+    library, from ``cuobjdump -res-usage`` (whether or not this run compiled
+    it); spilled registers live in local memory."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-res-usage", path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\w+):", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
+        if m and name is not None:
+            out[name] = tuple(int(v) for v in m.groups())
     return out
 
 
@@ -412,6 +448,7 @@ def quant_kernel_phase(torch, quant, prompt_len):
                 q4, s4, quant.dequantize_int4),
         }
         prefill = {}     # name: (x, the record) of each bf16 prefill case
+        decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3 and K4
         for name, (fn, plain, wq, sc, dequant) in cases.items():
             for m in (1, prompt_len):
                 for dtype in (torch.bfloat16, torch.float32):
@@ -430,11 +467,24 @@ def quant_kernel_phase(torch, quant, prompt_len):
                           f"{name} {site} M={m}: {tuple(out.shape)} {out.dtype}")
                     check(err <= tol, f"{name} {site} M={m} {dtype_name}: "
                           f"max abs error {err} > {tol}")
-                    ms = cuda_ms(torch, lambda: fn(x, wq, sc), flush=flush)
-                    plain_ms = cuda_ms(torch, lambda: plain(x, wq, sc), flush=flush)
+                    # the bf16 M = 1 GEMV of K3 and K4 (gemv_m1_kernel): medians of
+                    # GEMV_ITERS calls, beside the first port's gemv_kernel
+                    m1 = m == 1 and dtype == torch.bfloat16 and name in GEMV_M1_KERNELS
+                    iters = GEMV_ITERS if m1 else 10
+                    ms = cuda_ms(torch, lambda: fn(x, wq, sc), iters, flush, median=m1)
+                    plain_ms = cuda_ms(torch, lambda: plain(x, wq, sc), iters, flush, median=m1)
                     w_deq = dequant(wq, sc, dtype)
-                    library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_deq), flush=flush)
+                    library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_deq), iters, flush,
+                                         median=m1)
                     del w_deq
+                    old_ms = None
+                    if m1:
+                        old = fn(x, wq, sc, _route="gemv_kernel")
+                        torch.cuda.synchronize()
+                        old_err = float((old.float() - ref).abs().max())
+                        check(old_err <= tol, f"{name} {site} gemv_kernel: error {old_err} > {tol}")
+                        old_ms = cuda_ms(torch, lambda: fn(x, wq, sc, _route="gemv_kernel"),
+                                         iters, flush, median=True)
                     int8pack_ms = None
                     if name == "int8_matmul" and dtype == torch.bfloat16:
                         if int8pack is None:
@@ -457,8 +507,9 @@ def quant_kernel_phase(torch, quant, prompt_len):
                     rec = dict(kernel=name, site=site, m=m, k=k, n=n, dtype=dtype_name,
                                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                                library_ms=library_ms, library_int8pack_ms=int8pack_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
-                               ops_ms=ops_ms, tflops=tflops, function=None)
+                               gemv_kernel_ms=old_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               bytes_ms=bytes_ms, ops_ms=ops_ms, tflops=tflops,
+                               tbps=n_bytes / (ms * 1e9), function=None)
                     print(f"kernel {name:29s} {site:9s} {dtype_name:8s} M={m:<4d} K={k:<5d} "
                           f"N={n:<5d} err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
                           f"matmul={library_ms:.4f} ms"
@@ -466,16 +517,34 @@ def quant_kernel_phase(torch, quant, prompt_len):
                           + f" bound={bound_ms * 1e3:.2f} us ({bound_by}) {tflops:.1f} TFLOP/s",
                           flush=True)
                     records.append(rec)
+                    if m1:
+                        print(f"gemv M=1 {name:12s} {site:9s} gemv_m1_kernel {ms * 1e3:.2f} us, "
+                              f"gemv_kernel {old_ms * 1e3:.2f} us, matmul {library_ms * 1e3:.2f} "
+                              f"us, bound {bound_ms * 1e3:.2f} us, {rec['tbps']:.3f} TB/s "
+                              f"({bound_ms / ms:.1%} of bound), err {err:.3e} (tol {tol:.2e}); "
+                              f"faster than gemv_kernel: {ms < old_ms}, no slower than "
+                              f"matmul: {ms <= library_ms}", flush=True)
+                        decode[name] = (x, rec)
                     if dtype == torch.bfloat16 and m == prompt_len:
                         prefill[name] = (x, rec)
         # the bf16 prefill of each kernel must run the wgmma kernel of its
-        # mode, by name: one profiled run a shape (after some twenty
-        # profiler sessions in one process, traces came back empty)
+        # mode, and the bf16 M = 1 call of K3 and K4 gemv_m1_kernel, by name:
+        # one profiled run a shape (after some twenty profiler sessions in
+        # one process, traces came back empty)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for name, (x, _) in prefill.items():
+            for name, (x, _) in list(prefill.items()) + list(decode.items()):
                 cases[name][0](x, cases[name][2], cases[name][3])
             torch.cuda.synchronize()
         names = [key for _, _, key in kernel_events(prof)]
+        check(not any("gemv_kernel<" in key for key in names),
+              f"{site}: a bf16 M = 1 call ran the first port's gemv_kernel: {names}")
+        for name, (_, rec) in decode.items():
+            mode = list(QUANT_KERNELS).index(name)
+            rec["function"] = next((f"gemv_m1_kernel<{mode}>" for key in names
+                                    if f"gemv_m1_kernel<{mode}>" in key), None)
+            check(rec["function"] is not None,
+                  f"{name} {site} M=1: the decode ran {names}, not gemv_m1_kernel<{mode}>")
+            print(f"kernel {name:29s} {site:9s} decode ran {rec['function']}", flush=True)
         for name, (_, rec) in prefill.items():
             mode = list(QUANT_KERNELS).index(name)   # K3, K4, K4b: modes 0, 1, 2
             found = [re.search(rf"gemm_wgmma_kernel<{mode}, \d+>", key) for key in names]
@@ -486,6 +555,14 @@ def quant_kernel_phase(torch, quant, prompt_len):
             print(f"kernel {name:29s} {site:9s} prefill ran {rec['function']}", flush=True)
         del q8, s8, q4, s4, w, prefill
     del l2
+    for name in GEMV_M1_KERNELS:
+        recs = [r for r in records if r["kernel"] == name and r["gemv_kernel_ms"] is not None]
+        step = {key: LAYERS * sum(r[key] for r in recs)
+                for key in ("ms", "gemv_kernel_ms", "library_ms", "bound_ms")}
+        print(f"gemv M=1 {name}: a decode step (7 shapes x {LAYERS} layers) gemv_m1_kernel "
+              f"{step['ms']:.3f} ms, gemv_kernel {step['gemv_kernel_ms']:.3f} ms, matmul "
+              f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
+              f"({step['bound_ms'] / step['ms']:.1%} of bound)", flush=True)
     return records
 
 
@@ -961,8 +1038,12 @@ K1_FUNCTIONS = ("flash_fwd_kernel", "fwd_bf16_kernel")
 K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkdv_bf16_kernel",
                 "bwd_dq_bf16_kernel")
 # the quant matmuls' kernel functions: decode GEMV, fp32 SIMT GEMM, the
-# mma.sync GEMM for bf16 operands TMA cannot address, the wgmma prefill GEMM
-QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel")
+# mma.sync GEMM for bf16 operands TMA cannot address, the wgmma prefill GEMM,
+# the bf16 M = 1 GEMV over a thread-block cluster
+QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel",
+                   "gemv_m1_kernel")
+# the bf16 M = 1 decode GEMV of modes 0 (K3) and 1 (K4)
+GEMV_M1_FUNCTIONS = ["gemv_m1_kernel<0>", "gemv_m1_kernel<1>"]
 # the wgmma prefill GEMM's functions: <mode, tile columns>
 WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
 # K8's bf16 GEMMs (bias + GELU, and bias): <tile columns>; its kernels for
@@ -1627,11 +1708,11 @@ def main(argv=None):
     sass = {}
     for lib in ("flash_attention", "flash_attention_bwd", "quant_matmul", "fused_mlp"):
         regs = register_use(built[lib]["log"])
-        for fn, (hgmma, hmma) in tensor_core_instructions(built[lib]["path"]).items():
+        for fn, (hgmma, hmma, i2f) in tensor_core_instructions(built[lib]["path"]).items():
             n_regs, spills = regs.get(fn, (None, None))
-            sass[fn] = dict(library=lib, hgmma=hgmma, hmma=hmma, registers=n_regs,
+            sass[fn] = dict(library=lib, hgmma=hgmma, hmma=hmma, i2f=i2f, registers=n_regs,
                             spill_bytes=spills)
-            print(f"sass {lib}: {fn}: {hgmma} HGMMA, {hmma} HMMA, {n_regs} registers, "
+            print(f"sass {lib}: {fn}: {hgmma} HGMMA, {hmma} HMMA, {i2f} I2F, {n_regs} registers, "
                   f"{spills} bytes spilled", flush=True)
     bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
     check(len(bf16_fns) == 24, f"expected 3 x 8 bf16 kernel functions of K1/K2, found {bf16_fns}")
@@ -1643,6 +1724,18 @@ def main(argv=None):
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in WGMMA_FUNCTIONS),
           f"quant prefill functions not on wgmma alone: "
           f"{ {fn: sass[fn] for fn in WGMMA_FUNCTIONS} }")
+    # the bf16 M = 1 decode GEMV of K3 and K4: there, without spills (no
+    # stack, no local memory)
+    missing = [fn for fn in GEMV_M1_FUNCTIONS if fn not in sass]
+    check(not missing, f"quant_matmul lacks its M = 1 GEMV functions {missing}")
+    usage = resource_usage(built["quant_matmul"]["path"])
+    for fn in GEMV_M1_FUNCTIONS:
+        check(fn in usage, f"cuobjdump -res-usage shows no {fn}")
+        regs, stack, local = usage[fn]
+        sass[fn].update(registers=regs, stack_bytes=stack, local_bytes=local)
+        print(f"{fn}: {regs} registers, {stack} bytes of stack, {local} bytes of local memory, "
+              f"{sass[fn]['i2f']} I2F", flush=True)
+        check(stack == 0 and local == 0, f"{fn} spills: {sass[fn]}")
     missing = [fn for fn in MLP_WGMMA_FUNCTIONS if fn not in sass]
     check(not missing, f"fused_mlp lacks its wgmma GEMM functions {missing}")
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in MLP_WGMMA_FUNCTIONS),
