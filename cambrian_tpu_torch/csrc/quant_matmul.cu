@@ -27,19 +27,24 @@
 // Decode (M <= 8) is a GEMV: the weight read is all the work (int8: K*N
 // bytes, int4: K*N/2 bytes plus the fp32 scales) and the memory rate bounds
 // it. Two kernels, chosen by _gemv_plan in ops/quant.py:
-//   - gemv_m1_kernel<mode> takes bf16 x at M = 1 in modes 0 and 1 (every
-//     decode step of generate / generate_stream under load_8bit / load_4bit)
-//     where the operands allow 16-byte loads (N % 16 == 0, K % 8 == 0,
-//     16-byte-aligned x, weights and scales; int4 groups of a multiple of 128
-//     rows, or one group over a K of a multiple of 128). A thread-block
-//     cluster of 2-8 blocks owns a slab of 64 or 128 bytes of every weight
-//     row; its blocks split K, their warps split it again, each lane streams
-//     16 bytes of a row (ld.global.nc.L1::no_allocate) with 8 rows in flight,
-//     the weights are widened to fp32 without I2F, and the blocks' sums meet
-//     in distributed shared memory, in rank order: one launch, no
-//     workspace, no atomics. The plan, not this file, picks the launch
+//   - gemv_m1_kernel<mode> takes bf16 x at M = 1 in every mode (every
+//     decode step of generate / generate_stream under load_8bit / load_4bit,
+//     and under CAMBRIAN_INT4_V2=1 / CAMBRIAN_INT4_V1=1) where the operands
+//     allow 16-byte loads (N % 16 == 0, K % 8 == 0, 16-byte-aligned x,
+//     weights and scales; int4 groups of a multiple of 128 rows, or one
+//     group over a K of a multiple of 128). A thread-block cluster of 2-8
+//     blocks owns a slab of 64 or 128 bytes of every weight row (mode 2:
+//     128); its blocks split K, their warps split it again, each lane
+//     streams 16 bytes of a row (ld.global.nc.L1::no_allocate) with 8 rows
+//     in flight, and the blocks' sums meet in distributed shared memory, in
+//     rank order: one launch, no workspace, no atomics. Modes 0 and 1 widen
+//     the weights to fp32 without I2F and multiply-add on the CUDA cores;
+//     mode 2 rounds q * bf16(scale) to bf16 (HMUL2) and runs the products on
+//     the tensor cores (mma.sync m16n8k16 with x in one column of B): the
+//     scale on the weights costs two more instructions an element, and int4
+//     at M = 1 is issue-bound. The plan, not this file, picks the launch
 //     shape; the C entry refuses any shape the plan would not give.
-//   - gemv_kernel takes the rest (fp32, M = 2..8, mode 2, other operands).
+//   - gemv_kernel takes the rest (fp32, M = 2..8, other operands).
 //     It gives each block a 32-column slab of N and loops over all of K
 //     inside the block: 4 threads cover the slab along N with 8-byte loads
 //     (8 columns each), 64 such K slices split the rows, each keeping 8 or 16
@@ -943,7 +948,7 @@ int launch_wgmma(const Args& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// GEMV: M = 1, bf16 x, modes 0 and 1, split over a thread-block cluster
+// GEMV: M = 1, bf16 x, modes 0-2, split over a thread-block cluster
 // ---------------------------------------------------------------------------
 
 // These match GEMV_LOADS, GEMV_MAX_WARPS and GEMV_SMEM_BYTES in ops/quant.py.
@@ -993,10 +998,36 @@ __device__ __forceinline__ uint4 m1_x_load(const M1Args& a, int k0, int runs, in
                              : make_uint4(0u, 0u, 0u, 0u);
 }
 
+// Run i of x into shared memory: as fp32 (modes 0, 1), or as it is, bf16
+// pairs of rows 2r, 2r + 1 (mode 2's mma operand).
+template <int MODE>
 __device__ __forceinline__ void m1_x_store(float* xs, int i, uint4 v) {
-  float4* dst = reinterpret_cast<float4*>(xs + 8 * i);
-  dst[0] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
-  dst[1] = make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w), bf16_hi(v.w));
+  if constexpr (MODE == kInt4ScaleOnWeights) {
+    reinterpret_cast<uint4*>(xs)[i] = v;
+  } else {
+    float4* dst = reinterpret_cast<float4*>(xs + 8 * i);
+    dst[0] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+    dst[1] = make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w), bf16_hi(v.w));
+  }
+}
+
+// Four scales as staged: fp32 (modes 0, 1), or each rounded to bf16 and held
+// twice, as a bf16 pair (mode 2: one HMUL2 scales a column's two rows).
+template <int MODE>
+__device__ __forceinline__ float4 m1_scale_staged(float4 v) {
+  if constexpr (MODE == kInt4ScaleOnWeights) {
+    uint32_t p[4];
+    const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(f[i]));
+      p[i] = h | (h << 16);
+    }
+    return make_float4(__uint_as_float(p[0]), __uint_as_float(p[1]), __uint_as_float(p[2]),
+                       __uint_as_float(p[3]));
+  } else {
+    return v;
+  }
 }
 
 // float4 i (i < n) of the block's scales, row g0 + i / (slab / 4) of the
@@ -1036,11 +1067,79 @@ template <int MODE>
 struct M1Sums {
   float acc[16] = {};
   float part[MODE == kInt4 ? 16 : 1] = {};
+  // mode 2: the 8 mma accumulators of the lane's column pairs (m16n8k16 C
+  // fragments; row 0, n = 0 holds the sums)
+  float mma[MODE == kInt4ScaleOnWeights ? 8 : 1][4] = {};
   float xsum = 0.f;
   int group_batch = 0;
   const float* group_scale = nullptr;  // the lane's 16 columns of the group's staged scales
   int scale_stride = 0;                // floats from one group's staged scales to the next
 };
+
+// Mode 2: byte b (b < 4) of the low- and high-nibble words l, h (q + 8 in
+// each byte) as the bf16 pair (q of row 2r, q of row 2r + 1) of that column,
+// exactly: q + 8 in the mantissa of bf16 128.0, less 136.
+__device__ __forceinline__ void int4_pairs(uint32_t w, uint32_t (&p)[4]) {
+  const uint32_t l = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t h = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t z01 = __byte_perm(l, h, 0x5140);  // l0 h0 l1 h1
+  const uint32_t z23 = __byte_perm(l, h, 0x7362);  // l2 h2 l3 h3
+  constexpr uint32_t kBias = 0x43084308u;
+  p[0] = bf16x2_sub(__byte_perm(z01, 0x43u, 0x4140), kBias);
+  p[1] = bf16x2_sub(__byte_perm(z01, 0x43u, 0x4342), kBias);
+  p[2] = bf16x2_sub(__byte_perm(z23, 0x43u, 0x4140), kBias);
+  p[3] = bf16x2_sub(__byte_perm(z23, 0x43u, 0x4342), kBias);
+}
+
+// Mode 2: consume one batch on the tensor cores. The lane holds packed rows
+// xr0 + 4u (u < kM1Loads) of its 16 columns; loads 2p and 2p + 1 give the K
+// rows 2t..2t+1 and 2t+8..2t+9 (t = lane % 4) of one m16n8k16 product a
+// column pair: A is the dequantized weights (m = the lane's column chunk
+// lane / 4, and that plus 8 for the pair's second column), B holds x in its
+// column 0 (lanes 0-3) and zeros elsewhere, so row 0 of each product's C
+// gains the pair's sums. Each weight is q * bf16(scale), rounded once by
+// the bf16 product, as the plain version (and the TPU kernel) round it.
+__device__ __forceinline__ void m1_consume_mma(const float* xs, const uint4 (&buf)[kM1Loads],
+                                               int xr0, int step, int group_batches,
+                                               M1Sums<kInt4ScaleOnWeights>& s) {
+  const int lane = threadIdx.x % 32;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(xs);
+  const uint4* sp = reinterpret_cast<const uint4*>(s.group_scale);
+  uint32_t sc[16];  // the lane's 16 columns' bf16 scales, each as a pair
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v = sp[q];
+    sc[4 * q] = v.x, sc[4 * q + 1] = v.y, sc[4 * q + 2] = v.z, sc[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int p = 0; p < kM1Loads / 2; ++p) {
+    const int xr = xr0 + 2 * p * step;  // < rows_per_block: x is zero past K
+    const uint32_t b[2] = {lane < 4 ? xw[xr] : 0u, lane < 4 ? xw[xr + step] : 0u};
+    const uint32_t r1[4] = {buf[2 * p].x, buf[2 * p].y, buf[2 * p].z, buf[2 * p].w};
+    const uint32_t r2[4] = {buf[2 * p + 1].x, buf[2 * p + 1].y, buf[2 * p + 1].z,
+                            buf[2 * p + 1].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t p1[4], p2[4];  // columns 4q .. 4q + 3 of the two rows
+      int4_pairs(r1[q], p1);
+      int4_pairs(r2[q], p2);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        p1[c] = bf16x2_mul(p1[c], sc[4 * q + c]);
+        p2[c] = bf16x2_mul(p2[c], sc[4 * q + c]);
+      }
+      // column pairs (4q, 4q + 1) and (4q + 2, 4q + 3): m = g and g + 8
+      const uint32_t a0[4] = {p1[0], p1[1], p2[0], p2[1]};
+      const uint32_t a1[4] = {p1[2], p1[3], p2[2], p2[3]};
+      mma_16816(s.mma[2 * q], a0, b);
+      mma_16816(s.mma[2 * q + 1], a1, b);
+    }
+  }
+  if (++s.group_batch == group_batches) {
+    s.group_batch = 0;
+    s.group_scale += s.scale_stride;
+  }
+}
 
 // Consume one batch: rows xr0 + u * step of the block's x (u < kM1Loads)
 // times the batch's weights; in mode 1, at the end of a scale group or of
@@ -1105,8 +1204,8 @@ __device__ __forceinline__ void m1_consume(const float* xs, const uint4 (&buf)[k
 // A cluster owns a slab of `slab` bytes of every stored row (int8: `slab`
 // columns; int4: `slab` columns of two K rows). Its blocks split the rows in
 // rank order and a block's warps split the block's rows, each in whole
-// batches and, in mode 1, whole scale groups (or units of 64 packed rows
-// where one group spans K). A warp's lanes cover slab / 16 lanes of a row,
+// batches and, in modes 1 and 2, whole scale groups (or units of 64 packed
+// rows where one group spans K). A warp's lanes cover slab / 16 lanes of a row,
 // 16 bytes each, and 32 / (slab / 16) rows at a time; a lane keeps a batch
 // of kM1Loads rows in flight and starts the next batch before it consumes
 // the current one (two batches in flight took more registers, so fewer
@@ -1117,8 +1216,10 @@ __device__ __forceinline__ void m1_consume(const float* xs, const uint4 (&buf)[k
 // 136 + q by one byte permute, and 136 times the group's sum of x comes off
 // its partial (int4 is instruction-bound, and this is the cheapest exact
 // widening). 16 fp32 accumulators a lane (mode 1: a group's partial, times
-// the group's scale at its end). The sums: across a warp's rows by
-// shuffles; then each warp stores its sums of a column into the shared
+// the group's scale at its end). Mode 2 (slab 128) lays its lanes out for
+// m16n8k16 fragments instead and sums on the tensor cores
+// (m1_consume_mma), which also adds up the warp's rows. The sums: across a
+// warp's rows by shuffles (modes 0, 1); then each warp stores its sums of a column into the shared
 // memory of the rank that finishes the column (slab / cluster columns a
 // rank), through distributed shared memory, and after one cluster barrier
 // each rank adds its columns' sums, rank by rank and warp by warp, in order.
@@ -1134,12 +1235,17 @@ __global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
   const int batch = kM1Loads * step;
   const int rows = MODE == kInt8 ? a.K : a.K / 2;
   const int slab0 = (blockIdx.x / n_ranks) * a.slab;
-  const int col = slab0 + (lane % lanes_per_row) * 16;
+  // a lane's 16 columns and its row of each step: neighbouring lanes on
+  // neighbouring columns (modes 0, 1), or, for mode 2's m16n8k16 fragments,
+  // on neighbouring rows (chunk lane / 4, row lane % 4; slab 128)
+  constexpr bool kMma = MODE == kInt4ScaleOnWeights;
+  const int chunk = kMma ? lane / 4 : lane % lanes_per_row;
+  const int col = slab0 + chunk * 16;
   const bool live = col < a.N;
   const int b0 = rank * a.rows_per_block;
   const int w0 = b0 + warp * a.rows_per_warp;
   const int w1 = min(w0 + a.rows_per_warp, rows);  // <= w0: a warp without rows
-  const int j = lane / lanes_per_row;
+  const int j = kMma ? lane % 4 : lane / lanes_per_row;
 
   constexpr int kXPerRow = MODE == kInt8 ? 1 : 2;
   const int xn = kXPerRow * a.rows_per_block;
@@ -1169,43 +1275,56 @@ __global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
 #pragma unroll
   for (int q = 0; q < kM1Stage; ++q) {
     const int i = tid + q * blockDim.x;
-    if (i < x_runs) m1_x_store(xs, i, xv[q]);
-    if (i < n_scales) ss4[i] = sv[q];
+    if (i < x_runs) m1_x_store<MODE>(xs, i, xv[q]);
+    if (i < n_scales) ss4[i] = m1_scale_staged<MODE>(sv[q]);
   }
   for (int i = tid + kM1Stage * blockDim.x; i < x_runs; i += blockDim.x)
-    m1_x_store(xs, i, m1_x_load(a, xk0, x_runs, i));
+    m1_x_store<MODE>(xs, i, m1_x_load(a, xk0, x_runs, i));
   for (int i = tid + kM1Stage * blockDim.x; i < n_scales; i += blockDim.x)
-    ss4[i] = m1_scale_load(a, scale_rows, g0, slab0, n_scales, i);
+    ss4[i] = m1_scale_staged<MODE>(m1_scale_load(a, scale_rows, g0, slab0, n_scales, i));
   __syncthreads();
 
   M1Sums<MODE> mine;
-  // mode 1: batches a scale group takes (never, where one group spans K),
+  // int4: batches a scale group takes (never, where one group spans K),
   // and the warp's first group's row of the staged scales
   const int group_batches = a.group == a.K ? rows : a.group / 2 / batch;
-  if constexpr (MODE == kInt4) {
+  if constexpr (MODE != kInt8) {
     mine.group_scale = ss + (2 * w0 / a.group - g0) * a.slab + col - slab0;
     mine.scale_stride = a.slab;
   }
   for (int rb = w0; rb < w1; rb += batch) {
     uint4 nxt[kM1Loads];  // the next batch goes out before this one is consumed
     m1_load(a, live, col, rb + batch + j, step, w1, nxt);
-    m1_consume<MODE>(xs, cur, rb + j - b0, step, rb + batch >= w1, group_batches, mine);
+    if constexpr (kMma)
+      m1_consume_mma(xs, cur, rb + j - b0, step, group_batches, mine);
+    else
+      m1_consume<MODE>(xs, cur, rb + j - b0, step, rb + batch >= w1, group_batches, mine);
 #pragma unroll
     for (int u = 0; u < kM1Loads; ++u) cur[u] = nxt[u];
   }
   float (&acc)[16] = mine.acc;
 
-  // the warp's rows (lanes step apart share columns)
-  for (int off = lanes_per_row; off < 32; off *= 2)
+  if constexpr (kMma) {
+    // row 0 of the products (lanes 0, 4, ..., 28): the sums of the chunk's
+    // column pairs, over the warp's rows
 #pragma unroll
-    for (int c = 0; c < 16; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+    for (int p = 0; p < 8; ++p) {
+      acc[2 * p] = mine.mma[p][0];
+      acc[2 * p + 1] = mine.mma[p][2];
+    }
+  } else {
+    // the warp's rows (lanes step apart share columns)
+    for (int off = lanes_per_row; off < 32; off *= 2)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+  }
   // each column's sum to the rank that finishes it, through distributed
   // shared memory; no rank reads another's shared memory, so the one
   // cluster barrier (release, then acquire) is all the ordering there is
-  if (lane < lanes_per_row) {
+  if (kMma ? lane % 4 == 0 : lane < lanes_per_row) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int c = lane * 16 + 4 * q, owner = c / share;
+      const int c = chunk * 16 + 4 * q, owner = c / share;
       float* dst = cluster.map_shared_rank(sums, owner) + (rank * warps + warp) * share + c % share;
       *reinterpret_cast<float4*>(dst) =
           make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
@@ -1229,7 +1348,7 @@ __global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
 // operands' alignment, N % 16 and K % 8 are checked by the caller.
 bool m1_takes(int mode, const M1Args& a, int cluster, int warps) {
   if ((a.slab != 64 && a.slab != 128) || (cluster != 2 && cluster != 4 && cluster != 8) ||
-      warps < 1 || warps > kM1MaxWarps)
+      warps < 1 || warps > kM1MaxWarps || (mode == kInt4ScaleOnWeights && a.slab != 128))
     return false;
   const int rows = mode == kInt8 ? a.K : a.K / 2;
   const int batch = kM1Loads * 32 / (a.slab / 16);
@@ -1317,7 +1436,7 @@ int cambrian_quant_matmul(int mode, int dtype, const void* x, int64_t ldx, const
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 M = 1 GEMV of modes 0 and 1 (gemv_m1_kernel) under the launch
+// The bf16 M = 1 GEMV of modes 0-2 (gemv_m1_kernel) under the launch
 // shape of a GemvPlan (ops/quant.py): x bf16 [K], out bf16 [N]. Returns
 // cudaErrorInvalidValue, launching nothing, for operands or a shape the
 // kernel does not take.
@@ -1325,10 +1444,10 @@ int cambrian_quant_gemv_m1(int mode, const void* x, const void* w, const float* 
                            int n, int k, int group, int slab, int cluster, int warps,
                            int rows_per_block, int rows_per_warp, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if ((mode != kInt8 && mode != kInt4) || n < 16 || n % 16 != 0 || k < 8 || k % 8 != 0 ||
-      misaligned(x) || misaligned(w) || misaligned(scale))
+  if (mode < kInt8 || mode > kInt4ScaleOnWeights || n < 16 || n % 16 != 0 || k < 8 ||
+      k % 8 != 0 || misaligned(x) || misaligned(w) || misaligned(scale))
     return (int)cudaErrorInvalidValue;
-  if (mode == kInt4 && (group < 1 || k % group != 0 ||
+  if (mode != kInt8 && (group < 1 || k % group != 0 ||
                         (group % 128 != 0 && !(group == k && k % 128 == 0))))
     return (int)cudaErrorInvalidValue;
   const M1Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w), scale,
@@ -1336,8 +1455,9 @@ int cambrian_quant_gemv_m1(int mode, const void* x, const void* w, const float* 
                  rows_per_block, rows_per_warp};
   if (!m1_takes(mode, a, cluster, warps)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mode == kInt8 ? launch_gemv_m1<kInt8>(a, cluster, warps, st)
-                       : launch_gemv_m1<kInt4>(a, cluster, warps, st);
+  if (mode == kInt8) return launch_gemv_m1<kInt8>(a, cluster, warps, st);
+  if (mode == kInt4) return launch_gemv_m1<kInt4>(a, cluster, warps, st);
+  return launch_gemv_m1<kInt4ScaleOnWeights>(a, cluster, warps, st);
 }
 
 const char* cambrian_cuda_error_string(int err) {

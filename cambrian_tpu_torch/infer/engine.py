@@ -148,8 +148,8 @@ class GenerationEngine:
                 break
             write_index = s + t
             cache_valid[:, write_index] = ~finished
-            next_logits, cache = self.model.decode_step(
-                token[:, None], (next_pos + t)[:, None], cache, cache_valid, write_index)
+            next_logits, cache = self._decode(token, next_pos + t, cache, cache_valid,
+                                              write_index)
             decode_steps += 1
         self._sync()
         t2 = time.perf_counter()

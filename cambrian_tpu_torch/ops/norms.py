@@ -5,9 +5,12 @@ keep their weights in fp32 whatever the compute dtype, as the JAX package's
 fp32 master parameters do.
 
 ``fused_layer_norm`` / ``FusedLayerNorm`` are kernel K6 of the port: for
-CUDA tensors they launch the hand-written kernel of ``csrc/layer_norm.cu``,
+CUDA tensors they launch a hand-written kernel of ``csrc/layer_norm.cu``,
 which replaces the TPU kernel ``_ln_kernel`` (reached through
-``_ln_pallas``); CPU tensors take its plain version,
+``_ln_pallas``): the register-resident 16-byte row pass
+``layer_norm_vec_kernel`` or, for operands it cannot take, the scalar
+``layer_norm_kernel``, as ``_ln_plan`` decides before the launch; CPU
+tensors take its plain version,
 ``fused_layer_norm_reference``. The gradient is ``FusedLayerNormFunction``,
 the JAX ``custom_vjp``'s fp32 math (``_fused_ln_bwd``) in plain PyTorch on
 either device, as the JAX package has no backward kernel either. Nothing is
@@ -16,7 +19,7 @@ compiled or loaded at import time.
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -100,16 +103,119 @@ def fused_layer_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor, g: tor
     return dx, (g32 * xhat).sum(0).to(weight.dtype), g32.sum(0).to(weight.dtype)
 
 
+# -- K6's plan --------------------------------------------------------------------
+
+# the vector kernel's instantiated shapes (csrc/layer_norm.cu vec_kernel_of):
+# lanes a row, and 16-byte chunks a lane
+LN_LANES = (32, 16, 8, 4)
+LN_CHUNKS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
+# rows of at least this many chunks take a whole warp: a sub-warp's longer
+# share a lane is latency the 576-1,024-row sites pay in full
+LN_WARP_CHUNKS = 64
+# above this many row groups (a warp's rows at a time), blocks of
+# LN_WARPS_LARGE warps stride over the rows; at or under it, each warp takes
+# one group, in blocks of one warp, or two where that still gives every SM
+# at least two blocks
+LN_SMALL_GROUPS = 2048
+LN_WARPS_LARGE = 4
+_LN_SCALAR_WARPS = 8     # layer_norm_kernel: a warp a row, 8 warps a block
+
+
+class LnPlan(NamedTuple):
+    """A launch of K6. ``function`` is ``layer_norm_vec_kernel`` (``lanes``
+    lanes a row, each holding ``chunks`` 16-byte chunks of it; blocks of
+    ``warps`` warps, ``blocks`` of them striding over the row groups) or
+    ``layer_norm_kernel`` (a warp a row, 8 warps a block)."""
+    function: str
+    lanes: int
+    chunks: int
+    warps: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ln_chunks_a_lane(chunks: int, lanes: int) -> Optional[int]:
+    """The fewest instantiated chunks a lane that cover a row of ``chunks``."""
+    return next((c for c in LN_CHUNKS if c * lanes >= chunks), None)
+
+
+def _ln_lanes(chunks: int) -> int:
+    """Lanes a row: a whole warp for a row of LN_WARP_CHUNKS chunks or more;
+    else the most lanes that split the row's chunks exactly into an
+    instantiated count; else a whole warp (at least 32 chunks) or the fewest
+    of 4, 8, 16 that give each lane at most one chunk."""
+    if chunks >= LN_WARP_CHUNKS:
+        return 32
+    exact = [lanes for lanes in LN_LANES if chunks % lanes == 0 and chunks // lanes in LN_CHUNKS]
+    if exact:
+        return exact[0]
+    return 32 if chunks >= 32 else max(4, 1 << (chunks - 1).bit_length())
+
+
+def _ln_plan(rows: int, cols: int, dtype: torch.dtype, aligned: bool, sms: int,
+             occupancy: Callable[[int, int, int], int], lanes: Optional[int] = None,
+             warps: Optional[int] = None) -> LnPlan:
+    """How K6 runs ``rows`` rows of ``cols``: the vector kernel for a width
+    of whole 16-byte chunks (8 bf16 or 4 fp32) at 16-byte-aligned operands
+    (``aligned``), up to 32 lanes of 16 chunks; else the scalar kernel.
+    ``occupancy(lanes, chunks, warps)`` is the blocks of that shape an SM
+    holds at once: the grid never exceeds what the card's ``sms`` hold, so
+    no block waits for another to finish. ``lanes`` and ``warps`` force
+    those choices (the sweep's settings)."""
+    per = 8 if dtype == torch.bfloat16 else 4
+    scalar = LnPlan("layer_norm_kernel", 32, 0, _LN_SCALAR_WARPS, _cdiv(rows, _LN_SCALAR_WARPS))
+    if not aligned or cols % per or dtype not in (torch.bfloat16, torch.float32):
+        return scalar
+    chunks = cols // per
+    lanes = lanes or _ln_lanes(chunks)
+    vpl = _ln_chunks_a_lane(chunks, lanes)
+    if vpl is None:
+        return scalar
+    groups = _cdiv(rows, 32 // lanes)
+    if warps is None:
+        warps = (LN_WARPS_LARGE if groups > LN_SMALL_GROUPS
+                 else 2 if groups >= 4 * sms else 1)
+    blocks = min(_cdiv(groups, warps), occupancy(lanes, vpl, warps) * sms)
+    return LnPlan("layer_norm_vec_kernel", lanes, vpl, warps, blocks)
+
+
+# -- K6 -------------------------------------------------------------------------
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load("layer_norm", {
-        "cambrian_layer_norm": [i32, ptr, ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]})
+        "cambrian_layer_norm": [i32, ptr, ptr, ptr, ptr, i32, i32, f32, ptr],
+        "cambrian_layer_norm_vec": [i32, ptr, ptr, ptr, ptr, i32, i32, f32] + [i32] * 4 + [ptr],
+        "cambrian_layer_norm_vec_occupancy": [i32] * 4 + [ctypes.POINTER(i32)]})
 
 
-def _ln_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """Launch K6 on CUDA inputs (counted in ``fused_layer_norm.launches``)."""
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: torch.device, dtype_code: int, lanes: int, chunks: int,
+               warps: int) -> int:
+    lib = _library()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.cambrian_layer_norm_vec_occupancy(dtype_code, lanes, chunks, warps,
+                                                    ctypes.byref(blocks))
+    cuda_build.check_launch(lib, err, "layer_norm occupancy")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ln_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+               lanes: Optional[int] = None, warps: Optional[int] = None) -> torch.Tensor:
+    """Launch the K6 kernel function ``_ln_plan`` names on CUDA inputs
+    (counted in ``fused_layer_norm.launches`` and, by function, in
+    ``fused_layer_norm.function_launches``). ``lanes`` and ``warps`` force
+    the plan's."""
     c = x.shape[-1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernel takes bfloat16 or float32 x, got {x.dtype}")
@@ -125,11 +231,20 @@ def _ln_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return out.reshape(x.shape)
     w32 = weight.detach().float().contiguous()
     b32 = bias.detach().float().contiguous()
+    code = cuda_build.dtype_code(x)
+    ptrs = (x2.data_ptr(), w32.data_ptr(), b32.data_ptr(), out.data_ptr())
+    plan = _ln_plan(x2.shape[0], c, x.dtype, all(p % 16 == 0 for p in ptrs), _sms(x.device),
+                    functools.partial(_occupancy, x.device, code), lanes, warps)
     lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     fused_layer_norm.launches += 1
-    err = lib.cambrian_layer_norm(cuda_build.dtype_code(x), x2.data_ptr(), w32.data_ptr(),
-                                  b32.data_ptr(), out.data_ptr(), x2.shape[0], c, float(eps),
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+    counts = fused_layer_norm.function_launches
+    counts[plan.function] = counts.get(plan.function, 0) + 1
+    if plan.function == "layer_norm_vec_kernel":
+        err = lib.cambrian_layer_norm_vec(code, *ptrs, x2.shape[0], c, float(eps), plan.lanes,
+                                          plan.chunks, plan.warps, plan.blocks, stream)
+    else:
+        err = lib.cambrian_layer_norm(code, *ptrs, x2.shape[0], c, float(eps), stream)
     cuda_build.check_launch(lib, err, "layer_norm")
     return out.reshape(x.shape)
 
@@ -162,6 +277,7 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.function_launches = {}   # by kernel function: the plan's route
 
 
 class FusedLayerNorm(nn.Module):

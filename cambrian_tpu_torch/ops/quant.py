@@ -13,9 +13,9 @@ the hand-written CUDA kernels of ``csrc/quant_matmul.cu`` for CUDA tensors
 versions for CPU tensors; on the card there is no fallback. ``int4_matmul``
 hands over to ``int4_matmul_scale_on_weights`` under ``CAMBRIAN_INT4_V2=1``
 or ``CAMBRIAN_INT4_V1=1``, the JAX package's switches for those kernels.
-A bf16 decode call (M = 1) of K3 or K4 runs ``gemv_m1_kernel`` under the
-launch shape ``_gemv_plan`` gives it, where its operands allow; every other
-call at M <= 8 runs the first port's ``gemv_kernel``. Nothing is compiled or
+A bf16 decode call (M = 1) of K3, K4 or K4b/K4c runs ``gemv_m1_kernel``
+under the launch shape ``_gemv_plan`` gives it, where its operands allow;
+every other call at M <= 8 runs the first port's ``gemv_kernel``. Nothing is compiled or
 loaded at import time.
 """
 
@@ -36,6 +36,7 @@ DECODER_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                          "gate_proj", "up_proj", "down_proj")
 
 _MODE_INT8, _MODE_INT4, _MODE_INT4_SCALE_ON_WEIGHTS = 0, 1, 2
+_MODES = (_MODE_INT8, _MODE_INT4, _MODE_INT4_SCALE_ON_WEIGHTS)
 _KERNEL_TILE_K = 32   # the kernel's K tile: int4 groups are a multiple of it, or K
 
 # The bf16 M = 1 decode GEMV (gemv_m1_kernel of csrc/quant_matmul.cu); these
@@ -48,6 +49,8 @@ GEMV_BLOCKS_PER_SM = 2          # blocks an SM the plan aims for
 GEMV_SMEM_BYTES = 48 << 10      # x and scales of a block's rows (fp32) and its sums
 GEMV_MIN_BLOCK_BYTES = 32 << 10  # a block streams at least this much where it can
 GEMV_SLABS = (128, 64)          # stored bytes of a row a cluster owns
+# mode 2's slab: its m16n8k16 products take 8 lanes' 16 columns a row
+GEMV_MMA_SLAB = 128
 GEMV_CLUSTERS = (2, 4, 8)
 
 
@@ -192,12 +195,12 @@ def _gemv_unit(mode: int, k: int, group: int, slab: int) -> int:
 
 def _gemv_takes(mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int,
                 ptrs: Sequence[int]) -> bool:
-    """The operands gemv_m1_kernel takes: bf16 x at M = 1, int8 or int4 with
-    partial-sum scaling (modes 0, 1), N a multiple of a lane's 16 columns,
-    K of whole 16-byte runs of x, 16-byte-aligned x, weights and scales, and
-    for int4 a scale group of a multiple of 128 K rows, or one group over a
-    K of a multiple of 128."""
-    if dtype != torch.bfloat16 or m != 1 or mode not in (_MODE_INT8, _MODE_INT4):
+    """The operands gemv_m1_kernel takes: bf16 x at M = 1, int8 or int4
+    (either scaling), N a multiple of a lane's 16 columns, K of whole
+    16-byte runs of x, 16-byte-aligned x, weights and scales, and for int4 a
+    scale group of a multiple of 128 K rows, or one group over a K of a
+    multiple of 128."""
+    if dtype != torch.bfloat16 or m != 1 or mode not in _MODES:
         return False
     if n % 16 or k % 8 or any(p % 16 for p in ptrs):
         return False
@@ -210,6 +213,8 @@ def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan) -> bool:
     scales and the sums within the kernel's shared memory."""
     slab, cluster, warps, rows_per_block, rows_per_warp = plan
     if slab not in GEMV_SLABS or cluster not in GEMV_CLUSTERS:
+        return False
+    if mode == _MODE_INT4_SCALE_ON_WEIGHTS and slab != GEMV_MMA_SLAB:
         return False
     rows = k if mode == _MODE_INT8 else k // 2
     unit = _gemv_unit(mode, k, group, slab)
@@ -249,7 +254,7 @@ def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[
     """The launch shape for an [N, K] weight on a card of ``sms`` SMs, so
     that every SM gets GEMV_BLOCKS_PER_SM blocks of GEMV_WARPS warps where N
     and K allow. Slabs of 128 bytes, or 64 where 128-byte slabs in clusters
-    of 8 would give fewer blocks. The smallest cluster that gives that many
+    of 8 would give fewer blocks (mode 2: always 128). The smallest cluster that gives that many
     blocks (8 at most), halved while a block would stream less than
     GEMV_MIN_BLOCK_BYTES and every SM would still get a block, and again
     while the split would leave a block without rows; larger where a
@@ -257,6 +262,8 @@ def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[
     ``cluster`` and ``warps`` force those choices."""
     rows = k if mode == _MODE_INT8 else k // 2
     blocks = GEMV_BLOCKS_PER_SM * sms
+    if slab is None and mode == _MODE_INT4_SCALE_ON_WEIGHTS:
+        slab = GEMV_MMA_SLAB
     if slab is None:
         slab = 128 if _cdiv(n, 128) * GEMV_CLUSTERS[-1] >= blocks else 64
     if cluster is not None:
@@ -326,8 +333,10 @@ def _sms(device: torch.device) -> int:
 def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             k: int, n: int, group: int, route=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch on the
-    current stream (counted in ``wrapper.launches``); raise on anything the
-    kernel refuses. ``route`` is ``_gemv_route``'s."""
+    current stream (counted in ``wrapper.launches`` and, by route, in
+    ``wrapper.function_launches``: ``gemv_m1_kernel``, ``gemv_kernel`` (M <=
+    8) or ``gemm`` (M > 8, the GEMM kernels)); raise on anything the kernel
+    refuses. ``route`` is ``_gemv_route``'s."""
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -351,6 +360,8 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     wrapper.launches += 1
+    function = "gemv_m1_kernel" if plan is not None else "gemv_kernel" if m <= 8 else "gemm"
+    wrapper.function_launches[function] = wrapper.function_launches.get(function, 0) + 1
     if plan is not None:
         err = lib.cambrian_quant_gemv_m1(mode, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                          out.data_ptr(), n, k, group, *plan, stream)
@@ -418,6 +429,9 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor, *,
 int8_matmul.launches = 0
 int4_matmul.launches = 0
 int4_matmul_scale_on_weights.launches = 0
+int8_matmul.function_launches = {}
+int4_matmul.function_launches = {}
+int4_matmul_scale_on_weights.function_launches = {}
 
 
 # -- modules ------------------------------------------------------------------

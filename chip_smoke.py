@@ -14,10 +14,14 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) and
    the eight bf16 GEMM functions of K8 (``mlp_up_kernel`` and
    ``mlp_down_kernel``, tiles of 64, 128, 192 and 256 columns) must be
-   there, with HGMMA and no HMMA; the two functions of the bf16 M = 1 decode
-   GEMV of K3 and K4 (``gemv_m1_kernel<0>``, ``<1>``) must be there, with
-   their registers and count of I2F instructions printed, and none may
-   spill;
+   there, with HGMMA and no HMMA; the three functions of the bf16 M = 1
+   decode GEMV of K3, K4 and K4b/K4c (``gemv_m1_kernel<0>``, ``<1>``,
+   ``<2>``) must be there, with their registers, I2F and HMMA counts and
+   their main loop's SASS instructions per packed byte printed; none may
+   spill, and ``<2>`` must run its products on the tensor cores (HMMA);
+   every instance of K6's ``layer_norm_vec_kernel`` (2 dtypes x 4 lane
+   counts x 10 chunk counts) and ``layer_norm_kernel`` must be there without
+   spills;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -36,14 +40,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    ``torch.matmul`` on the dequantized weight, and the bound; each bf16
    prefill case also runs once under ``torch.profiler``, which must show
    ``gemm_wgmma_kernel``, and its TFLOP/s (2 M N K / time) are printed;
-   each bf16 M = 1 case of K3 and K4 runs in the same profiled run, which
-   must show ``gemv_m1_kernel<mode>`` and no ``gemv_kernel``, and is timed
-   as the median of 30 calls beside the first port's ``gemv_kernel``
-   (``_route="gemv_kernel"``), with its TB/s, its share of the bound and a
-   decode step's sum of either kernel;
+   each bf16 M = 1 case of K3, K4 and K4b runs in the same profiled run,
+   which must show ``gemv_m1_kernel<mode>`` and no ``gemv_kernel``, gives
+   the same bits on a second call, and is timed as the median of 30 calls
+   beside the first port's ``gemv_kernel`` (``_route="gemv_kernel"``) and
+   ``torch.matmul``, with its TB/s, its share of the bound and a decode
+   step's sum of each;
 4. a tiny Cambrian, unquantized, int8 and int4: the kernel path on the card
    in fp32 (TF32 off) against the plain path on the CPU; greedy tokens must
    be identical and the kernels launched exactly as often as the path needs;
+   unquantized, once more with a sliding window shorter than the prompt:
+   ``generate`` and ``generate_stream`` on the card and ``generate`` on the
+   CPU must give the same tokens;
 5. Cambrian-8B at full width (four towers, SVA, LLaMA-3-8B), bf16 weights
    and an fp32 LM head made on the card from a seed: three requests of 32
    greedy tokens through ``CambrianForInference.generate``; each must launch
@@ -56,7 +64,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    through ``generate_stream``, whose 4 chunks of 8 decode steps launch it
    7 x 32 x (1 + 32) = 7,392 times and whose tokens must equal
    ``generate``'s on the same prompt; with int4, one more request under
-   ``CAMBRIAN_INT4_V2=1`` runs the scale-on-weights kernel 7,168 times;
+   ``CAMBRIAN_INT4_V2=1`` runs the scale-on-weights kernel 7,168 times, its
+   prefill on the GEMM and its 31 decode steps on ``gemv_m1_kernel<2>``;
    each quantized request's prefill ms is printed beside the bf16 model's
    on the same prompt;
 7. K2, the flash-attention backward, against its plain PyTorch version on
@@ -92,7 +101,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    once per shape; each kernel against its plain version on fp32-upcast
    inputs and against the main path's output at the site; CUDA-event
    times (L2 flushed) of the kernel, its plain version and the library
-   call the main path makes there; the bound; training-batch (B = 8) and
+   call the main path makes there (K6: medians of 30, in turns with its
+   plain version, ``F.layer_norm`` and the port's ``layer_norm``, each
+   record naming the kernel function, which must be ``layer_norm_vec_kernel``
+   at every aligned bf16 site); the bound; training-batch (B = 8) and
    small fp32 cases, and K8 on operands TMA cannot address (x one element
    off its alignment); K5-K7's backward against the plain backward. One
    ``torch.profiler`` run of every K8 case must show the up and down wgmma
@@ -126,6 +138,9 @@ LAYERS = 32
 QUANT_PER_STEP = 7 * LAYERS                 # decoder projections per forward
 QUANT_LAUNCHES = QUANT_PER_STEP * NEW_TOKENS  # prefill + 31 decode steps = 7,168
 STREAM_CHUNK = 8
+# the tiny slice's sliding-window case: a window shorter than its prompt
+WINDOW = 24
+WINDOW_TOKENS = 16
 # stage-1 training (phase 9): the launch script's batch and length
 TRAIN_STEPS = 3
 TRAIN_BATCH = 8
@@ -147,9 +162,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 QUANT_SHAPES = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
                 ("o_proj", 4096, 4096), ("gate_proj", 4096, 14336),
                 ("up_proj", 4096, 14336), ("down_proj", 14336, 4096)]
-# K3 and K4, whose bf16 M = 1 calls run gemv_m1_kernel, timed as medians of
-# GEMV_ITERS calls beside the first port's gemv_kernel
-GEMV_M1_KERNELS = ("int8_matmul", "int4_matmul")
+# K3, K4 and K4b/K4c, whose bf16 M = 1 calls run gemv_m1_kernel, timed as
+# medians of GEMV_ITERS calls beside the first port's gemv_kernel
+GEMV_M1_KERNELS = ("int8_matmul", "int4_matmul", "int4_matmul_scale_on_weights")
 GEMV_ITERS = 30
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
@@ -200,6 +215,30 @@ def cuda_ms(torch, fn, iters=10, flush=None, spin=None, median=False):
     return float(np.median(times)) if median else sum(times) / iters
 
 
+def cuda_ms_turns(torch, fns, iters, flush, spin=None):
+    """{name: median device ms} of each of ``fns`` ({name: fn}), timed in
+    turns: every round calls each fn once, in order, alone (after
+    ``flush()`` and behind a spin kernel, as ``cuda_ms`` does), so that
+    drifts of the card's clock fall on all of them alike."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    events = {name: [] for name in fns}
+    for _ in range(iters):
+        for name, fn in fns.items():
+            flush()
+            torch.cuda._sleep(spin or SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events[name].append((start, end))
+    torch.cuda.synchronize()
+    return {name: float(np.median([s.elapsed_time(e) for s, e in ev]))
+            for name, ev in events.items()}
+
+
 def bound(n_bytes, n_ops, dtype_name):
     """Least time for the work on the card (ms) and which side bounds it:
     bytes moved once over the memory rate, operations over the peak rate
@@ -243,7 +282,8 @@ def kernel_name(mangled):
     """A K1/K2, quant-matmul or K8 GEMM kernel function's mangled name as
     ``name<template arguments>`` (integers, bf16 or float); other names as
     they are."""
-    m = re.search(rf"({'|'.join(K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS)})"
+    names = K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS + LN_FUNCTIONS
+    m = re.search(rf"({'|'.join(names)})"
                   r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled)
     if m is None:
         return mangled
@@ -289,6 +329,49 @@ def resource_usage(path):
         m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
         if m and name is not None:
             out[name] = tuple(int(v) for v in m.groups())
+    return out
+
+
+def loop_instructions(path):
+    """{kernel function: (instructions, global loads)} of each function's
+    main loop in ``cuobjdump -sass``: of the spans between a backward branch
+    and its target, the one with the most global loads (LDG)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = kernel_name(line.split(":", 1)[1].strip())
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        m = re.match(r"(\.L_x_\d+):", line)
+        if m:
+            funcs[name][1][m.group(1)] = len(funcs[name][0])
+            continue
+        m = re.match(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            funcs[name][0].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for fn, (ins, labels) in funcs.items():
+        best = None
+        for i, (addr, text) in enumerate(ins):
+            b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", text)
+            if not b:
+                continue
+            tgt = b.group(1)
+            start = (labels.get(tgt) if tgt.startswith(".L") else
+                     next((j for j, (a, _) in enumerate(ins) if a == int(tgt, 16)), None))
+            if start is None or start > i:
+                continue
+            body = [t for _, t in ins[start:i + 1] if not t.startswith("NOP")]
+            loads = sum("LDG" in t for t in body)
+            if best is None or (loads, len(body)) > (best[1], best[0]):
+                best = (len(body), loads)
+        out[fn] = best
     return out
 
 
@@ -479,6 +562,9 @@ def quant_kernel_phase(torch, quant, prompt_len):
                     del w_deq
                     old_ms = None
                     if m1:
+                        # a fixed order of sums: two calls agree bit for bit
+                        check(torch.equal(fn(x, wq, sc), out),
+                              f"{name} {site} M=1: two calls differ")
                         old = fn(x, wq, sc, _route="gemv_kernel")
                         torch.cuda.synchronize()
                         old_err = float((old.float() - ref).abs().max())
@@ -614,9 +700,30 @@ def tiny_slice_phase(torch, fa, quant, rng, quantize=None):
         expected[f"{quantize}_matmul"] = 7 * cfg.num_hidden_layers * (1 + steps)
     check(counts == expected, f"tiny slice ({label}) launched {counts}, not {expected}")
     check(logit_err < 1e-3, f"tiny slice ({label}) logits differ by {logit_err}")
+    window = None
+    if quantize is None:
+        # a sliding window shorter than the prompt: generate and
+        # generate_stream on the card retire the same cache slots, and give
+        # the plain path's tokens on the CPU
+        wcfg = cfg.replace(sliding_window=WINDOW)
+        wcpu = CambrianForInference.from_state_dict(wcfg, sd, torch.float32,
+                                                    cache_dtype=torch.float32)
+        wgpu = CambrianForInference.from_state_dict(
+            wcfg, {k: v.cuda() for k, v in sd.items()}, torch.float32, cache_dtype=torch.float32)
+        wkw = dict(kw, max_new_tokens=WINDOW_TOKENS)
+        w_cpu = wcpu.generate(ids, **wkw)
+        w_gen = wgpu.generate(ids, **wkw)
+        *_, w_stream = wgpu.generate_stream(ids, stream_chunk=4, **wkw)
+        print(f"tiny slice, sliding window {WINDOW} ({len(ids)} prompt ids): generate "
+              f"{w_gen.tolist()} generate_stream {w_stream.tolist()} cpu {w_cpu.tolist()}",
+              flush=True)
+        check(w_gen.shape == (1, WINDOW_TOKENS) and (w_gen == w_stream).all(),
+              "tiny slice with a sliding window: generate and generate_stream differ")
+        check((w_gen == w_cpu).all(), "tiny slice with a sliding window: card and CPU differ")
+        window = dict(window=WINDOW, tokens=w_gen.tolist())
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    return dict(tokens=got.tolist(), launches=counts, logit_err=logit_err)
+    return dict(tokens=got.tolist(), launches=counts, logit_err=logit_err, window=window)
 
 
 def serve_request(torch, model, counters, cfg, r, pr, stream=False):
@@ -709,6 +816,8 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
               f"{label} stream tokens differ from generate's on the same prompt")
         requests.append(rec)
         if quantize == "int4":
+            routes = quant.int4_matmul_scale_on_weights.function_launches
+            routes.clear()
             os.environ["CAMBRIAN_INT4_V2"] = "1"
             try:
                 rec = serve_request(torch, model, counters, cfg, 1, prompts[1])
@@ -717,6 +826,10 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
             got = (rec["launches"]["int4_matmul_scale_on_weights"], rec["launches"]["int4_matmul"])
             check(got == (QUANT_LAUNCHES, 0),
                   f"int4 scale-on-weights request: launches {got}, not ({QUANT_LAUNCHES}, 0)")
+            # the prefill on the GEMM, every decode step on gemv_m1_kernel<2>
+            want = {"gemm": QUANT_PER_STEP, "gemv_m1_kernel": QUANT_PER_STEP * (NEW_TOKENS - 1)}
+            check(routes == want, f"int4 scale-on-weights request: routes {routes}, not {want}")
+            rec["functions"] = dict(routes)
             rec["scale_on_weights"] = True
             requests.append(rec)
     launches = read_counts(counters)
@@ -1042,8 +1155,13 @@ K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkd
 # the bf16 M = 1 GEMV over a thread-block cluster
 QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel",
                    "gemv_m1_kernel")
-# the bf16 M = 1 decode GEMV of modes 0 (K3) and 1 (K4)
-GEMV_M1_FUNCTIONS = ["gemv_m1_kernel<0>", "gemv_m1_kernel<1>"]
+# the bf16 M = 1 decode GEMV of modes 0 (K3), 1 (K4) and 2 (K4b/K4c; on the
+# tensor cores, mma.sync)
+GEMV_M1_FUNCTIONS = ["gemv_m1_kernel<0>", "gemv_m1_kernel<1>", "gemv_m1_kernel<2>"]
+# K6's functions: the 16-byte row pass <dtype, lanes a row, chunks a lane>
+# and the scalar kernel <dtype>
+LN_FUNCTIONS = ("layer_norm_vec_kernel", "layer_norm_kernel")
+LN_VEC, LN_SCALAR = LN_FUNCTIONS
 # the wgmma prefill GEMM's functions: <mode, tile columns>
 WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
 # K8's bf16 GEMMs (bias + GELU, and bias): <tile columns>; its kernels for
@@ -1230,6 +1348,7 @@ VISION_KERNELS = {
         "cambrian_tpu_torch/csrc/fused_mlp.cu"),
 }
 SITE_REL_PLAIN = 2 ** -7   # bf16 kernel vs its plain version on fp32-upcast inputs
+LN_ITERS = 30              # K6's calls a site, timed in turns with the PyTorch calls
 # vs the main path's own op at the site: K5's einsum path rounds the
 # probabilities to bf16 before PV and K8's main path rounds the first
 # Linear's output (and adds its bias) in bf16 before GELU, so each differs
@@ -1595,18 +1714,24 @@ def vision_kernel_phase(torch, fa, quant, sites):
     on fp32-upcast inputs and against the main path's output at the site,
     CUDA-event times (L2 flushed before each call) of the kernel, the plain
     version and the library call, the bound, and backward checks."""
+    from cambrian_tpu_torch.ops import norms
+
     dev = site_device(sites)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
     counters = all_counters(fa, quant)
     zero_counts(counters)                              # this slice's path starts here
+    norms.fused_layer_norm.function_launches.clear()
     outs = {(kind, key): kernel_at_site(torch, kind, s)
             for kind, found in sites.items() for key, s in found.items()}
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    ln_functions = dict(norms.fused_layer_norm.function_launches)
     want = {name: len(sites.get(name, {})) for name in counters}
     check(launches == want, f"K5-K8 drop-in pass launched {launches}, not {want} (one per site "
           f"shape)")
+    check(ln_functions == {LN_VEC: want["fused_layer_norm"]},
+          f"K6 drop-in pass ran {ln_functions}, not {LN_VEC} at every site shape")
     l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
     flush = l2.sum
     records = []
@@ -1633,25 +1758,54 @@ def vision_kernel_phase(torch, fa, quant, sites):
             check(main_err <= main_tol, f"{label}: max abs error {main_err} against the main "
                   f"path's output > {main_tol}")
         del out, ref
+        function = None
+        if kind == "fused_layer_norm":
+            # K6's kernel function, by its counter; every aligned bf16 site of
+            # the path takes the 16-byte row pass
+            counts = norms.fused_layer_norm.function_launches
+            counts.clear()
+            kernel_at_site(torch, kind, s)
+            torch.cuda.synchronize()
+            check(len(counts) == 1 and sum(counts.values()) == 1, f"{label}: launched {counts}")
+            function = next(iter(counts))
+            x = s["x"]
+            if on_path and x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0:
+                check(function == LN_VEC, f"{label}: an aligned bf16 site ran {function}")
         big = kind == "fused_mlp" or key[0] == "train_b8"
         iters = 5 if big else 10
-        ms = cuda_ms(torch, lambda: kernel_at_site(torch, kind, s), iters, flush,
-                     SITE_SPIN_CYCLES)
-        plain_ms = cuda_ms(torch, lambda: plain_at_site(torch, kind, s), iters, flush,
-                           SITE_SPIN_CYCLES)
         library = {}
-        if "x_nchw" in s or kind != "depthwise_conv7x7":
-            library = {name: cuda_ms(torch, fn, iters, flush, SITE_SPIN_CYCLES)
-                       for name, fn in library_call(torch, kind, s).items()}
+        if kind == "fused_layer_norm":
+            # medians of LN_ITERS, in turns with the plain version and the
+            # PyTorch calls the path could make
+            t = cuda_ms_turns(torch, {"kernel": lambda: kernel_at_site(torch, kind, s),
+                                      "plain": lambda: plain_at_site(torch, kind, s),
+                                      **library_call(torch, kind, s)},
+                              LN_ITERS, flush, SITE_SPIN_CYCLES)
+            ms, plain_ms = t.pop("kernel"), t.pop("plain")
+            library = t
+        else:
+            ms = cuda_ms(torch, lambda: kernel_at_site(torch, kind, s), iters, flush,
+                         SITE_SPIN_CYCLES)
+            plain_ms = cuda_ms(torch, lambda: plain_at_site(torch, kind, s), iters, flush,
+                               SITE_SPIN_CYCLES)
+            if "x_nchw" in s or kind != "depthwise_conv7x7":
+                library = {name: cuda_ms(torch, fn, iters, flush, SITE_SPIN_CYCLES)
+                           for name, fn in library_call(torch, kind, s).items()}
         n_bytes, n_ops, rate = site_work(kind, s)
         bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, n_ops, rate)
         rec = dict(kernel=kind, site=[str(k) for k in key], dtype=dtype_name,
                    per_request=s.get("count", 0) if on_path else 0, max_abs_err=err, tol=tol,
                    main_path_err=main_err, main_path_tol=main_tol, ms=ms, plain_ms=plain_ms,
                    library=library, library_ms=next(iter(library.values()), None),
-                   bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                   bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   function=function)
         records.append(rec)
         rate = ""
+        if kind == "fused_layer_norm":
+            rec["vs_library"] = ms / rec["library_ms"]
+            rate = (f" {function} {rec['vs_library']:.3f}x F.layer_norm (<= 1.02x: "
+                    f"{rec['vs_library'] <= 1.02}), {bound_ms / ms:.1%} of bound, "
+                    f"{2 * x0.numel() * x0.element_size() / 1e6:.1f} MB")
         if kind == "fused_mlp":
             rec["flops"], rec["tflops"] = n_ops, n_ops / (ms * 1e9)
             rate = f" {rec['tflops']:.1f} TFLOP/s"
@@ -1667,7 +1821,13 @@ def vision_kernel_phase(torch, fa, quant, sites):
     torch.backends.cuda.matmul.allow_tf32 = tf32
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(records=records, launches=launches, backward=bwd,
+    ln = [r for r in records if r["kernel"] == "fused_layer_norm" and r["per_request"]]
+    k6 = {key: sum(r[key] * r["per_request"] for r in ln) for key in ("ms", "library_ms")}
+    print(f"fused_layer_norm: a request's {sum(r['per_request'] for r in ln)} sites, medians of "
+          f"{LN_ITERS}: kernel {k6['ms']:.3f} ms, F.layer_norm {k6['library_ms']:.3f} ms "
+          f"(below: {k6['ms'] < k6['library_ms']}); every site within 1.02x: "
+          f"{all(r['vs_library'] <= 1.02 for r in ln)}", flush=True)
+    return dict(records=records, launches=launches, ln_functions=ln_functions, backward=bwd,
                 sites={kind: {str(k): s["count"] for k, s in found.items()}
                        for kind, found in sites.items()})
 
@@ -1724,18 +1884,50 @@ def main(argv=None):
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in WGMMA_FUNCTIONS),
           f"quant prefill functions not on wgmma alone: "
           f"{ {fn: sass[fn] for fn in WGMMA_FUNCTIONS} }")
-    # the bf16 M = 1 decode GEMV of K3 and K4: there, without spills (no
-    # stack, no local memory)
+    # the bf16 M = 1 decode GEMV of K3, K4 and K4b/K4c: there, without
+    # spills (no stack, no local memory); mode 2 on the tensor cores (HMMA);
+    # SASS instructions of the main loop per packed byte of weights a lane
+    # consumes (a batch: GEMV_LOADS loads of 16 bytes)
     missing = [fn for fn in GEMV_M1_FUNCTIONS if fn not in sass]
     check(not missing, f"quant_matmul lacks its M = 1 GEMV functions {missing}")
     usage = resource_usage(built["quant_matmul"]["path"])
+    loops = loop_instructions(built["quant_matmul"]["path"])
     for fn in GEMV_M1_FUNCTIONS:
         check(fn in usage, f"cuobjdump -res-usage shows no {fn}")
         regs, stack, local = usage[fn]
-        sass[fn].update(registers=regs, stack_bytes=stack, local_bytes=local)
+        body, loads = loops.get(fn) or (None, None)
+        per_byte = None if body is None else body / (quant.GEMV_LOADS * 16)
+        sass[fn].update(registers=regs, stack_bytes=stack, local_bytes=local,
+                        loop_instructions=body, loop_loads=loads,
+                        instructions_per_packed_byte=per_byte)
         print(f"{fn}: {regs} registers, {stack} bytes of stack, {local} bytes of local memory, "
-              f"{sass[fn]['i2f']} I2F", flush=True)
+              f"{sass[fn]['i2f']} I2F, {sass[fn]['hmma']} HMMA; main loop {body} instructions "
+              f"with {loads} LDG"
+              + ("" if per_byte is None else f", {per_byte:.3f} a packed byte"), flush=True)
         check(stack == 0 and local == 0, f"{fn} spills: {sass[fn]}")
+    check(sass["gemv_m1_kernel<2>"]["hmma"] > 0 and sass["gemv_m1_kernel<2>"]["i2f"] <= 16,
+          f"gemv_m1_kernel<2> off the tensor cores or widening by I2F: "
+          f"{sass['gemv_m1_kernel<2>']}")
+    # K6: every instance of the 16-byte row pass and the scalar kernel,
+    # without spills
+    ln_usage = resource_usage(built["layer_norm"]["path"])
+    ln_vec = {fn: u for fn, u in ln_usage.items() if fn.startswith(LN_VEC)}
+    check(len(ln_vec) == 2 * 4 * 10, f"layer_norm: {len(ln_vec)} instances of {LN_VEC}, not "
+          f"2 dtypes x 4 lane counts x 10 chunk counts")
+    check(sum(fn.startswith(LN_SCALAR) for fn in ln_usage) == 2, f"layer_norm: {list(ln_usage)}")
+    ln_sass = tensor_core_instructions(built["layer_norm"]["path"])
+    for fn, (regs, stack, local) in sorted(ln_usage.items()):
+        hgmma, hmma, i2f = ln_sass.get(fn, (None, None, None))
+        sass[fn] = dict(library="layer_norm", registers=regs, stack_bytes=stack,
+                        local_bytes=local, hgmma=hgmma, hmma=hmma, i2f=i2f)
+    spilled = {fn: u for fn, u in ln_usage.items() if u[1] or u[2]}
+    check(not spilled, f"K6 functions spill (registers, stack, local): {spilled}")
+    widest = sass.get(LN_VEC + "<bf16,32,12>")
+    print(f"layer_norm: {len(ln_vec)} {LN_VEC} instances, {min(u[0] for u in ln_vec.values())}-"
+          f"{max(u[0] for u in ln_vec.values())} registers, none spills, "
+          f"{max(v[2] for v in ln_sass.values())} I2F at most, "
+          f"{sum(v[0] + v[1] for v in ln_sass.values())} tensor-core instructions; the widest "
+          f"site's {LN_VEC}<bf16,32,12>: {widest}", flush=True)
     missing = [fn for fn in MLP_WGMMA_FUNCTIONS if fn not in sass]
     check(not missing, f"fused_mlp lacks its wgmma GEMM functions {missing}")
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in MLP_WGMMA_FUNCTIONS),

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""The bf16 M = 1 decode GEMV of K3 (int8) and K4 (int4) at the seven decoder
-projection shapes of Cambrian-8B (LLaMA-3-8B), on one CUDA card, under the
-plan ``_gemv_plan`` chooses and under forced slab widths, cluster sizes and
-warps a block.
+"""The bf16 M = 1 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4 with
+the scale on the weights, mode 2) at the seven decoder projection shapes of
+Cambrian-8B (LLaMA-3-8B), on one CUDA card, under the plan ``_gemv_plan``
+chooses and under forced slab widths, cluster sizes and warps a block.
 
     python3 scripts/quant_gemv_sweep.py [--iters 30] [--warps 4,8] [--no-forced]
-                                        [--shapes q_proj,k_proj]
+                                        [--shapes q_proj,k_proj] [--modes 0,1,2]
 
 For each shape and mode (weights made on the card from a seed): the error of
 ``gemv_m1_kernel`` against the plain version on x upcast to fp32, within
@@ -33,6 +33,8 @@ def main(argv=None):
     parser.add_argument("--warps", default="", help="also force these warps a block, e.g. 4,8")
     parser.add_argument("--no-forced", action="store_true", help="the chosen plan only")
     parser.add_argument("--shapes", default="", help="only these projections, e.g. q_proj,k_proj")
+    parser.add_argument("--modes", default="0,1,2", help="modes: 0 int8, 1 int4, 2 int4 with "
+                        "the scale on the weights")
     args = parser.parse_args(argv)
 
     import torch
@@ -73,7 +75,9 @@ def main(argv=None):
                 continue
             w = (torch.randn((k, n), generator=g, device=dev) * 0.02).bfloat16()
             x = torch.randn((1, k), generator=g, device=dev).bfloat16()
-            for mode, name in ((0, "int8"), (1, "int4")):
+            for mode, name in ((0, "int8"), (1, "int4"), (2, "int4_sow")):
+                if str(mode) not in args.modes.split(","):
+                    continue
                 if mode == 0:
                     wq, sc = quant.quantize_int8(w)
                     fn, plain, deq = (quant.int8_matmul, quant.int8_matmul_reference,
@@ -81,8 +85,11 @@ def main(argv=None):
                     group = 1
                 else:
                     wq, sc = quant.quantize_int4(w)
-                    fn, plain, deq = (quant.int4_matmul, quant.int4_matmul_reference,
-                                      quant.dequantize_int4)
+                    fn = quant.int4_matmul if mode == 1 else quant.int4_matmul_scale_on_weights
+                    plain, deq = quant.int4_matmul_reference, quant.dequantize_int4
+                    if mode == 2:
+                        def plain(x, q, s):
+                            return quant.int4_matmul_reference(x, q, s, scale_on_weights=True)
                     group = k // sc.shape[0]
                 ref = plain(x.float(), wq, sc)
                 tol = 2 ** -7 * max(1.0, float(ref.abs().max()))

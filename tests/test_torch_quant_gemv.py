@@ -1,6 +1,8 @@
-"""The bf16 M = 1 decode GEMV of K3 (int8) and K4 (int4): how the wrapper plans
-a call (``_gemv_plan``: the route, the slab, the cluster, the K split), on the
-CPU, and ``gemv_m1_kernel`` against the plain version, on the card.
+"""The bf16 M = 1 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4, scale
+on the weights): how the wrapper plans a call (``_gemv_plan``: the route, the
+slab, the cluster, the K split), and a model of mode 2's dequantization bit
+by bit, on the CPU; ``gemv_m1_kernel`` against the plain version, on the
+card.
 
 ``tests/test_torch_quant.py`` holds the plain versions against the JAX
 functions and the Pallas kernels, and the first port's kernels on the card.
@@ -20,19 +22,30 @@ BF16 = torch.bfloat16
 INT8, INT4, INT4_SOW = 0, 1, 2
 
 # the decoder projections of LLaMA-3-8B, (K, N), and each one's plan by mode:
-# (slab, cluster, warps, rows a block, rows a warp) in stored rows (int4: K/2)
+# (slab, cluster, warps, rows a block, rows a warp) in stored rows (int4: K/2);
+# mode 2 takes 128-byte slabs (its m16n8k16 products span 8 lanes' columns)
 SHAPES = {
-    "q_proj": ((4096, 4096), {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128)}),
-    "k_proj": ((4096, 1024), {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64)}),
-    "v_proj": ((4096, 1024), {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64)}),
-    "o_proj": ((4096, 4096), {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128)}),
-    "gate_proj": ((4096, 14336), {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128)}),
-    "up_proj": ((4096, 14336), {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128)}),
-    "down_proj": ((14336, 4096), {INT8: (64, 8, 4, 1792, 448), INT4: (64, 4, 4, 1792, 448)}),
+    "q_proj": ((4096, 4096), {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128),
+                              INT4_SOW: (128, 8, 4, 256, 64)}),
+    "k_proj": ((4096, 1024), {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64),
+                              INT4_SOW: (128, 8, 4, 256, 64)}),
+    "v_proj": ((4096, 1024), {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64),
+                              INT4_SOW: (128, 8, 4, 256, 64)}),
+    "o_proj": ((4096, 4096), {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128),
+                              INT4_SOW: (128, 8, 4, 256, 64)}),
+    "gate_proj": ((4096, 14336), {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128),
+                                  INT4_SOW: (128, 4, 4, 512, 128)}),
+    "up_proj": ((4096, 14336), {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128),
+                                INT4_SOW: (128, 4, 4, 512, 128)}),
+    "down_proj": ((14336, 4096), {INT8: (64, 8, 4, 1792, 448), INT4: (64, 4, 4, 1792, 448),
+                                  INT4_SOW: (128, 4, 4, 1792, 448)}),
 }
 # blocks on the card (slabs x cluster) for each plan above
-BLOCKS = {"q_proj": (512, 256), "k_proj": (128, 128), "v_proj": (128, 128), "o_proj": (512, 256),
-          "gate_proj": (448, 448), "up_proj": (448, 448), "down_proj": (512, 256)}
+BLOCKS = {"q_proj": (512, 256, 256), "k_proj": (128, 128, 64), "v_proj": (128, 128, 64),
+          "o_proj": (512, 256, 256), "gate_proj": (448, 448, 448), "up_proj": (448, 448, 448),
+          "down_proj": (512, 256, 128)}
+MODES = [INT8, INT4, INT4_SOW]
+MODE_IDS = ["int8", "int4", "int4_sow"]
 
 
 def _rows(mode, k):
@@ -48,7 +61,7 @@ def _plan_of(mode, k, n, group=None, **kw):
     return _gemv_plan(mode, BF16, 1, n, k, group, 0, 0, **kw)
 
 
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_plan_at_the_8b_shapes(site, mode):
     (k, n), plans = SHAPES[site]
@@ -86,15 +99,17 @@ def _warp_ranges(mode, k, plan):
 
 # (K, N, group) of int4 weights: every split of K falls on a scale group's
 # boundary (a group of 128 rows is 64 packed rows)
+@pytest.mark.parametrize("mode", [INT4, INT4_SOW], ids=["int4", "int4_sow"])
 @pytest.mark.parametrize("k,n,group", [
     (4096, 4096, 128), (14336, 4096, 128), (4096, 1024, 128), (4096, 14336, 128),
     (4096, 4096, 256), (8192, 1024, 512), (4224, 1024, 128), (640, 256, 128), (4096, 1024, 4096),
 ], ids=lambda v: str(v))
-def test_int4_split_on_group_boundaries(k, n, group):
-    plan = _plan_of(INT4, k, n, group)
+def test_int4_split_on_group_boundaries(k, n, group, mode):
+    plan = _plan_of(mode, k, n, group)
     assert plan is not None
+    assert mode == INT4 or plan.slab == quant.GEMV_MMA_SLAB
     unit = 64 if group == k else group // 2
-    for w0, w1 in _warp_ranges(INT4, k, plan):
+    for w0, w1 in _warp_ranges(mode, k, plan):
         assert w0 % unit == 0 and (w1 % unit == 0 or w1 == k // 2)
     if group < k:
         assert plan.rows_per_warp % (group // 2) == 0
@@ -102,7 +117,7 @@ def test_int4_split_on_group_boundaries(k, n, group):
 
 
 # (mode, K, N): K of int8 in whole 16-byte runs of x, of int4 in whole groups
-COVER_CASES = [(mode, k, n) for mode in (INT8, INT4)
+COVER_CASES = [(mode, k, n) for mode in (INT8, INT4, INT4_SOW)
                for k, n in [(4096, 4096), (14336, 4096), (4096, 1024), (4224, 1040), (256, 16),
                             (512, 4112), (14336, 14336)]] + [(INT8, 4104, 1024), (INT8, 136, 64)]
 
@@ -164,12 +179,14 @@ def test_int4_sums_less_136_sum_x_match_plain(k, n):
         assert np.array_equal(got, quant._unpack_int4(q4)[kk].numpy().astype(np.float32))
 
 
-# operands the kernel does not take: the first port's gemv_kernel (None)
+# operands the kernel does not take: the first port's gemv_kernel (None); mode
+# 2 at M = 1 in bf16 takes gemv_m1_kernel, at M = 2..8 or in fp32 gemv_kernel
 @pytest.mark.parametrize("args", [
     dict(mode=INT8, dtype=torch.float32),
     dict(mode=INT4, dtype=torch.float32),
     dict(mode=INT8, m=2), dict(mode=INT4, m=3), dict(mode=INT8, m=8), dict(mode=INT4, m=5),
-    dict(mode=INT4_SOW), dict(mode=INT4_SOW, m=1, n=4096),
+    dict(mode=INT4_SOW, m=2), dict(mode=INT4_SOW, m=8, n=4096),
+    dict(mode=INT4_SOW, dtype=torch.float32),
     dict(mode=INT8, n=20), dict(mode=INT8, n=72), dict(mode=INT8, n=100),
     dict(mode=INT4, n=20), dict(mode=INT4, n=72), dict(mode=INT4, n=100),
     dict(mode=INT8, x_ptr=8), dict(mode=INT4, x_ptr=2), dict(mode=INT8, w_ptr=4),
@@ -177,7 +194,7 @@ def test_int4_sums_less_136_sum_x_match_plain(k, n):
     dict(mode=INT4, k=96, group=96), dict(mode=INT4, k=130, group=130),
     dict(mode=INT8, k=130), dict(mode=INT4, k=4096, group=64),
 ], ids=["int8_fp32", "int4_fp32", "int8_m2", "int4_m3", "int8_m8", "int4_m5", "mode2",
-        "mode2_n4096", "int8_n20", "int8_n72", "int8_n100", "int4_n20", "int4_n72",
+        "mode2_n4096", "mode2_fp32", "int8_n20", "int8_n72", "int8_n100", "int4_n20", "int4_n72",
         "int4_n100", "int8_x_off", "int4_x_off", "int8_w_off", "int4_w_off", "int4_scale_off",
         "int4_k96_one_group", "int4_k130_one_group", "int8_k130", "int4_group64"])
 def test_routes_to_gemv_kernel(args):
@@ -189,7 +206,7 @@ def test_routes_to_gemv_kernel(args):
                       a["w_ptr"], s_ptr=a["s_ptr"]) is None
 
 
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("k,n,sms", [(4096, 4096, 132), (4096, 1024, 132), (14336, 4096, 132),
                                      (4096, 14336, 132), (4096, 16, 132), (256, 1024, 132),
                                      (1024, 64, 132), (4096, 4096, 114), (4096, 1024, 16),
@@ -214,6 +231,9 @@ def test_forced_settings_of_the_sweep():
     assert _plan_of(INT4, 4096, 1024, cluster=8).cluster == 8
     # a split the kernel refuses (a rank without rows) is no plan
     assert _plan_of(INT4, 256, 1024, cluster=8) is None
+    # mode 2 takes 128-byte slabs only
+    assert _plan_of(INT4_SOW, 4096, 4096, slab=64, cluster=4) is None
+    assert _plan_of(INT4_SOW, 4096, 4096, cluster=2, warps=2)[:3] == (128, 2, 2)
 
 
 def test_forced_route_values():
@@ -233,7 +253,7 @@ def test_forced_route_values():
     # ... but never for operands the kernel does not take
     for args in [(INT8, torch.float32, 1, 4096, 4096, 1, ptrs),
                  (INT8, BF16, 2, 4096, 4096, 1, ptrs),
-                 (INT4_SOW, BF16, 1, 4096, 4096, 128, ptrs),
+                 (INT4_SOW, BF16, 2, 4096, 4096, 128, ptrs),
                  (INT8, BF16, 1, 100, 4096, 1, ptrs),
                  (INT8, BF16, 1, 4096, 4096, 1, (2, 0, 0))]:
         with pytest.raises(ValueError, match="does not take"):
@@ -254,6 +274,54 @@ def test_cpu_wrappers_take_the_route_keyword():
                            quant.int8_matmul_reference(x, q8, s8))
         assert torch.equal(quant.int4_matmul(x, q4, s4, _route=route),
                            quant.int4_matmul_reference(x, q4, s4))
+        assert torch.equal(quant.int4_matmul_scale_on_weights(x, q4, s4, _route=route),
+                           quant.int4_matmul_reference(x, q4, s4, scale_on_weights=True))
+
+
+def _byte_perm(x, y, sel):
+    """PTX prmt (CUDA __byte_perm) on uint32 arrays: byte i of the result is
+    byte (sel >> 4 i) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def _bf16_bits(bits):
+    """uint16 bit patterns as a bf16 tensor."""
+    return torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(torch.bfloat16)
+
+
+def test_mode2_dequantization_bit_for_bit():
+    """gemv_m1_kernel<2>'s dequantization (int4_pairs, then one HMUL2 by the
+    bf16 scale), step by step on the bit patterns, for every packed int4
+    byte against bf16 scales from the smallest subnormal to the largest
+    finite, of both signs: each weight equals q.to(bf16) * scale.to(bf16),
+    the plain version's, bit for bit (products past the largest bf16 are inf
+    on both sides)."""
+    b = np.arange(256, dtype=np.uint32)
+    w = b | (b << 8) | (b << 16) | (b << 24)                   # byte b in every column
+    l = (w & 0x0F0F0F0F) ^ 0x08080808                          # q + 8 of row 2r
+    h = ((w >> 4) & 0x0F0F0F0F) ^ 0x08080808                   # q + 8 of row 2r + 1
+    z01 = _byte_perm(l, h, 0x5140)
+    pair = _byte_perm(z01, np.full_like(z01, 0x43), 0x4140)    # column 0: (row 2r, row 2r + 1)
+    lo = _bf16_bits(pair & 0xFFFF)
+    hi = _bf16_bits(pair >> 16)
+    bias = torch.tensor(136.0, dtype=torch.bfloat16)
+    q_lo, q_hi = lo - bias, hi - bias                          # HSUB2: exact
+    want_q = quant._unpack_int4(torch.from_numpy(b.astype(np.uint8).view(np.int8))[None, :])
+    assert torch.equal(q_lo.float(), want_q[0].float()) and torch.equal(q_hi.float(),
+                                                                        want_q[1].float())
+    scales = torch.tensor([2.0 ** -133, 3 * 2.0 ** -133, 2.0 ** -127, 1e-38, 2.0 ** -126, 1e-20,
+                           0.02 / 7, 0.1234, 1.0, 3.0, 1e10, 1e30, 2.0 ** 120, 1e37, 1.7e38,
+                           3.3895e38])
+    scales = torch.cat([scales, -scales]).to(torch.bfloat16)
+    for s in scales:
+        for got_q, wq in ((q_lo, want_q[0]), (q_hi, want_q[1])):
+            got = got_q * s                                    # HMUL2: one rounding
+            want = wq.to(torch.bfloat16) * s
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), float(s)
 
 
 # -- the kernel, on the card -------------------------------------------------------
@@ -276,13 +344,15 @@ def _operands(device, mode, k, n, seed=0):
 
 
 def _fn(mode):
-    return quant.int8_matmul if mode == INT8 else quant.int4_matmul
+    return (quant.int8_matmul, quant.int4_matmul, quant.int4_matmul_scale_on_weights)[mode]
 
 
 def _held(out, x, q, s, mode):
     """Within 2^-7 x max(1, |ref|max) of the plain version on x upcast to fp32."""
-    plain = quant.int8_matmul_reference if mode == INT8 else quant.int4_matmul_reference
-    want = plain(x.float(), q, s)
+    if mode == INT8:
+        want = quant.int8_matmul_reference(x.float(), q, s)
+    else:
+        want = quant.int4_matmul_reference(x.float(), q, s, scale_on_weights=mode == INT4_SOW)
     assert out.shape == want.shape and out.dtype == BF16
     assert torch.isfinite(out).all()
     tol = 2 ** -7 * max(1.0, float(want.abs().max()))
@@ -290,23 +360,25 @@ def _held(out, x, q, s, mode):
     assert err <= tol, (err, tol)
 
 
-def _kernels_run(calls):
+def _kernels_run(calls, repeats=3):
     """The kernel functions that ``calls`` launch, by name, in one profiled
-    run (each called once before, so no launch inside loads a module)."""
+    run of ``repeats`` rounds (each called once before, so no launch inside
+    loads a module; a trace of one call has come back without its kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls:
         call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            call()
+        for _ in range(repeats):
+            for call in calls:
+                call()
         torch.cuda.synchronize()
     return [e.key for e in prof.key_averages()]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_8b_shapes_match_plain_on_card(cuda_device, site, mode):
     (k, n), _ = SHAPES[site]
@@ -322,17 +394,17 @@ def test_8b_shapes_match_plain_on_card(cuda_device, site, mode):
 def test_8b_shapes_run_gemv_m1_kernel_on_card(cuda_device):
     calls = {}
     for site, ((k, n), _) in SHAPES.items():
-        for mode in (INT8, INT4):
+        for mode in MODES:
             x, q, s = _operands(cuda_device, mode, k, n)
             calls[(site, mode)] = (lambda x=x, q=q, s=s, mode=mode: _fn(mode)(x, q, s))
     names = _kernels_run(list(calls.values()))
-    for mode in (INT8, INT4):
+    for mode in MODES:
         assert any(f"gemv_m1_kernel<{mode}>" in n for n in names), names
     assert not any("gemv_kernel<" in n for n in names), names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_every_value_exact_through_m1_on_card(cuda_device, mode):
     """A one-hot x selects one row of weights that holds every int8 value
     (every packed int4 byte) across its 256 columns; with scales of 1 the
@@ -362,7 +434,7 @@ def test_every_value_exact_through_m1_on_card(cuda_device, mode):
 # (int8: K not a multiple of a batch; int4: 33 and 65 groups), and N at the
 # edges of 64- and 128-byte slabs
 EDGE_CASES = [(INT8, 4104, 1024), (INT8, 136, 64), (INT8, 8200, 4096)] + [
-    (mode, k, n) for mode in (INT8, INT4)
+    (mode, k, n) for mode in MODES
     for k, n in [(4224, 1024), (8320, 4096), (640, 2048), (4096, 16), (4096, 48), (4096, 112),
                  (4096, 144), (4096, 1040), (4096, 4112), (1024, 14336 + 16)]]
 
@@ -379,11 +451,11 @@ def test_uneven_splits_and_slab_edges_on_card(cuda_device, mode, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_forced_plans_match_plain_on_card(cuda_device, mode):
     k, n = 4096, 4096
     x, q, s = _operands(cuda_device, mode, k, n)
-    for slab in (64, 128):
+    for slab in (64, 128) if mode != INT4_SOW else (quant.GEMV_MMA_SLAB,):
         for cluster in GEMV_CLUSTERS:
             for warps in (None, 2):
                 plan = _plan_of(mode, k, n, slab=slab, cluster=cluster, warps=warps)
@@ -409,7 +481,7 @@ def test_unaligned_x_takes_gemv_kernel_on_card(cuda_device, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_two_calls_bitwise_identical_on_card(cuda_device, mode):
     x, q, s = _operands(cuda_device, mode, 14336, 4096)
     a = _fn(mode)(x, q, s)
@@ -419,7 +491,7 @@ def test_two_calls_bitwise_identical_on_card(cuda_device, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_refused_launch_shape_raises_on_card(cuda_device, mode):
     x, q, s = _operands(cuda_device, mode, 4096, 1024)
     good = _plan_of(mode, 4096, 1024)
@@ -430,6 +502,8 @@ def test_refused_launch_shape_raises_on_card(cuda_device, mode):
                          rows_per_block=good.warps * (good.rows_per_warp + 1)),  # off a unit
            good._replace(cluster=2),                                   # rows left over
            good._replace(cluster=8, warps=8, rows_per_warp=4096, rows_per_block=8 * 4096)]
+    if mode == INT4_SOW:
+        bad.append(good._replace(slab=64))                          # mode 2 takes 128 only
     before = _fn(mode).launches
     for plan in bad:
         with pytest.raises(RuntimeError, match="invalid argument"):
