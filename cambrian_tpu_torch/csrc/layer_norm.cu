@@ -42,8 +42,8 @@
 //     strided over the row element by element, three walks over it (mean,
 //     variance, normalise; the second and third from L1/L2).
 //
-// The C entries refuse (invalid argument) any launch shape the plan would
-// not give.
+// The C entries refuse (invalid argument) any launch shape the kernel
+// cannot take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,43 +265,30 @@ __global__ void __launch_bounds__(kVecMaxThreads)
   }
 }
 
-// the instantiated shapes: lanes a row x chunks a lane (norms.py LN_LANES,
-// LN_CHUNKS)
-template <typename T, int LANES>
-const void* vec_kernel_of(int vpl) {
-  switch (vpl) {
-    case 1: return (const void*)layer_norm_vec_kernel<T, LANES, 1>;
-    case 2: return (const void*)layer_norm_vec_kernel<T, LANES, 2>;
-    case 3: return (const void*)layer_norm_vec_kernel<T, LANES, 3>;
-    case 4: return (const void*)layer_norm_vec_kernel<T, LANES, 4>;
-    case 5: return (const void*)layer_norm_vec_kernel<T, LANES, 5>;
-    case 6: return (const void*)layer_norm_vec_kernel<T, LANES, 6>;
-    case 8: return (const void*)layer_norm_vec_kernel<T, LANES, 8>;
-    case 9: return (const void*)layer_norm_vec_kernel<T, LANES, 9>;
-    case 12: return (const void*)layer_norm_vec_kernel<T, LANES, 12>;
-    case 16: return (const void*)layer_norm_vec_kernel<T, LANES, 16>;
-    default: return nullptr;
-  }
-}
+// The instantiated shapes, (lanes a row, chunks a lane): those _ln_plan can
+// give (norms.py LN_INSTANCES, which must list the same pairs), in order of
+// lanes, then chunks.
+#define LN_VEC_INSTANCES(X)                                                            \
+  X(4, 1) X(4, 3) X(4, 5) X(4, 9) X(8, 1) X(8, 3) X(8, 5) X(16, 1) X(16, 3) X(32, 1) \
+  X(32, 2) X(32, 3) X(32, 4) X(32, 5) X(32, 6) X(32, 8) X(32, 9) X(32, 12) X(32, 16)
 
 template <typename T>
 const void* vec_kernel_of(int lanes, int vpl) {
-  switch (lanes) {
-    case 4: return vec_kernel_of<T, 4>(vpl);
-    case 8: return vec_kernel_of<T, 8>(vpl);
-    case 16: return vec_kernel_of<T, 16>(vpl);
-    case 32: return vec_kernel_of<T, 32>(vpl);
-    default: return nullptr;
-  }
+#define LN_VEC_CASE(L, V) \
+  if (lanes == L && vpl == V) return (const void*)layer_norm_vec_kernel<T, L, V>;
+  LN_VEC_INSTANCES(LN_VEC_CASE)
+#undef LN_VEC_CASE
+  return nullptr;
 }
 
 // the fewest chunks a lane of `lanes` takes for a row of `chunks`: the
-// smallest instantiated count that covers the row
+// smallest instantiated count of those lanes that covers the row
 int vec_chunks_a_lane(int chunks, int lanes) {
-  constexpr int kChunks[] = {1, 2, 3, 4, 5, 6, 8, 9, 12, 16};
-  const int need = (chunks + lanes - 1) / lanes;
-  for (int vpl : kChunks)
-    if (vpl >= need) return vpl;
+#define LN_VEC_PAIR(L, V) {L, V},
+  constexpr int kInstances[][2] = {LN_VEC_INSTANCES(LN_VEC_PAIR)};
+#undef LN_VEC_PAIR
+  for (const auto& lv : kInstances)
+    if (lv[0] == lanes && lv[1] * lanes >= chunks) return lv[1];
   return 0;
 }
 
@@ -355,10 +342,12 @@ int cambrian_layer_norm_vec_occupancy(int dtype, int lanes, int vpl, int warps, 
 
 // The vector kernel (layer_norm_vec_kernel) under an LnPlan of ops/norms.py:
 // `lanes` lanes a row holding `vpl` 16-byte chunks each, blocks of `warps`
-// warps. Refuses, launching nothing, operands or a shape the plan would not
-// give: a width of other than whole chunks, a base off 16 bytes, a vpl other
-// than the fewest instantiated chunks a lane that cover the row, more blocks
-// than there are row groups or than the card holds at once.
+// warps. Refuses, launching nothing, operands or a shape the kernel cannot
+// take: a width of other than whole chunks, a base off 16 bytes, a vpl other
+// than the fewest instantiated chunks a lane that cover the row, a block
+// without a row group. How many blocks the card holds at once is the
+// plan's rule (it asks cambrian_layer_norm_vec_occupancy, once a shape):
+// the kernel strides over the row groups, so any grid is correct.
 int cambrian_layer_norm_vec(int dtype, const void* x, const float* w, const float* b, void* out,
                             int rows, int cols, float eps, int lanes, int vpl, int warps,
                             int blocks, void* stream) {
@@ -374,18 +363,11 @@ int cambrian_layer_norm_vec(int dtype, const void* x, const float* w, const floa
   if (warps < 1 || warps * 32 > kVecMaxThreads || blocks < 1 ||
       (long)(blocks - 1) * warps >= groups)
     return (int)cudaErrorInvalidValue;
-  int per_sm = 0, sms = 0, dev = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fn, warps * 32, vec_smem_bytes(dtype, lanes, vpl, lanes * vpl * per_chunk));
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if ((long)blocks > (long)per_sm * sms) return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&x, (void*)&w, (void*)&b, (void*)&out, (void*)&rows, (void*)&cols,
                   (void*)&eps};
   const size_t smem = vec_smem_bytes(dtype, lanes, vpl, cols);
-  err = cudaLaunchKernel(fn, dim3(blocks), dim3(warps * 32), args, smem,
-                         static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchKernel(fn, dim3(blocks), dim3(warps * 32), args, smem,
+                                           static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

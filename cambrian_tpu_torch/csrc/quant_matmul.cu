@@ -1061,15 +1061,22 @@ __device__ __forceinline__ void m1_load(const M1Args& a, bool live, int col, int
   }
 }
 
+// Mode 2's 8 mma accumulators of the lane's column pairs (m16n8k16 C
+// fragments; row 0, n = 0 holds the sums); empty in modes 0 and 1, where
+// even an unused member changed ptxas' register allocation.
+template <int MODE>
+struct M1MmaSums {};
+template <>
+struct M1MmaSums<kInt4ScaleOnWeights> {
+  float mma[8][4] = {};
+};
+
 // A lane's sums: 16 columns' fp32 accumulators and, in mode 1, the current
 // scale group's partials, its sum of x, its batches so far and its scales.
 template <int MODE>
-struct M1Sums {
+struct M1Sums : M1MmaSums<MODE> {
   float acc[16] = {};
   float part[MODE == kInt4 ? 16 : 1] = {};
-  // mode 2: the 8 mma accumulators of the lane's column pairs (m16n8k16 C
-  // fragments; row 0, n = 0 holds the sums)
-  float mma[MODE == kInt4ScaleOnWeights ? 8 : 1][4] = {};
   float xsum = 0.f;
   int group_batch = 0;
   const float* group_scale = nullptr;  // the lane's 16 columns of the group's staged scales
@@ -1324,7 +1331,8 @@ __global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
   if (kMma ? lane % 4 == 0 : lane < lanes_per_row) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int c = chunk * 16 + 4 * q, owner = c / share;
+      // (modes 0, 1: chunk == lane here; the plain lane keeps their code lean)
+      const int c = (kMma ? chunk : lane) * 16 + 4 * q, owner = c / share;
       float* dst = cluster.map_shared_rank(sums, owner) + (rank * warps + warp) * share + c % share;
       *reinterpret_cast<float4*>(dst) =
           make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);

@@ -105,10 +105,14 @@ def fused_layer_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor, g: tor
 
 # -- K6's plan --------------------------------------------------------------------
 
-# the vector kernel's instantiated shapes (csrc/layer_norm.cu vec_kernel_of):
-# lanes a row, and 16-byte chunks a lane
-LN_LANES = (32, 16, 8, 4)
-LN_CHUNKS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
+# the vector kernel's instantiated shapes, (lanes a row, 16-byte chunks a
+# lane): the pairs _ln_plan can give, as csrc/layer_norm.cu LN_VEC_INSTANCES
+# lists them
+LN_INSTANCES = ((4, 1), (4, 3), (4, 5), (4, 9), (8, 1), (8, 3), (8, 5), (16, 1), (16, 3),
+                (32, 1), (32, 2), (32, 3), (32, 4), (32, 5), (32, 6), (32, 8), (32, 9),
+                (32, 12), (32, 16))
+LN_LANES = tuple(sorted({lanes for lanes, _ in LN_INSTANCES}, reverse=True))
+LN_CHUNKS = tuple(sorted({chunks for _, chunks in LN_INSTANCES}))
 # rows of at least this many chunks take a whole warp: a sub-warp's longer
 # share a lane is latency the 576-1,024-row sites pay in full
 LN_WARP_CHUNKS = 64
@@ -138,8 +142,9 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _ln_chunks_a_lane(chunks: int, lanes: int) -> Optional[int]:
-    """The fewest instantiated chunks a lane that cover a row of ``chunks``."""
-    return next((c for c in LN_CHUNKS if c * lanes >= chunks), None)
+    """The fewest chunks a lane instantiated for ``lanes`` that cover a row
+    of ``chunks``."""
+    return next((c for la, c in LN_INSTANCES if la == lanes and c * lanes >= chunks), None)
 
 
 def _ln_lanes(chunks: int) -> int:
@@ -149,7 +154,8 @@ def _ln_lanes(chunks: int) -> int:
     of 4, 8, 16 that give each lane at most one chunk."""
     if chunks >= LN_WARP_CHUNKS:
         return 32
-    exact = [lanes for lanes in LN_LANES if chunks % lanes == 0 and chunks // lanes in LN_CHUNKS]
+    exact = [lanes for lanes in LN_LANES
+             if chunks % lanes == 0 and (lanes, chunks // lanes) in LN_INSTANCES]
     if exact:
         return exact[0]
     return 32 if chunks >= 32 else max(4, 1 << (chunks - 1).bit_length())
@@ -163,8 +169,9 @@ def _ln_plan(rows: int, cols: int, dtype: torch.dtype, aligned: bool, sms: int,
     (``aligned``), up to 32 lanes of 16 chunks; else the scalar kernel.
     ``occupancy(lanes, chunks, warps)`` is the blocks of that shape an SM
     holds at once: the grid never exceeds what the card's ``sms`` hold, so
-    no block waits for another to finish. ``lanes`` and ``warps`` force
-    those choices (the sweep's settings)."""
+    no block waits for another to finish (this rule is the plan's alone).
+    ``lanes`` and ``warps`` force those choices (the sweep's settings); lanes
+    with no instance that covers the row give the scalar kernel."""
     per = 8 if dtype == torch.bfloat16 else 4
     scalar = LnPlan("layer_norm_kernel", 32, 0, _LN_SCALAR_WARPS, _cdiv(rows, _LN_SCALAR_WARPS))
     if not aligned or cols % per or dtype not in (torch.bfloat16, torch.float32):

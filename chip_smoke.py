@@ -19,9 +19,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    ``<2>``) must be there, with their registers, I2F and HMMA counts and
    their main loop's SASS instructions per packed byte printed; none may
    spill, and ``<2>`` must run its products on the tensor cores (HMMA);
-   every instance of K6's ``layer_norm_vec_kernel`` (2 dtypes x 4 lane
-   counts x 10 chunk counts) and ``layer_norm_kernel`` must be there without
-   spills;
+   every instance of K6's ``layer_norm_vec_kernel`` (2 dtypes x the
+   (lanes, chunks) pairs of ``norms.LN_INSTANCES``) and ``layer_norm_kernel``
+   must be there without spills;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -105,8 +105,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    plain version, ``F.layer_norm`` and the port's ``layer_norm``, each
    record naming the kernel function, which must be ``layer_norm_vec_kernel``
    at every aligned bf16 site); the bound; training-batch (B = 8) and
-   small fp32 cases, and K8 on operands TMA cannot address (x one element
-   off its alignment); K5-K7's backward against the plain backward. One
+   small fp32 cases, and K8 and K6 on x one element off its alignment (K8's
+   ``mma.sync`` kernel; K6's scalar ``layer_norm_kernel``, which must run
+   there, so both K6 functions are held against plain); K5-K7's backward
+   against the plain backward. One
    ``torch.profiler`` run of every K8 case must show the up and down wgmma
    functions that each bf16 site plans, the ``mma.sync`` kernel for the
    unaligned case and the SIMT kernel for the fp32 one, each of those two
@@ -1542,8 +1544,9 @@ def library_call(torch, kind, site):
 def extra_sites(torch, sites):
     """Cases beside the captured ones, not on the path: the training batch
     (B = 8) of K5 and of K7 at (64^2, 1536), made by repeating the captured
-    request; K8 at an SVA site with x moved one element off its alignment
-    (TMA cannot address it: the mma.sync kernel); one small fp32 case per
+    request; K8 at an SVA site and K6 at the CLIP site with x moved one
+    element off its alignment (TMA cannot address it: the mma.sync kernel;
+    no 16-byte loads: the scalar layer_norm_kernel); one small fp32 case per
     kernel; a 4096-wide bf16 LayerNorm."""
     extra = []
     for key, s in sites["fused_windowed_cross_attention"].items():
@@ -1567,6 +1570,13 @@ def extra_sites(torch, sites):
             x.copy_(s["x"])
             extra.append(("fused_mlp", ("unaligned", *key[1:]), dict(s, x=x)))
             break
+    ln_sites = sites["fused_layer_norm"]
+    key = (1024, 577) if (1024, 577) in ln_sites else next(iter(ln_sites))
+    x0 = ln_sites[key]["x"]
+    store = torch.empty(1 + x0.numel(), dtype=x0.dtype, device=x0.device)
+    x = store[1:].view(x0.shape)                # base one element off its 16 bytes
+    x.copy_(x0)
+    extra.append(("fused_layer_norm", ("unaligned", *key), dict(ln_sites[key], x=x)))
     dev = site_device(sites)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1771,6 +1781,8 @@ def vision_kernel_phase(torch, fa, quant, sites):
             x = s["x"]
             if on_path and x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0:
                 check(function == LN_VEC, f"{label}: an aligned bf16 site ran {function}")
+            if key[0] == "unaligned":
+                check(function == LN_SCALAR, f"{label}: an unaligned base ran {function}")
         big = kind == "fused_mlp" or key[0] == "train_b8"
         iters = 5 if big else 10
         library = {}
@@ -1816,6 +1828,8 @@ def vision_kernel_phase(torch, fa, quant, sites):
               f"err={err:.3e} (tol {tol:.2e}){main} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"{lib} bound={bound_ms:.4f} ms ({bound_by}){rate}", flush=True)
     del l2
+    ran = {r["function"] for r in records if r["kernel"] == "fused_layer_norm"}
+    check(ran == set(LN_FUNCTIONS), f"K6's cases ran {ran}, not both of {LN_FUNCTIONS}")
     mlp_kernel_check(torch, mlp_cases)
     bwd = backward_checks(torch, sites)
     torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1910,10 +1924,14 @@ def main(argv=None):
           f"{sass['gemv_m1_kernel<2>']}")
     # K6: every instance of the 16-byte row pass and the scalar kernel,
     # without spills
+    from cambrian_tpu_torch.ops.norms import LN_INSTANCES
+
     ln_usage = resource_usage(built["layer_norm"]["path"])
     ln_vec = {fn: u for fn, u in ln_usage.items() if fn.startswith(LN_VEC)}
-    check(len(ln_vec) == 2 * 4 * 10, f"layer_norm: {len(ln_vec)} instances of {LN_VEC}, not "
-          f"2 dtypes x 4 lane counts x 10 chunk counts")
+    want_vec = {f"{LN_VEC}<{t},{lanes},{chunks}>" for t in ("float", "bf16")
+                for lanes, chunks in LN_INSTANCES}
+    check(set(ln_vec) == want_vec, f"layer_norm: {sorted(ln_vec)} are the instances of "
+          f"{LN_VEC}, not the {len(want_vec)} of 2 dtypes x norms.LN_INSTANCES")
     check(sum(fn.startswith(LN_SCALAR) for fn in ln_usage) == 2, f"layer_norm: {list(ln_usage)}")
     ln_sass = tensor_core_instructions(built["layer_norm"]["path"])
     for fn, (regs, stack, local) in sorted(ln_usage.items()):

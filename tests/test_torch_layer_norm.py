@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from cambrian_tpu_torch.ops import norms
-from cambrian_tpu_torch.ops.norms import LN_CHUNKS, LnPlan, _ln_plan
+import os
+import re
+
+from cambrian_tpu_torch.ops.norms import LN_INSTANCES, LnPlan, _ln_plan
 
 SMS = 132
 BLOCKS_PER_SM = 8        # a stand-in for the card's occupancy
@@ -94,7 +97,8 @@ def test_plan_covers_rows_of_any_whole_chunks(cols, dtype, lanes, chunks):
     plan = _ln_plan(300, cols, dtype, True, SMS, _occupancy)
     assert (plan.function, plan.lanes, plan.chunks) == ("layer_norm_vec_kernel", lanes, chunks)
     per = 8 if dtype == torch.bfloat16 else 4
-    assert chunks in LN_CHUNKS and lanes * (chunks - 1) * per < cols <= lanes * chunks * per
+    assert (lanes, chunks) in LN_INSTANCES
+    assert lanes * (chunks - 1) * per < cols <= lanes * chunks * per
     assert np.array_equal(np.sort(np.concatenate(_rows_visited(300, plan))), np.arange(300))
 
 
@@ -111,9 +115,38 @@ def test_plan_routes_the_rest_to_the_scalar_kernel(cols, dtype, aligned):
     assert plan.warps == 8 and plan.blocks == -(-577 // 8)
 
 
-def test_plan_forces_lanes_and_warps():
-    plan = _ln_plan(576, 1024, torch.bfloat16, True, SMS, _occupancy, lanes=8, warps=4)
-    assert plan == LnPlan("layer_norm_vec_kernel", 8, 16, 4, 36)
+@pytest.mark.parametrize("rows,cols,lanes,warps,want", [
+    (576, 384, 16, 4, LnPlan("layer_norm_vec_kernel", 16, 3, 4, 72)),
+    (576, 384, 32, 1, LnPlan("layer_norm_vec_kernel", 32, 2, 1, 576)),
+    # 8 lanes of 16 chunks is not an instance: no vector plan
+    (576, 1024, 8, 4, LnPlan("layer_norm_kernel", 32, 0, 8, 72)),
+], ids=["sub_warp", "whole_warp", "not_instantiated"])
+def test_plan_forces_lanes_and_warps(rows, cols, lanes, warps, want):
+    assert _ln_plan(rows, cols, torch.bfloat16, True, SMS, _occupancy, lanes, warps) == want
+
+
+def test_instances_are_the_shapes_the_plan_gives():
+    """LN_INSTANCES holds exactly the (lanes, chunks a lane) pairs that the
+    plan gives some row of whole chunks (1 to 32 x 16 of them), at any dtype."""
+    given = set()
+    for chunks in range(1, 32 * 16 + 1):
+        for dtype, per in ((torch.bfloat16, 8), (torch.float32, 4)):
+            plan = _ln_plan(100, chunks * per, dtype, True, SMS, _occupancy)
+            assert plan.function == "layer_norm_vec_kernel", (chunks, dtype)
+            given.add((plan.lanes, plan.chunks))
+    assert given == set(LN_INSTANCES)
+    assert len(LN_INSTANCES) == len(given)
+
+
+def test_instances_match_the_source():
+    """csrc/layer_norm.cu instantiates layer_norm_vec_kernel at the pairs of
+    LN_INSTANCES, in the same order."""
+    path = os.path.join(os.path.dirname(norms.__file__), "..", "csrc", "layer_norm.cu")
+    with open(path) as f:
+        src = f.read()
+    table = re.search(r"#define LN_VEC_INSTANCES\(X\)((?:.*\\\n)*.*)", src).group(1)
+    pairs = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", table))
+    assert pairs == LN_INSTANCES
 
 
 def _fma32(a, b, c):
@@ -265,7 +298,8 @@ def test_c_entry_refuses_a_shape_the_plan_would_not_give(cuda_device):
     for lanes, vpl, warps, blocks in [(32, 8, 2, 288),      # not the fewest chunks a lane
                                       (32, 4, 2, 289),      # a block without rows
                                       (32, 4, 8, 36),       # blocks of 8 warps
-                                      (24, 4, 2, 288)]:     # lanes not instantiated
+                                      (24, 4, 2, 288),      # lanes not instantiated
+                                      (8, 16, 4, 36)]:      # a pair not instantiated
         err = lib.cambrian_layer_norm_vec(1, *ptrs, 576, 1024, 1e-6, lanes, vpl, warps, blocks,
                                           stream)
         assert err != 0, (lanes, vpl, warps, blocks)

@@ -294,12 +294,13 @@ def _bf16_bits(bits):
 
 
 def test_mode2_dequantization_bit_for_bit():
-    """gemv_m1_kernel<2>'s dequantization (int4_pairs, then one HMUL2 by the
-    bf16 scale), step by step on the bit patterns, for every packed int4
-    byte against bf16 scales from the smallest subnormal to the largest
-    finite, of both signs: each weight equals q.to(bf16) * scale.to(bf16),
-    the plain version's, bit for bit (products past the largest bf16 are inf
-    on both sides)."""
+    """gemv_m1_kernel<2>'s dequantization, step by step on the bit patterns,
+    for every packed int4 byte: int4_pairs' byte permutes and HSUB2 give q
+    exactly. HMUL2 by the bf16 scale is modelled here by torch's bf16
+    multiply, over scales from the smallest subnormal to the largest finite,
+    of both signs, so this checks the model's single rounding; that the
+    card's HMUL2 rounds the same is held by
+    test_every_value_exact_through_m1_on_card."""
     b = np.arange(256, dtype=np.uint32)
     w = b | (b << 8) | (b << 16) | (b << 24)                   # byte b in every column
     l = (w & 0x0F0F0F0F) ^ 0x08080808                          # q + 8 of row 2r
@@ -408,8 +409,11 @@ def test_8b_shapes_run_gemv_m1_kernel_on_card(cuda_device):
 def test_every_value_exact_through_m1_on_card(cuda_device, mode):
     """A one-hot x selects one row of weights that holds every int8 value
     (every packed int4 byte) across its 256 columns; with scales of 1 the
-    output is that row, exactly. Rows at the start, inside and at the end of
-    the blocks' and warps' shares."""
+    output is that row, exactly. Mode 2 takes bf16 scales from subnormal to
+    1e37 instead, different in every column and group: its output is then
+    bf16(q * bf16(scale)), which must equal the plain version's bit for bit
+    (the card's HMUL2 rounds once, as the reference does). Rows at the
+    start, inside and at the end of the blocks' and warps' shares."""
     k, n = 4096, 256
     rng = np.random.default_rng(0)
     stored = k if mode == INT8 else k // 2
@@ -417,6 +421,13 @@ def test_every_value_exact_through_m1_on_card(cuda_device, mode):
     b = np.stack([rng.permutation(256) for _ in range(stored)]).astype(np.uint8)
     q = torch.from_numpy(b.view(np.int8)).to(cuda_device)
     s = torch.ones(n if mode == INT8 else (k // 128, n), device=cuda_device)
+    if mode == INT4_SOW:
+        # 8 |s| stays finite: a column of inf would make 0 * inf a NaN
+        sv = torch.tensor([2.0 ** -133, 3 * 2.0 ** -133, 2.0 ** -127, 1e-38, 2.0 ** -126, 1e-20,
+                           0.02 / 7, 0.1234, 1.0, 3.0, 1e10, 1e30, 2.0 ** 120, 1e37])
+        sv = torch.cat([sv, -sv])
+        pick = (torch.arange(k // 128)[:, None] * 5 + torch.arange(n)[None, :]) % len(sv)
+        s = sv[pick].to(cuda_device)
     plan = _plan_of(mode, k, n)
     rows = sorted({0, 1, plan.rows_per_warp - 1, plan.rows_per_warp, plan.rows_per_block - 1,
                    plan.rows_per_block, stored // 2 + 3, stored - 1})
@@ -427,7 +438,11 @@ def test_every_value_exact_through_m1_on_card(cuda_device, mode):
             x[0, kk] = 1
             out = _fn(mode)(x, q, s)
             torch.cuda.synchronize()
-            assert torch.equal(out[0].float(), vals[kk]), (r, kk)
+            if mode == INT4_SOW:
+                want = quant.int4_matmul_reference(x, q, s, scale_on_weights=True)
+                assert torch.equal(out, want), (r, kk)
+            else:
+                assert torch.equal(out[0].float(), vals[kk]), (r, kk)
 
 
 # (mode, K, N): K ranges that split unevenly over the cluster or the warps
