@@ -507,8 +507,6 @@ def kernel_phase(torch, fa, prompt):
 def quant_kernel_phase(torch, quant, prompt_len):
     """K3, K4 and K4b/K4c against their plain versions at the 8B decoder's
     projection shapes; returns per-case records."""
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -518,6 +516,7 @@ def quant_kernel_phase(torch, quant, prompt_len):
     flush = l2.sum
     records = []
     int8pack = None     # torch.ops.aten._weight_int8pack_mm, where this build runs it on CUDA
+    profiled_cases = []  # (name, site, x, weights, scales, record) of each bf16 prefill and M = 1 call
     for site, k, n in QUANT_SHAPES:
         w = (torch.randn((k, n), generator=g, device=dev) * 0.02).bfloat16()
         q8, s8 = quant.quantize_int8(w)
@@ -533,7 +532,7 @@ def quant_kernel_phase(torch, quant, prompt_len):
                 q4, s4, quant.dequantize_int4),
         }
         prefill = {}     # name: (x, the record) of each bf16 prefill case
-        decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3 and K4
+        decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3, K4, K4b
         for name, (fn, plain, wq, sc, dequant) in cases.items():
             for m in (1, prompt_len):
                 for dtype in (torch.bfloat16, torch.float32):
@@ -615,34 +614,12 @@ def quant_kernel_phase(torch, quant, prompt_len):
                         decode[name] = (x, rec)
                     if dtype == torch.bfloat16 and m == prompt_len:
                         prefill[name] = (x, rec)
-        # the bf16 prefill of each kernel must run the wgmma kernel of its
-        # mode, and the bf16 M = 1 call of K3 and K4 gemv_m1_kernel, by name:
-        # one profiled run a shape (after some twenty profiler sessions in
-        # one process, traces came back empty)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for name, (x, _) in list(prefill.items()) + list(decode.items()):
-                cases[name][0](x, cases[name][2], cases[name][3])
-            torch.cuda.synchronize()
-        names = [key for _, _, key in kernel_events(prof)]
-        check(not any("gemv_kernel<" in key for key in names),
-              f"{site}: a bf16 M = 1 call ran the first port's gemv_kernel: {names}")
-        for name, (_, rec) in decode.items():
-            mode = list(QUANT_KERNELS).index(name)
-            rec["function"] = next((f"gemv_m1_kernel<{mode}>" for key in names
-                                    if f"gemv_m1_kernel<{mode}>" in key), None)
-            check(rec["function"] is not None,
-                  f"{name} {site} M=1: the decode ran {names}, not gemv_m1_kernel<{mode}>")
-            print(f"kernel {name:29s} {site:9s} decode ran {rec['function']}", flush=True)
-        for name, (_, rec) in prefill.items():
-            mode = list(QUANT_KERNELS).index(name)   # K3, K4, K4b: modes 0, 1, 2
-            found = [re.search(rf"gemm_wgmma_kernel<{mode}, \d+>", key) for key in names]
-            rec["function"] = next((f.group(0) for f in found if f), None)
-            check(rec["function"] is not None,
-                  f"{name} {site} M={prompt_len}: the prefill ran {names}, "
-                  f"not gemm_wgmma_kernel<{mode}, ...>")
-            print(f"kernel {name:29s} {site:9s} prefill ran {rec['function']}", flush=True)
-        del q8, s8, q4, s4, w, prefill
+        for name, (x, rec) in list(prefill.items()) + list(decode.items()):
+            profiled_cases.append((name, site, x, cases[name][2], cases[name][3], rec))
+        del w, prefill
     del l2
+    quant_function_check(torch, quant, profiled_cases)
+    del profiled_cases
     for name in GEMV_M1_KERNELS:
         recs = [r for r in records if r["kernel"] == name and r["gemv_kernel_ms"] is not None]
         step = {key: LAYERS * sum(r[key] for r in recs)
@@ -1173,6 +1150,88 @@ MLP_WGMMA_FUNCTIONS = [f"{fn}<{bn}>" for fn in MLP_FUNCTIONS for bn in (64, 128,
 MLP_TC_FUNCTION, MLP_SIMT_FUNCTION = "fused_mlp_tc_kernel", "fused_mlp_simt_kernel"
 
 
+def profiled(torch, run, host=False, tries=3):
+    """``run()`` under ``torch.profiler`` (the card's activity, and the
+    host's with ``host``): the profile and what ``run`` returned. A trace
+    that holds no kernel at all is the profiler's loss, not the card's: a
+    session in a process that had held five others has come back empty
+    while its calls ran, as their launch counts showed. ``run`` is then
+    profiled again, ``tries`` times in all, before the check fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    for attempt in range(1, tries + 1):
+        with profile(activities=activities) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        if kernel_events(prof):
+            return prof, out
+        print(f"profiler: trace {attempt} of {tries} holds no kernel", flush=True)
+    check(False, f"{tries} profiled runs came back without a kernel")
+
+
+def quant_functions(names):
+    """The quant matmuls' kernel functions among profiled kernel names, as
+    ``name<template arguments>``."""
+    pattern = rf"\b({'|'.join(QUANT_FUNCTIONS)})(<[^>]*>)?"
+    return [m[0] + m[1].replace(" ", "") for n in names for m in re.findall(pattern, n)]
+
+
+def wgmma_tile_columns(m, n, sms):
+    """The prefill GEMM's tile columns as its launcher picks them
+    (``pick_bn`` in quant_matmul.cu): 64 where 128 x 128 tiles would give
+    fewer tiles than SMs, else 128."""
+    return 64 if -(-m // 128) * -(-n // 128) < sms else 128
+
+
+def quant_function_check(torch, quant, cases, calls=3):
+    """By launch counter and by kernel name, from one ``torch.profiler`` run
+    of ``calls`` calls of each bf16 prefill and M = 1 case of K3, K4 and
+    K4b (name, site, x, weights, scales, record): each M = 1 call runs
+    gemv_m1_kernel<mode>, each prefill the wgmma GEMM of its mode at the tile
+    columns its launcher picks, and the trace holds no other quant-matmul
+    function (so no bf16 M = 1 call ran the first port's gemv_kernel). One
+    run for the phase: profiler sessions in one process have come back
+    without kernels, and a trace of one call has lost one of its kernels."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fns = {name: getattr(quant, name) for name in QUANT_KERNELS}
+
+    def run():
+        routes = []
+        for name, _, x, wq, sc, _ in cases:
+            fns[name].function_launches.clear()
+            for _ in range(calls):
+                fns[name](x, wq, sc)
+            routes.append(dict(fns[name].function_launches))
+        return routes
+
+    prof, routes = profiled(torch, run)
+    launched = {}
+    for _, n, key in kernel_events(prof):
+        for fn in quant_functions([key]):
+            launched[fn] = launched.get(fn, 0) + n
+    planned = set()
+    for (name, site, x, _, _, rec), route in zip(cases, routes):
+        mode = list(QUANT_KERNELS).index(name)   # K3, K4, K4b: modes 0, 1, 2
+        m = x.shape[0]
+        if m == 1:
+            want, fn = "gemv_m1_kernel", f"gemv_m1_kernel<{mode}>"
+        else:
+            want = "gemm"
+            fn = f"gemm_wgmma_kernel<{mode},{wgmma_tile_columns(m, rec['n'], sms)}>"
+        check(route == {want: calls}, f"{name} {site} M={m}: the wrapper launched {route}, "
+              f"not {calls} x {want}")
+        check(fn in launched, f"{name} {site} M={m}: planned {fn}; the profiled run "
+              f"launched {launched}")
+        rec["function"] = fn
+        planned.add(fn)
+        print(f"kernel {name:29s} {site:9s} {'decode' if m == 1 else 'prefill'} ran {fn}",
+              flush=True)
+    others = {fn: n for fn, n in launched.items() if fn not in planned}
+    check(not others, f"the profiled bf16 prefill and M = 1 calls also ran {others}")
+    print(f"quant functions of the profiled run ({calls} calls a case): {launched}", flush=True)
+
+
 def device_time_by_kind(prof):
     """Device ms of a profiled run by kernel kind: K1, K2, GEMMs, others."""
     kinds = {"K1": 0.0, "K2": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1192,8 +1251,6 @@ def device_time_by_kind(prof):
 
 def train_8b_phase(torch, fa, quant, k2_record):
     """Cambrian-8B stage-1 pretraining through ``CambrianTrainer.train()``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from cambrian_tpu_torch import cambrian_8b
     from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
@@ -1304,12 +1361,15 @@ def train_8b_phase(torch, fa, quant, k2_record):
     batch = {k: [x.to(dev, non_blocking=True) for x in _pin(v)] if isinstance(v, list)
              else _pin(v).to(dev, non_blocking=True) for k, v in host.items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def step():
         t1 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        new_state, metrics = step_fn(state, batch)
         check(np.isfinite(float(metrics["loss"])), "8B profiled step: non-finite loss")
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+        return new_state, (time.perf_counter() - t1) * 1e3
+
+    prof, (state, prof_wall_ms) = profiled(torch, step, host=True)
     kinds = device_time_by_kind(prof)
     busy = sum(kinds.values())
     check(kinds["K1"] > 0 and kinds["K2"] > 0, f"8B profiled step: no K1/K2 device time {kinds}")
@@ -1640,14 +1700,14 @@ def mlp_kernel_check(torch, cases, calls=3):
     most ``calls`` times, so no site but their own took them. One run for
     all: after some ten profiler sessions in one process, traces came back
     without kernels; and a trace of one call has lost one of its kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     planned = {label: mlp_expected_functions(torch, s) for label, _, s in cases}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _, _, s in cases:
             for _ in range(calls):
                 kernel_at_site(torch, "fused_mlp", s)
-        torch.cuda.synchronize()
+
+    prof, _ = profiled(torch, run)
     launched = {}
     for _, n, key in kernel_events(prof):
         for fn in mlp_functions([key]):
