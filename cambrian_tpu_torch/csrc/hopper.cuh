@@ -131,6 +131,29 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// One box of shared memory into a 4-D tensor map's tensor at (c0, c1, c2,
+// c3); elements outside the tensor are not written. The store joins the
+// calling thread's open bulk group (bulk_commit closes it). The threads that
+// wrote the box call fence_proxy_async first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until the calling thread's committed bulk stores have read their
+// shared memory (it may be written again).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // -- masks ------------------------------------------------------------------
 
 // Whether key tile [k0, k0 + 64) holds a valid key (valid null: every key
@@ -571,6 +594,29 @@ inline bool tile_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* 
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map over a contiguous NHWC tensor [batch, h, w, c] of `type`
+// (elem_bytes each; dims c, w, h, batch, c fastest), unswizzled boxes of
+// box_c x box_w x box_h x 1: a box is box_h rows of box_w positions of box_c
+// channels, dense in shared memory. Coordinates outside the tensor, negative
+// ones included, arrive as zeros. The depthwise convolution (dwconv.cu)
+// loads its halo'd input tiles this way. Returns false if libcuda refuses it
+// (c * elem_bytes or the base off 16 bytes, a box side over 256).
+inline bool nhwc_box_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                         const void* base, int batch, int h, int w, int c, uint32_t box_c,
+                         uint32_t box_w, uint32_t box_h) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)batch};
+  const cuuint64_t pos = (cuuint64_t)c * elem_bytes;
+  const cuuint64_t strides[3] = {pos, pos * w, pos * w * h};
+  const cuuint32_t box[4] = {box_c, box_w, box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -21,7 +21,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    spill, and ``<2>`` must run its products on the tensor cores (HMMA);
    every instance of K6's ``layer_norm_vec_kernel`` (2 dtypes x the
    (lanes, chunks) pairs of ``norms.LN_INSTANCES``) and ``layer_norm_kernel``
-   must be there without spills;
+   must be there without spills; so must every instance of K7's
+   ``dwconv7x7_tma_kernel`` (2 dtypes x the register blocks of
+   ``dwconv.DW_INSTANCES``) and ``dwconv7x7_kernel``, with the TMA kernel's
+   registers and its tile loop's FFMA share printed;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -107,13 +110,21 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    at every aligned bf16 site); the bound; training-batch (B = 8) and
    small fp32 cases, and K8 and K6 on x one element off its alignment (K8's
    ``mma.sync`` kernel; K6's scalar ``layer_norm_kernel``, which must run
-   there, so both K6 functions are held against plain); K5-K7's backward
-   against the plain backward. One
-   ``torch.profiler`` run of every K8 case must show the up and down wgmma
-   functions that each bf16 site plans, the ``mma.sync`` kernel for the
-   unaligned case and the SIMT kernel for the fp32 one, each of those two
-   no more often than its own case's calls; K8's TFLOP/s (2 M H (C + C2) /
-   time) are printed.
+   there, so both K6 functions are held against plain); K7 timed as
+   medians of 30 in turns with its plain version, the first port's
+   ``dwconv7x7_kernel`` (forced through the plan) and the main path's
+   ``F.conv2d`` (the library call, "cudnn conv2d"), every case
+   naming its kernel function by the wrapper's counter (the drop-in pass
+   and every captured site must run ``dwconv7x7_tma_kernel``; a bf16 case
+   with C = 90, whose positions are not whole 16-byte units, must run
+   ``dwconv7x7_kernel``, so both K7 functions are held against plain);
+   K5-K7's backward against the plain backward. One ``torch.profiler`` run
+   of every K8 and K7 case must show the up and down wgmma functions that
+   each bf16 K8 site plans, the ``mma.sync`` kernel for the unaligned case
+   and the SIMT kernel for the fp32 one, each of those two no more often
+   than its own case's calls, and the K7 function (with its register block)
+   that each K7 case plans; K8's TFLOP/s (2 M H (C + C2) / time) are
+   printed.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -284,7 +295,8 @@ def kernel_name(mangled):
     """A K1/K2, quant-matmul or K8 GEMM kernel function's mangled name as
     ``name<template arguments>`` (integers, bf16 or float); other names as
     they are."""
-    names = K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS + LN_FUNCTIONS
+    names = (K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS + LN_FUNCTIONS
+             + DW_FUNCTIONS)
     m = re.search(rf"({'|'.join(names)})"
                   r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled)
     if m is None:
@@ -334,10 +346,12 @@ def resource_usage(path):
     return out
 
 
-def loop_instructions(path):
-    """{kernel function: (instructions, global loads)} of each function's
-    main loop in ``cuobjdump -sass``: of the spans between a backward branch
-    and its target, the one with the most global loads (LDG)."""
+def loop_instructions(path, op="LDG", innermost=False):
+    """{kernel function: (instructions, instructions of ``op``)} of each
+    function's main loop in ``cuobjdump -sass``: of the spans between a
+    backward branch and its target, the one with the most ``op`` (by default
+    global loads, LDG); of spans with as many, the longest, or with
+    ``innermost`` the shortest (a loop nested in another)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -370,8 +384,9 @@ def loop_instructions(path):
             if start is None or start > i:
                 continue
             body = [t for _, t in ins[start:i + 1] if not t.startswith("NOP")]
-            loads = sum("LDG" in t for t in body)
-            if best is None or (loads, len(body)) > (best[1], best[0]):
+            loads = sum(op in t for t in body)
+            size = -len(body) if innermost else len(body)
+            if best is None or (loads, size) > (best[1], -best[0] if innermost else best[0]):
                 best = (len(body), loads)
         out[fn] = best
     return out
@@ -1141,6 +1156,10 @@ GEMV_M1_FUNCTIONS = ["gemv_m1_kernel<0>", "gemv_m1_kernel<1>", "gemv_m1_kernel<2
 # and the scalar kernel <dtype>
 LN_FUNCTIONS = ("layer_norm_vec_kernel", "layer_norm_kernel")
 LN_VEC, LN_SCALAR = LN_FUNCTIONS
+# K7's functions: the persistent TMA-fed kernel <dtype, rows, columns a
+# thread> and the first port's kernel <dtype>
+DW_FUNCTIONS = ("dwconv7x7_tma_kernel", "dwconv7x7_kernel")
+DW_TMA, DW_OLD = DW_FUNCTIONS
 # the wgmma prefill GEMM's functions: <mode, tile columns>
 WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
 # K8's bf16 GEMMs (bias + GELU, and bias): <tile columns>; its kernels for
@@ -1411,6 +1430,7 @@ VISION_KERNELS = {
 }
 SITE_REL_PLAIN = 2 ** -7   # bf16 kernel vs its plain version on fp32-upcast inputs
 LN_ITERS = 30              # K6's calls a site, timed in turns with the PyTorch calls
+DW_ITERS = 30              # K7's, in turns with the first port's kernel and F.conv2d
 # vs the main path's own op at the site: K5's einsum path rounds the
 # probabilities to bf16 before PV and K8's main path rounds the first
 # Linear's output (and adds its bias) in bf16 before GELU, so each differs
@@ -1607,7 +1627,8 @@ def extra_sites(torch, sites):
     request; K8 at an SVA site and K6 at the CLIP site with x moved one
     element off its alignment (TMA cannot address it: the mma.sync kernel;
     no 16-byte loads: the scalar layer_norm_kernel); one small fp32 case per
-    kernel; a 4096-wide bf16 LayerNorm."""
+    kernel; a 4096-wide bf16 LayerNorm; K7 at a C whose positions are not
+    whole 16-byte units (the first port's kernel)."""
     extra = []
     for key, s in sites["fused_windowed_cross_attention"].items():
         if key[0] == 1:
@@ -1658,6 +1679,12 @@ def extra_sites(torch, sites):
             out=None)),
         ("depthwise_conv7x7", ("fp32", 2, 13, 11, 96), dict(
             x=rnd(2, 13, 11, 96), w=rnd(7, 7, 96) * 0.2, bias=rnd(96), out=None)),
+        # 180 bytes a position: no tensor map, the first port's kernel; the
+        # weight a ConvNeXt [C, 1, 7, 7] bf16 weight read in place
+        ("depthwise_conv7x7", ("unaligned_c", 1, 13, 11, 90), dict(
+            x=rnd(1, 13, 11, 90).bfloat16(),
+            w=(rnd(90, 1, 7, 7) * 0.2).bfloat16()[:, 0].permute(1, 2, 0),
+            bias=rnd(90).bfloat16(), out=None)),
         ("fused_mlp", ("fp32", 300, 48, 192, 40), dict(
             x=rnd(300, 48), w1=rnd(48, 192) * 0.1, b1=rnd(192) * 0.1, w2=rnd(192, 40) * 0.1,
             b2=rnd(40) * 0.1, out=None)),
@@ -1692,27 +1719,60 @@ def mlp_expected_functions(torch, site):
     return plan.route, [MLP_TC_FUNCTION if plan.route == "mma_sync" else MLP_SIMT_FUNCTION]
 
 
-def mlp_kernel_check(torch, cases, calls=3):
+def dw_functions(names):
+    """K7's kernel functions among profiled kernel names, as
+    ``name<dtype,...>`` (dtype bf16 or float)."""
+    out = set()
+    for n in names:
+        for fn, args in re.findall(rf"({DW_TMA}|{DW_OLD})<([^>]*)>", n):
+            args = [a.strip().replace("__nv_bfloat16", "bf16") for a in args.split(",")]
+            out.add(f"{fn}<{','.join(args)}>")
+    return sorted(out)
+
+
+def dw_expected_function(torch, site):
+    """(the plan, its kernel function) of K7's wrapper for a site's inputs."""
+    import functools
+
+    from cambrian_tpu_torch.ops import cuda_build, dwconv
+
+    x = site["x"]
+    plan = dwconv._dw_plan(*x.shape, x.dtype, x.stride(), x.data_ptr() % 16 == 0,
+                           dwconv._sms(x.device),
+                           functools.partial(dwconv._occupancy, x.device,
+                                             cuda_build.dtype_code(x)))
+    t = "bf16" if x.dtype == torch.bfloat16 else "float"
+    if plan.function == DW_TMA:
+        return plan, f"{DW_TMA}<{t},{plan.rows},{plan.cols}>"
+    return plan, f"{DW_OLD}<{t}>"
+
+
+def site_function_check(torch, mlp_cases, dw_cases, calls=3):
     """By kernel name, from one ``torch.profiler`` run of ``calls`` calls of
-    every K8 case (label, record, site): every bf16 site of the path plans and
-    runs the up and down wgmma GEMMs, the unaligned case the mma.sync kernel,
-    the fp32 case the SIMT kernel. The mma.sync and SIMT kernels may run at
-    most ``calls`` times, so no site but their own took them. One run for
-    all: after some ten profiler sessions in one process, traces came back
-    without kernels; and a trace of one call has lost one of its kernels."""
-    planned = {label: mlp_expected_functions(torch, s) for label, _, s in cases}
+    every K8 and every K7 case (label, record, site). K8: every bf16 site of
+    the path plans and runs the up and down wgmma GEMMs, the unaligned case
+    the mma.sync kernel, the fp32 case the SIMT kernel; the mma.sync and SIMT
+    kernels may run at most ``calls`` times, so no site but their own took
+    them. K7: every case runs the function its plan names (the TMA kernel at
+    every bf16 site of the path), and the first port's kernel runs no more
+    often than the cases planned on it. One run for all: after some ten
+    profiler sessions in one process, traces came back without kernels; and
+    a trace of one call has lost one of its kernels."""
+    planned = {label: mlp_expected_functions(torch, s) for label, _, s in mlp_cases}
+    dw_planned = {label: dw_expected_function(torch, s) for label, _, s in dw_cases}
 
     def run():
-        for _, _, s in cases:
-            for _ in range(calls):
-                kernel_at_site(torch, "fused_mlp", s)
+        for kind, cases in (("fused_mlp", mlp_cases), ("depthwise_conv7x7", dw_cases)):
+            for _, _, s in cases:
+                for _ in range(calls):
+                    kernel_at_site(torch, kind, s)
 
     prof, _ = profiled(torch, run)
     launched = {}
     for _, n, key in kernel_events(prof):
-        for fn in mlp_functions([key]):
+        for fn in mlp_functions([key]) + dw_functions([key]):
             launched[fn] = launched.get(fn, 0) + n
-    for label, rec, s in cases:
+    for label, rec, s in mlp_cases:
         route, functions = planned[label]
         want = ("simt" if rec["dtype"] == "float32" else
                 "mma_sync" if "unaligned" in label else "wgmma")
@@ -1724,6 +1784,21 @@ def mlp_kernel_check(torch, cases, calls=3):
     for fn in (MLP_TC_FUNCTION, MLP_SIMT_FUNCTION):
         check(launched.get(fn, 0) <= calls, f"{fn} launched {launched.get(fn, 0)} times, more "
               f"than its own case's {calls}: a bf16 site took it")
+    old_cases = 0
+    for label, rec, s in dw_cases:
+        plan, function = dw_planned[label]
+        check(plan.function == rec["function"], f"{label}: planned {plan.function}, the "
+              f"counter saw {rec['function']}")
+        check(launched.get(function, 0) >= calls,
+              f"{label}: planned {function}; the profiled run launched {launched}")
+        old_cases += plan.function == DW_OLD
+        rec["functions"] = [function]
+        rec["plan"] = list(plan)
+        print(f"kernel depthwise_conv7x7 {label} ran {function} (plan {tuple(plan)[1:]})",
+              flush=True)
+    old = sum(n for fn, n in launched.items() if fn.startswith(DW_OLD + "<"))
+    check(old <= old_cases * calls, f"{DW_OLD} launched {old} times, more than the "
+          f"{old_cases * calls} calls of the cases planned on it")
 
 
 def max_err(torch, out, ref):
@@ -1784,7 +1859,7 @@ def vision_kernel_phase(torch, fa, quant, sites):
     on fp32-upcast inputs and against the main path's output at the site,
     CUDA-event times (L2 flushed before each call) of the kernel, the plain
     version and the library call, the bound, and backward checks."""
-    from cambrian_tpu_torch.ops import norms
+    from cambrian_tpu_torch.ops import dwconv, norms
 
     dev = site_device(sites)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -1792,20 +1867,25 @@ def vision_kernel_phase(torch, fa, quant, sites):
     counters = all_counters(fa, quant)
     zero_counts(counters)                              # this slice's path starts here
     norms.fused_layer_norm.function_launches.clear()
+    dwconv.depthwise_conv7x7.function_launches.clear()
     outs = {(kind, key): kernel_at_site(torch, kind, s)
             for kind, found in sites.items() for key, s in found.items()}
     torch.cuda.synchronize()
     launches = read_counts(counters)
     ln_functions = dict(norms.fused_layer_norm.function_launches)
+    dw_functions_run = dict(dwconv.depthwise_conv7x7.function_launches)
     want = {name: len(sites.get(name, {})) for name in counters}
     check(launches == want, f"K5-K8 drop-in pass launched {launches}, not {want} (one per site "
           f"shape)")
     check(ln_functions == {LN_VEC: want["fused_layer_norm"]},
           f"K6 drop-in pass ran {ln_functions}, not {LN_VEC} at every site shape")
+    check(dw_functions_run == {DW_TMA: want["depthwise_conv7x7"]},
+          f"K7 drop-in pass ran {dw_functions_run}, not {DW_TMA} at every site shape")
     l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
     flush = l2.sum
     records = []
-    mlp_cases = []      # K8's cases, checked by kernel name at the end
+    mlp_cases = []      # K8's and K7's cases, checked by kernel name at the end
+    dw_cases = []
     cases = [(kind, key, s, True) for kind, found in sites.items() for key, s in found.items()]
     cases += [(kind, key, s, False) for kind, key, s in extra_sites(torch, sites)]
     for kind, key, s, on_path in cases:
@@ -1843,6 +1923,17 @@ def vision_kernel_phase(torch, fa, quant, sites):
                 check(function == LN_VEC, f"{label}: an aligned bf16 site ran {function}")
             if key[0] == "unaligned":
                 check(function == LN_SCALAR, f"{label}: an unaligned base ran {function}")
+        if kind == "depthwise_conv7x7":
+            # K7's kernel function, by its counter: the TMA kernel at every
+            # case a tensor map addresses, the first port's at the rest
+            counts = dwconv.depthwise_conv7x7.function_launches
+            counts.clear()
+            kernel_at_site(torch, kind, s)
+            torch.cuda.synchronize()
+            check(len(counts) == 1 and sum(counts.values()) == 1, f"{label}: launched {counts}")
+            function = next(iter(counts))
+            want_fn = DW_OLD if key[0] == "unaligned_c" else DW_TMA
+            check(function == want_fn, f"{label}: ran {function}, not {want_fn}")
         big = kind == "fused_mlp" or key[0] == "train_b8"
         iters = 5 if big else 10
         library = {}
@@ -1854,6 +1945,21 @@ def vision_kernel_phase(torch, fa, quant, sites):
                                       **library_call(torch, kind, s)},
                               LN_ITERS, flush, SITE_SPIN_CYCLES)
             ms, plain_ms = t.pop("kernel"), t.pop("plain")
+            library = t
+        elif kind == "depthwise_conv7x7":
+            # medians of DW_ITERS, in turns with the plain version, the first
+            # port's kernel (forced through the plan) and the main path's
+            # F.conv2d on its NCHW input
+            x, w, b = _site_args(torch, kind, s)
+            fns = {"kernel": lambda: kernel_at_site(torch, kind, s),
+                   "plain": lambda: plain_at_site(torch, kind, s)}
+            if function == DW_TMA:
+                fns[DW_OLD] = lambda: dwconv._dwconv_kernel(x, w, b, DW_OLD)
+            if "x_nchw" in s:
+                fns.update(library_call(torch, kind, s))
+            t = cuda_ms_turns(torch, fns, DW_ITERS, flush, SITE_SPIN_CYCLES)
+            ms, plain_ms = t.pop("kernel"), t.pop("plain")
+            first_port_ms = t.pop(DW_OLD, ms)
             library = t
         else:
             ms = cuda_ms(torch, lambda: kernel_at_site(torch, kind, s), iters, flush,
@@ -1882,6 +1988,11 @@ def vision_kernel_phase(torch, fa, quant, sites):
             rec["flops"], rec["tflops"] = n_ops, n_ops / (ms * 1e9)
             rate = f" {rec['tflops']:.1f} TFLOP/s"
             mlp_cases.append((label, rec, s))
+        if kind == "depthwise_conv7x7":
+            rec["first_port_ms"] = first_port_ms
+            rate = (f" {function}, first port {first_port_ms:.4f} ms, {bound_ms / ms:.1%} of "
+                    f"bound")
+            dw_cases.append((label, rec, s))
         lib = " ".join(f"{n}={t:.4f} ms" for n, t in library.items())
         main = "" if main_err is None else f" main-path err={main_err:.3e} (tol {main_tol:.2e})"
         print(f"kernel {kind:13s} {str(key):40s} x{rec['per_request']:<3d} {dtype_name:8s} "
@@ -1890,7 +2001,9 @@ def vision_kernel_phase(torch, fa, quant, sites):
     del l2
     ran = {r["function"] for r in records if r["kernel"] == "fused_layer_norm"}
     check(ran == set(LN_FUNCTIONS), f"K6's cases ran {ran}, not both of {LN_FUNCTIONS}")
-    mlp_kernel_check(torch, mlp_cases)
+    ran = {r["function"] for r in records if r["kernel"] == "depthwise_conv7x7"}
+    check(ran == set(DW_FUNCTIONS), f"K7's cases ran {ran}, not both of {DW_FUNCTIONS}")
+    site_function_check(torch, mlp_cases, dw_cases)
     bwd = backward_checks(torch, sites)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     gc.collect()
@@ -1901,7 +2014,16 @@ def vision_kernel_phase(torch, fa, quant, sites):
           f"{LN_ITERS}: kernel {k6['ms']:.3f} ms, F.layer_norm {k6['library_ms']:.3f} ms "
           f"(below: {k6['ms'] < k6['library_ms']}); every site within 1.02x: "
           f"{all(r['vs_library'] <= 1.02 for r in ln)}", flush=True)
-    return dict(records=records, launches=launches, ln_functions=ln_functions, backward=bwd,
+    dw = [r for r in records if r["kernel"] == "depthwise_conv7x7" and r["per_request"]]
+    k7 = {key: sum(r[key] * r["per_request"] for r in dw)
+          for key in ("ms", "first_port_ms", "library_ms", "bound_ms")}
+    print(f"depthwise_conv7x7: a request's {sum(r['per_request'] for r in dw)} sites, medians "
+          f"of {DW_ITERS}: kernel {k7['ms']:.3f} ms, first port {k7['first_port_ms']:.3f} ms, "
+          f"F.conv2d {k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms; every site faster "
+          f"than both: {all(r['ms'] < min(r['first_port_ms'], r['library_ms']) for r in dw)}; "
+          f"shares of bound {[round(r['bound_ms'] / r['ms'], 3) for r in dw]}", flush=True)
+    return dict(records=records, launches=launches, ln_functions=ln_functions,
+                dw_functions=dw_functions_run, backward=bwd,
                 sites={kind: {str(k): s["count"] for k, s in found.items()}
                        for kind, found in sites.items()})
 
@@ -2006,6 +2128,29 @@ def main(argv=None):
           f"{max(v[2] for v in ln_sass.values())} I2F at most, "
           f"{sum(v[0] + v[1] for v in ln_sass.values())} tensor-core instructions; the widest "
           f"site's {LN_VEC}<bf16,32,12>: {widest}", flush=True)
+    # K7: every instance of the TMA kernel (2 dtypes x dwconv.DW_INSTANCES)
+    # and the first port's kernel, without spills; the TMA kernel's
+    # registers and its tile loop's FFMA share (FFMA of the innermost
+    # backward-branch span with the most FFMA, over its instructions)
+    from cambrian_tpu_torch.ops.dwconv import DW_INSTANCES
+
+    dw_usage = resource_usage(built["dwconv"]["path"])
+    dw_loops = loop_instructions(built["dwconv"]["path"], "FFMA", innermost=True)
+    want_dw = {f"{DW_TMA}<{t},{r},{c}>" for t in ("float", "bf16") for r, c in DW_INSTANCES}
+    want_dw |= {f"{DW_OLD}<{t}>" for t in ("float", "bf16")}
+    check(set(dw_usage) == want_dw, f"dwconv: {sorted(dw_usage)} are its kernel functions, not "
+          f"{sorted(want_dw)}")
+    for fn in sorted(want_dw):
+        regs, stack, local = dw_usage[fn]
+        body, ffma = dw_loops.get(fn) or (None, None)
+        share = ffma / body if fn.startswith(DW_TMA) and body else None
+        sass[fn] = dict(library="dwconv", registers=regs, stack_bytes=stack, local_bytes=local,
+                        loop_instructions=body, loop_ffma=ffma, ffma_share=share)
+        print(f"{fn}: {regs} registers, {stack} bytes of stack, {local} bytes of local memory"
+              + ("" if share is None else
+                 f"; tile loop {body} instructions, {ffma} FFMA ({share:.1%})"), flush=True)
+    spilled = {fn: u for fn, u in dw_usage.items() if u[1] or u[2]}
+    check(not spilled, f"K7 functions spill (registers, stack, local): {spilled}")
     missing = [fn for fn in MLP_WGMMA_FUNCTIONS if fn not in sass]
     check(not missing, f"fused_mlp lacks its wgmma GEMM functions {missing}")
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in MLP_WGMMA_FUNCTIONS),

@@ -461,7 +461,12 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, dtype, rows, cols)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(1, 13, 11, 96), (2, 32, 32, 384), (1, 9, 40, 3072)],
+@pytest.mark.parametrize("shape", [(1, 13, 11, 96), (2, 32, 32, 384), (1, 9, 40, 3072),
+                                   # ConvNeXt-XXL's four stages at 1024 px
+                                   (1, 256, 256, 384), (1, 128, 128, 768), (1, 64, 64, 1536),
+                                   (1, 32, 32, 3072),
+                                   # positions of 180 / 360 bytes: no tensor map
+                                   (1, 13, 11, 90)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_dwconv_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
@@ -469,8 +474,11 @@ def test_dwconv_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     w = torch.randn((7, 7, shape[-1]), generator=g, device=cuda_device) * 0.2
     b = torch.randn(shape[-1], generator=g, device=cuda_device)
     before = dwconv.depthwise_conv7x7.launches
+    routes = dict(dwconv.depthwise_conv7x7.function_launches)
     out = dwconv.depthwise_conv7x7(x, w, b)
     assert dwconv.depthwise_conv7x7.launches == before + 1 and out.dtype == dtype
+    want = dwconv.DW_OLD if shape[-1] == 90 else dwconv.DW_TMA
+    assert dwconv.depthwise_conv7x7.function_launches[want] == routes.get(want, 0) + 1
     _held(out, dwconv.depthwise_conv7x7_reference(x.float(), w, b), dtype)
 
 
