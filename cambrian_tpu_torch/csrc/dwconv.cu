@@ -431,25 +431,8 @@ Params make_params(int w_dtype, const void* w, long long s_dy, long long s_dx, l
   return p;
 }
 
-// err as an int, after clearing the runtime's record of it, so that a
-// refused call does not surface again at the next launch's check.
-int refused(cudaError_t err) {
-  if (err != cudaSuccess) cudaGetLastError();
-  return (int)err;
-}
-
-// Whether a block may take `smem` bytes of dynamic shared memory on the
-// current device (its opt-in limit); false also where the device cannot say.
-bool smem_fits(size_t smem) {
-  int dev = 0, limit = 0;
-  const cudaDeviceAttr optin = cudaDevAttrMaxSharedMemoryPerBlockOptin;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, optin, dev) != cudaSuccess) {
-    cudaGetLastError();
-    return false;
-  }
-  return smem <= (size_t)limit;
-}
+using hopper_host::refused;
+using hopper_host::smem_fits;
 
 bool bad_dtypes(int dtype, int w_dtype, int b_dtype) {
   return (dtype != 0 && dtype != 1) || (w_dtype != 0 && w_dtype != 1) ||

@@ -22,6 +22,9 @@
 // shared memory, B read MN-major (wgmma_ss_mn).
 // The fused MLP's two GEMMs (fused_mlp.cu) use the same 2-D tensor maps and
 // 64-column K slabs, with both operands read K-major (wgmma_ss_n64 .. n256).
+// The persistent depthwise conv (dwconv.cu) and SVA attention
+// (sva_attention.cu) kernels share the host's launch checks (refused,
+// smem_fits) and their tensor maps (nhwc_box_map, tile_map_2d).
 
 #pragma once
 
@@ -525,6 +528,26 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t desc_a, uin
 // -- host -------------------------------------------------------------------
 
 namespace hopper_host {
+
+// err as an int, after clearing the runtime's record of it, so that a
+// refused call does not surface again at the next launch's check.
+inline int refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+// Whether a block may take `smem` bytes of dynamic shared memory on the
+// current device (its opt-in limit); false also where the device cannot say.
+inline bool smem_fits(size_t smem) {
+  int dev = 0, limit = 0;
+  const cudaDeviceAttr optin = cudaDevAttrMaxSharedMemoryPerBlockOptin;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, optin, dev) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  return smem <= (size_t)limit;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

@@ -24,7 +24,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    must be there without spills; so must every instance of K7's
    ``dwconv7x7_tma_kernel`` (2 dtypes x the register blocks of
    ``dwconv.DW_INSTANCES``) and ``dwconv7x7_kernel``, with the TMA kernel's
-   registers and its tile loop's FFMA share printed;
+   registers and its tile loop's FFMA share printed; and every instance of
+   K5's ``sva_attention_tma_kernel`` (the (lanes, window class) pairs of
+   ``sva_attention.SVA_INSTANCES`` each dtype can need) and
+   ``sva_attention_kernel``,
+   with their registers and the 8B site plan's shared memory printed;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
    prefill with GQA) in bf16 and fp32, plus a causal case with padding and
@@ -118,13 +122,21 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    and every captured site must run ``dwconv7x7_tma_kernel``; a bf16 case
    with C = 90, whose positions are not whole 16-byte units, must run
    ``dwconv7x7_kernel``, so both K7 functions are held against plain);
-   K5-K7's backward against the plain backward. One ``torch.profiler`` run
-   of every K8 and K7 case must show the up and down wgmma functions that
-   each bf16 K8 site plans, the ``mma.sync`` kernel for the unaligned case
-   and the SIMT kernel for the fp32 one, each of those two no more often
-   than its own case's calls, and the K7 function (with its register block)
-   that each K7 case plans; K8's TFLOP/s (2 M H (C + C2) / time) are
-   printed.
+   K5 timed as medians of 30 in turns with its plain version, the first
+   port's ``sva_attention_kernel`` (forced through the plan), SDPA on the
+   batch-flattened windows (the library call) and the main path's einsums,
+   every case naming its kernel function by the wrapper's counter (the
+   drop-in pass, the site and its training batch must run
+   ``sva_attention_tma_kernel``; a bf16 case with k and v as views whose
+   heads lie W D apart must run ``sva_attention_kernel``, so both K5
+   functions are held against plain), with a request's sums and each case's
+   share of the bound; K5-K7's backward against the plain backward. One
+   ``torch.profiler`` run of every K8, K7 and K5 case must show the up and
+   down wgmma functions that each bf16 K8 site plans, the ``mma.sync``
+   kernel for the unaligned case and the SIMT kernel for the fp32 one, each
+   of those two no more often than its own case's calls, and the K7 and K5
+   function (with its template arguments) that each K7 and K5 case plans;
+   K8's TFLOP/s (2 M H (C + C2) / time) are printed.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -296,7 +308,7 @@ def kernel_name(mangled):
     ``name<template arguments>`` (integers, bf16 or float); other names as
     they are."""
     names = (K1_FUNCTIONS + K2_FUNCTIONS + QUANT_FUNCTIONS + MLP_FUNCTIONS + LN_FUNCTIONS
-             + DW_FUNCTIONS)
+             + DW_FUNCTIONS + SVA_FUNCTIONS)
     m = re.search(rf"({'|'.join(names)})"
                   r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled)
     if m is None:
@@ -1160,6 +1172,10 @@ LN_VEC, LN_SCALAR = LN_FUNCTIONS
 # thread> and the first port's kernel <dtype>
 DW_FUNCTIONS = ("dwconv7x7_tma_kernel", "dwconv7x7_kernel")
 DW_TMA, DW_OLD = DW_FUNCTIONS
+# K5's functions: the persistent TMA-fed kernel <dtype, lanes a key row,
+# window class> and the first port's kernel <dtype>
+SVA_FUNCTIONS = ("sva_attention_tma_kernel", "sva_attention_kernel")
+SVA_TMA, SVA_OLD = SVA_FUNCTIONS
 # the wgmma prefill GEMM's functions: <mode, tile columns>
 WGMMA_FUNCTIONS = [f"gemm_wgmma_kernel<{mode},{bn}>" for mode in range(3) for bn in (64, 128)]
 # K8's bf16 GEMMs (bias + GELU, and bias): <tile columns>; its kernels for
@@ -1431,6 +1447,7 @@ VISION_KERNELS = {
 SITE_REL_PLAIN = 2 ** -7   # bf16 kernel vs its plain version on fp32-upcast inputs
 LN_ITERS = 30              # K6's calls a site, timed in turns with the PyTorch calls
 DW_ITERS = 30              # K7's, in turns with the first port's kernel and F.conv2d
+SVA_ITERS = 30             # K5's, in turns with the first port's kernel, SDPA and einsums
 # vs the main path's own op at the site: K5's einsum path rounds the
 # probabilities to bf16 before PV and K8's main path rounds the first
 # Linear's output (and adds its bias) in bf16 before GELU, so each differs
@@ -1624,7 +1641,9 @@ def library_call(torch, kind, site):
 def extra_sites(torch, sites):
     """Cases beside the captured ones, not on the path: the training batch
     (B = 8) of K5 and of K7 at (64^2, 1536), made by repeating the captured
-    request; K8 at an SVA site and K6 at the CLIP site with x moved one
+    request; K5 at its site with k and v as views whose heads lie W D apart
+    (no tensor map: the first port's kernel, so both K5 functions are held
+    against plain); K8 at an SVA site and K6 at the CLIP site with x moved one
     element off its alignment (TMA cannot address it: the mma.sync kernel;
     no 16-byte loads: the scalar layer_norm_kernel); one small fp32 case per
     kernel; a 4096-wide bf16 LayerNorm; K7 at a C whose positions are not
@@ -1637,6 +1656,11 @@ def extra_sites(torch, sites):
                        mask=None if s["mask"] is None else s["mask"].repeat(
                            8, *([1] * (s["mask"].dim() - 1))))
             extra.append(("fused_windowed_cross_attention", ("train_b8", *rep["k"].shape), rep))
+            # k and v as [B, Q, W, H, D] views of [B, Q, H, W, D] storage: no
+            # tensor map, the first port's kernel
+            strided = dict(s, out=None, **{
+                t: s[t].transpose(2, 3).contiguous().transpose(2, 3) for t in ("k", "v")})
+            extra.append(("fused_windowed_cross_attention", ("strided", *s["k"].shape), strided))
             break
     for key, s in sites["depthwise_conv7x7"].items():
         if key[1:] == (64, 64, 1536):
@@ -1719,12 +1743,12 @@ def mlp_expected_functions(torch, site):
     return plan.route, [MLP_TC_FUNCTION if plan.route == "mma_sync" else MLP_SIMT_FUNCTION]
 
 
-def dw_functions(names):
-    """K7's kernel functions among profiled kernel names, as
+def templated_functions(names, functions):
+    """The kernel functions of ``functions`` among profiled kernel names, as
     ``name<dtype,...>`` (dtype bf16 or float)."""
     out = set()
     for n in names:
-        for fn, args in re.findall(rf"({DW_TMA}|{DW_OLD})<([^>]*)>", n):
+        for fn, args in re.findall(rf"\b({'|'.join(functions)})<([^>]*)>", n):
             args = [a.strip().replace("__nv_bfloat16", "bf16") for a in args.split(",")]
             out.add(f"{fn}<{','.join(args)}>")
     return sorted(out)
@@ -1747,22 +1771,42 @@ def dw_expected_function(torch, site):
     return plan, f"{DW_OLD}<{t}>"
 
 
-def site_function_check(torch, mlp_cases, dw_cases, calls=3):
+def sva_expected_function(torch, site):
+    """(the plan, its kernel function) of K5's wrapper for a site's inputs."""
+    import functools
+
+    from cambrian_tpu_torch.ops import cuda_build, sva_attention
+
+    q, k, v = site["q"], site["k"], site["v"]
+    b, n_q, h, d = q.shape
+    plan = sva_attention._sva_plan(
+        b, n_q, h, k.shape[2], d, q.dtype, (q.stride(), k.stride(), v.stride()),
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v)), sva_attention._sms(q.device),
+        functools.partial(sva_attention._occupancy, q.device, cuda_build.dtype_code(q)))
+    t = "bf16" if q.dtype == torch.bfloat16 else "float"
+    if plan.function == SVA_TMA:
+        return plan, f"{SVA_TMA}<{t},{plan.lanes},{plan.window}>"
+    return plan, f"{SVA_OLD}<{t}>"
+
+
+def site_function_check(torch, mlp_cases, dw_cases, sva_cases, calls=3):
     """By kernel name, from one ``torch.profiler`` run of ``calls`` calls of
-    every K8 and every K7 case (label, record, site). K8: every bf16 site of
+    every K8, K7 and K5 case (label, record, site). K8: every bf16 site of
     the path plans and runs the up and down wgmma GEMMs, the unaligned case
     the mma.sync kernel, the fp32 case the SIMT kernel; the mma.sync and SIMT
     kernels may run at most ``calls`` times, so no site but their own took
-    them. K7: every case runs the function its plan names (the TMA kernel at
-    every bf16 site of the path), and the first port's kernel runs no more
-    often than the cases planned on it. One run for all: after some ten
-    profiler sessions in one process, traces came back without kernels; and
-    a trace of one call has lost one of its kernels."""
+    them. K7 and K5: every case runs the function its plan names (the TMA
+    kernel at every bf16 site of the path), and the first port's kernel runs
+    no more often than the cases planned on it. One run for all: after some
+    ten profiler sessions in one process, traces came back without kernels;
+    and a trace of one call has lost one of its kernels."""
     planned = {label: mlp_expected_functions(torch, s) for label, _, s in mlp_cases}
-    dw_planned = {label: dw_expected_function(torch, s) for label, _, s in dw_cases}
+    routed = {"depthwise_conv7x7": (dw_cases, dw_expected_function, DW_OLD),
+              "fused_windowed_cross_attention": (sva_cases, sva_expected_function, SVA_OLD)}
 
     def run():
-        for kind, cases in (("fused_mlp", mlp_cases), ("depthwise_conv7x7", dw_cases)):
+        for kind, cases in (("fused_mlp", mlp_cases), ("depthwise_conv7x7", dw_cases),
+                            ("fused_windowed_cross_attention", sva_cases)):
             for _, _, s in cases:
                 for _ in range(calls):
                     kernel_at_site(torch, kind, s)
@@ -1770,7 +1814,7 @@ def site_function_check(torch, mlp_cases, dw_cases, calls=3):
     prof, _ = profiled(torch, run)
     launched = {}
     for _, n, key in kernel_events(prof):
-        for fn in mlp_functions([key]) + dw_functions([key]):
+        for fn in mlp_functions([key]) + templated_functions([key], DW_FUNCTIONS + SVA_FUNCTIONS):
             launched[fn] = launched.get(fn, 0) + n
     for label, rec, s in mlp_cases:
         route, functions = planned[label]
@@ -1784,21 +1828,21 @@ def site_function_check(torch, mlp_cases, dw_cases, calls=3):
     for fn in (MLP_TC_FUNCTION, MLP_SIMT_FUNCTION):
         check(launched.get(fn, 0) <= calls, f"{fn} launched {launched.get(fn, 0)} times, more "
               f"than its own case's {calls}: a bf16 site took it")
-    old_cases = 0
-    for label, rec, s in dw_cases:
-        plan, function = dw_planned[label]
-        check(plan.function == rec["function"], f"{label}: planned {plan.function}, the "
-              f"counter saw {rec['function']}")
-        check(launched.get(function, 0) >= calls,
-              f"{label}: planned {function}; the profiled run launched {launched}")
-        old_cases += plan.function == DW_OLD
-        rec["functions"] = [function]
-        rec["plan"] = list(plan)
-        print(f"kernel depthwise_conv7x7 {label} ran {function} (plan {tuple(plan)[1:]})",
-              flush=True)
-    old = sum(n for fn, n in launched.items() if fn.startswith(DW_OLD + "<"))
-    check(old <= old_cases * calls, f"{DW_OLD} launched {old} times, more than the "
-          f"{old_cases * calls} calls of the cases planned on it")
+    for kind, (cases, expected, old_fn) in routed.items():
+        old_cases = 0
+        for label, rec, s in cases:
+            plan, function = expected(torch, s)
+            check(plan.function == rec["function"], f"{label}: planned {plan.function}, the "
+                  f"counter saw {rec['function']}")
+            check(launched.get(function, 0) >= calls,
+                  f"{label}: planned {function}; the profiled run launched {launched}")
+            old_cases += plan.function == old_fn
+            rec["functions"] = [function]
+            rec["plan"] = list(plan)
+            print(f"kernel {kind} {label} ran {function} (plan {tuple(plan)[1:]})", flush=True)
+        old = sum(n for fn, n in launched.items() if fn.startswith(old_fn + "<"))
+        check(old <= old_cases * calls, f"{old_fn} launched {old} times, more than the "
+              f"{old_cases * calls} calls of the cases planned on it")
 
 
 def max_err(torch, out, ref):
@@ -1859,21 +1903,24 @@ def vision_kernel_phase(torch, fa, quant, sites):
     on fp32-upcast inputs and against the main path's output at the site,
     CUDA-event times (L2 flushed before each call) of the kernel, the plain
     version and the library call, the bound, and backward checks."""
-    from cambrian_tpu_torch.ops import dwconv, norms
+    from cambrian_tpu_torch.ops import dwconv, norms, sva_attention
 
     dev = site_device(sites)
+    sva_fn = sva_attention.fused_windowed_cross_attention
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
     counters = all_counters(fa, quant)
     zero_counts(counters)                              # this slice's path starts here
     norms.fused_layer_norm.function_launches.clear()
     dwconv.depthwise_conv7x7.function_launches.clear()
+    sva_fn.function_launches.clear()
     outs = {(kind, key): kernel_at_site(torch, kind, s)
             for kind, found in sites.items() for key, s in found.items()}
     torch.cuda.synchronize()
     launches = read_counts(counters)
     ln_functions = dict(norms.fused_layer_norm.function_launches)
     dw_functions_run = dict(dwconv.depthwise_conv7x7.function_launches)
+    sva_functions_run = dict(sva_fn.function_launches)
     want = {name: len(sites.get(name, {})) for name in counters}
     check(launches == want, f"K5-K8 drop-in pass launched {launches}, not {want} (one per site "
           f"shape)")
@@ -1881,11 +1928,14 @@ def vision_kernel_phase(torch, fa, quant, sites):
           f"K6 drop-in pass ran {ln_functions}, not {LN_VEC} at every site shape")
     check(dw_functions_run == {DW_TMA: want["depthwise_conv7x7"]},
           f"K7 drop-in pass ran {dw_functions_run}, not {DW_TMA} at every site shape")
+    check(sva_functions_run == {SVA_TMA: want["fused_windowed_cross_attention"]},
+          f"K5 drop-in pass ran {sva_functions_run}, not {SVA_TMA} at every site shape")
     l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
     flush = l2.sum
     records = []
-    mlp_cases = []      # K8's and K7's cases, checked by kernel name at the end
+    mlp_cases = []      # K8's, K7's and K5's cases, checked by kernel name at the end
     dw_cases = []
+    sva_cases = []
     cases = [(kind, key, s, True) for kind, found in sites.items() for key, s in found.items()]
     cases += [(kind, key, s, False) for kind, key, s in extra_sites(torch, sites)]
     for kind, key, s, on_path in cases:
@@ -1934,6 +1984,17 @@ def vision_kernel_phase(torch, fa, quant, sites):
             function = next(iter(counts))
             want_fn = DW_OLD if key[0] == "unaligned_c" else DW_TMA
             check(function == want_fn, f"{label}: ran {function}, not {want_fn}")
+        if kind == "fused_windowed_cross_attention":
+            # K5's kernel function, by its counter: the TMA kernel at every
+            # case but the one whose k and v no tensor map addresses
+            counts = sva_fn.function_launches
+            counts.clear()
+            kernel_at_site(torch, kind, s)
+            torch.cuda.synchronize()
+            check(len(counts) == 1 and sum(counts.values()) == 1, f"{label}: launched {counts}")
+            function = next(iter(counts))
+            want_fn = SVA_OLD if key[0] == "strided" else SVA_TMA
+            check(function == want_fn, f"{label}: ran {function}, not {want_fn}")
         big = kind == "fused_mlp" or key[0] == "train_b8"
         iters = 5 if big else 10
         library = {}
@@ -1960,6 +2021,21 @@ def vision_kernel_phase(torch, fa, quant, sites):
             t = cuda_ms_turns(torch, fns, DW_ITERS, flush, SITE_SPIN_CYCLES)
             ms, plain_ms = t.pop("kernel"), t.pop("plain")
             first_port_ms = t.pop(DW_OLD, ms)
+            library = t
+        elif kind == "fused_windowed_cross_attention":
+            # medians of SVA_ITERS, in turns with the plain version, the first
+            # port's kernel (forced through the plan), SDPA on the
+            # batch-flattened windows and the main path's einsums
+            q, k, v, m = _site_args(torch, kind, s)
+            fns = {"kernel": lambda: kernel_at_site(torch, kind, s),
+                   "plain": lambda: plain_at_site(torch, kind, s)}
+            if function == SVA_TMA:
+                fns[SVA_OLD] = lambda: sva_attention._sva_kernel(q, k, v, m, q.shape[-1] ** -0.5,
+                                                                 SVA_OLD)
+            fns.update(library_call(torch, kind, s))
+            t = cuda_ms_turns(torch, fns, SVA_ITERS, flush, SITE_SPIN_CYCLES)
+            ms, plain_ms = t.pop("kernel"), t.pop("plain")
+            first_port_ms = t.pop(SVA_OLD, ms)
             library = t
         else:
             ms = cuda_ms(torch, lambda: kernel_at_site(torch, kind, s), iters, flush,
@@ -1988,11 +2064,11 @@ def vision_kernel_phase(torch, fa, quant, sites):
             rec["flops"], rec["tflops"] = n_ops, n_ops / (ms * 1e9)
             rate = f" {rec['tflops']:.1f} TFLOP/s"
             mlp_cases.append((label, rec, s))
-        if kind == "depthwise_conv7x7":
+        if kind in ("depthwise_conv7x7", "fused_windowed_cross_attention"):
             rec["first_port_ms"] = first_port_ms
             rate = (f" {function}, first port {first_port_ms:.4f} ms, {bound_ms / ms:.1%} of "
                     f"bound")
-            dw_cases.append((label, rec, s))
+            (dw_cases if kind == "depthwise_conv7x7" else sva_cases).append((label, rec, s))
         lib = " ".join(f"{n}={t:.4f} ms" for n, t in library.items())
         main = "" if main_err is None else f" main-path err={main_err:.3e} (tol {main_tol:.2e})"
         print(f"kernel {kind:13s} {str(key):40s} x{rec['per_request']:<3d} {dtype_name:8s} "
@@ -2003,7 +2079,9 @@ def vision_kernel_phase(torch, fa, quant, sites):
     check(ran == set(LN_FUNCTIONS), f"K6's cases ran {ran}, not both of {LN_FUNCTIONS}")
     ran = {r["function"] for r in records if r["kernel"] == "depthwise_conv7x7"}
     check(ran == set(DW_FUNCTIONS), f"K7's cases ran {ran}, not both of {DW_FUNCTIONS}")
-    site_function_check(torch, mlp_cases, dw_cases)
+    ran = {r["function"] for r in records if r["kernel"] == "fused_windowed_cross_attention"}
+    check(ran == set(SVA_FUNCTIONS), f"K5's cases ran {ran}, not both of {SVA_FUNCTIONS}")
+    site_function_check(torch, mlp_cases, dw_cases, sva_cases)
     bwd = backward_checks(torch, sites)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     gc.collect()
@@ -2022,8 +2100,21 @@ def vision_kernel_phase(torch, fa, quant, sites):
           f"F.conv2d {k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms; every site faster "
           f"than both: {all(r['ms'] < min(r['first_port_ms'], r['library_ms']) for r in dw)}; "
           f"shares of bound {[round(r['bound_ms'] / r['ms'], 3) for r in dw]}", flush=True)
+    sva = [r for r in records if r["kernel"] == "fused_windowed_cross_attention"]
+    on_path = [r for r in sva if r["per_request"]]
+    k5 = {key: sum(r[key] * r["per_request"] for r in on_path)
+          for key in ("ms", "first_port_ms", "library_ms", "bound_ms")}
+    k5["einsum"] = sum(r["library"]["einsum path"] * r["per_request"] for r in on_path)
+    faster = all(r["ms"] < min(r["first_port_ms"], *r["library"].values())
+                 for r in sva if r["function"] == SVA_TMA)
+    print(f"fused_windowed_cross_attention: a request's {sum(r['per_request'] for r in on_path)} "
+          f"calls, medians of {SVA_ITERS}: kernel {k5['ms']:.4f} ms, first port "
+          f"{k5['first_port_ms']:.4f} ms, sdpa {k5['library_ms']:.4f} ms, einsum path "
+          f"{k5['einsum']:.4f} ms, bound {k5['bound_ms']:.4f} ms; every {SVA_TMA} case faster "
+          f"than the first port, sdpa and the einsum path: {faster}; shares of bound "
+          f"{[(r['site'][0], round(r['bound_ms'] / r['ms'], 3)) for r in sva]}", flush=True)
     return dict(records=records, launches=launches, ln_functions=ln_functions,
-                dw_functions=dw_functions_run, backward=bwd,
+                dw_functions=dw_functions_run, sva_functions=sva_functions_run, backward=bwd,
                 sites={kind: {str(k): s["count"] for k, s in found.items()}
                        for kind, found in sites.items()})
 
@@ -2151,6 +2242,38 @@ def main(argv=None):
                  f"; tile loop {body} instructions, {ffma} FFMA ({share:.1%})"), flush=True)
     spilled = {fn: u for fn, u in dw_usage.items() if u[1] or u[2]}
     check(not spilled, f"K7 functions spill (registers, stack, local): {spilled}")
+    # K5: every instance of the TMA kernel (the pairs of SVA_INSTANCES each dtype needs)
+    # and the first port's kernel, without spills; their registers, and the
+    # 8B site plan's dynamic shared memory a block (no kernel has static)
+    from cambrian_tpu_torch.ops import sva_attention as sva_ops
+
+    sva_usage = resource_usage(built["sva_attention"]["path"])
+    want_sva = {f"{SVA_TMA}<{t},{lanes},{window}>" for t, elem in (("float", 4), ("bf16", 2))
+                for lanes, window in sva_ops.SVA_INSTANCES if lanes <= 8 * elem}
+    want_sva |= {f"{SVA_OLD}<{t}>" for t in ("float", "bf16")}
+    check(set(sva_usage) == want_sva, f"sva_attention: {sorted(sva_usage)} are its kernel "
+          f"functions, not {sorted(want_sva)}")
+    for fn in sorted(want_sva):
+        regs, stack, local = sva_usage[fn]
+        sass[fn] = dict(library="sva_attention", registers=regs, stack_bytes=stack,
+                        local_bytes=local)
+        print(f"{fn}: {regs} registers, {stack} bytes of stack, {local} bytes of local memory",
+              flush=True)
+    spilled = {fn: u for fn, u in sva_usage.items() if u[1] or u[2]}
+    check(not spilled, f"K5 functions spill (registers, stack, local): {spilled}")
+    site = (1, 576, 19, 16, 64)       # B, Q, W, H, D of the 8B request's SVA attention
+    b, n_q, w, h, d = site
+    dev = torch.device("cuda")
+    plan = sva_ops._sva_plan(
+        b, n_q, h, w, d, torch.bfloat16, ((n_q * h * d, h * d, d, 1),) + (
+            (n_q * w * h * d, w * h * d, h * d, d, 1),) * 2, True, sva_ops._sms(dev),
+        lambda *a: sva_ops._occupancy(dev, 1, *a))
+    smem = sva_ops.sva_smem_bytes(plan.heads, w, d, 2, plan.stages)
+    fn = f"{SVA_TMA}<bf16,{plan.lanes},{plan.window}>"
+    sass[fn].update(plan=list(plan), dynamic_smem_bytes=smem)
+    print(f"{fn} at the 8B site {site}: plan {tuple(plan)[1:]}, "
+          f"{smem} bytes of dynamic shared memory a block, {plan.blocks_per_sm} blocks an SM "
+          f"({plan.blocks_per_sm * smem} bytes)", flush=True)
     missing = [fn for fn in MLP_WGMMA_FUNCTIONS if fn not in sass]
     check(not missing, f"fused_mlp lacks its wgmma GEMM functions {missing}")
     check(all(sass[fn]["hgmma"] > 0 and sass[fn]["hmma"] == 0 for fn in MLP_WGMMA_FUNCTIONS),

@@ -485,16 +485,26 @@ def test_dwconv_kernel_matches_plain_on_card(cuda_device, dtype, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("case", [(1, 576, 19, 16, 64, "3d"), (2, 70, 64, 3, 72, "4d"),
-                                  (1, 33, 5, 2, 128, "none"), (2, 64, 19, 4, 64, "dead")],
+                                  (1, 33, 5, 2, 128, "none"), (2, 64, 19, 4, 64, "dead"),
+                                  # the 8B site at the training batch
+                                  (8, 576, 19, 16, 64, "3d"),
+                                  # k and v as [B, Q, W, H, D] views of [B, Q, H, W, D]
+                                  # storage: no tensor map, the first port's kernel
+                                  (1, 576, 19, 16, 64, "3d", "strided")],
                          ids=lambda c: "-".join(map(str, c)))
 def test_sva_kernel_matches_plain_on_card(cuda_device, dtype, case):
-    b, n_q, w, h, d, kind = case
+    b, n_q, w, h, d, kind, *layout = case
     qa, ka, va, mask = _sva_inputs(w + d, b, n_q, w, h, d, kind)
     q, k, v = (_t(a).to(cuda_device, dtype) for a in (qa, ka, va))
+    if layout:
+        k, v = (t.transpose(2, 3).contiguous().transpose(2, 3) for t in (k, v))
     m = None if mask is None else _t(mask).to(cuda_device)
-    before = sva_attention.fused_windowed_cross_attention.launches
-    out = sva_attention.fused_windowed_cross_attention(q, k, v, m)
-    assert sva_attention.fused_windowed_cross_attention.launches == before + 1
+    fn = sva_attention.fused_windowed_cross_attention
+    before, routes = fn.launches, dict(fn.function_launches)
+    out = fn(q, k, v, m)
+    assert fn.launches == before + 1
+    want = sva_attention.SVA_OLD if layout else sva_attention.SVA_TMA
+    assert fn.function_launches[want] == routes.get(want, 0) + 1
     _held(out, sva_attention.fused_windowed_cross_attention_reference(
         q.float(), k.float(), v.float(), m), dtype)
 
