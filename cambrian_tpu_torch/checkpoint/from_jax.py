@@ -46,7 +46,7 @@ def state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Te
     for name, value in flat.items():
         arr = np.asarray(value)
         if not np.issubdtype(arr.dtype, np.integer):
-            arr = arr.astype(np.float32)
+            arr = arr.astype(np.float32, copy=False)    # np.array below copies
         head, _, leaf = name.rpartition(".")
         quantized = f"{head}.kernel_q" in flat or f"{head}.kernel_q4" in flat
         if leaf == "kernel":

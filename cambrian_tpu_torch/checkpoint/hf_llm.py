@@ -288,10 +288,20 @@ def export_cambrian(params: dict, cfg: CambrianConfig) -> Dict[str, np.ndarray]:
             layer["input_layernorm"]["weight"])
         out[lp + "post_attention_layernorm.weight"] = np.asarray(
             layer["post_attention_layernorm"]["weight"])
+        attn, mlp = layer["self_attn"], layer["mlp"]
+        if cfg.model_type == "phi3":
+            # Phi-3's fused projections, as convert_phi3_decoder splits them
+            out[lp + "self_attn.qkv_proj.weight"] = np.concatenate(
+                [np.asarray(attn[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")])
+            out[lp + "mlp.gate_up_proj.weight"] = np.concatenate(
+                [np.asarray(mlp[n]["kernel"]).T for n in ("gate_proj", "up_proj")])
+            _export_dense(out, lp + "self_attn.o_proj", attn["o_proj"])
+            _export_dense(out, lp + "mlp.down_proj", mlp["down_proj"])
+            continue
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            _export_dense(out, lp + f"self_attn.{name}", layer["self_attn"][name])
+            _export_dense(out, lp + f"self_attn.{name}", attn[name])
         for name in ("gate_proj", "up_proj", "down_proj"):
-            _export_dense(out, lp + f"mlp.{name}", layer["mlp"][name])
+            _export_dense(out, lp + f"mlp.{name}", mlp[name])
     if "lm_head" in params:
         out["lm_head.weight"] = np.asarray(params["lm_head"]["kernel"]).T
     if cfg.mm_projector_type == "sva":

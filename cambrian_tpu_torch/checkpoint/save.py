@@ -5,20 +5,20 @@ loader read back.
 
 The port's module is first turned into the JAX package's parameter tree
 (``module_params_tree``, the inverse of ``from_jax.state_dict_from_jax``),
-then named by the port's ``hf_llm.export_cambrian``. safetensors is imported
-only when a checkpoint is written, as the loader imports it.
+then named by the port's ``hf_llm.export_cambrian`` and written by the
+port's own ``safetensors_io`` (no ``safetensors`` package needed).
 """
 
 import json
 import os
 from typing import Any, Optional
 
-import numpy as np
 from torch import nn
 
 from ..models.config import CambrianConfig
 from ..ops.norms import LayerNorm
 from .hf_llm import export_cambrian
+from .safetensors_io import save_sharded
 
 _REVERSE_MODEL_TYPE = {
     "llama": "cambrian_llama",
@@ -63,13 +63,9 @@ def module_params_tree(module: nn.Module) -> dict:
     return tree
 
 
-def save_pretrained(model: Any, config: CambrianConfig, path: str,
-                    tokenizer: Optional[Any] = None,
-                    shard_size_bytes: int = 4 * 1024 ** 3) -> None:
-    """Write an HF-format checkpoint directory from a ``CambrianLM`` (or its
-    JAX-layout parameter tree)."""
-    from safetensors.numpy import save_file
-
+def save_config(config: CambrianConfig, path: str) -> None:
+    """Write ``config.json`` with the published ``model_type``
+    (``cambrian_llama``, ``cambrian_phi3``, ...)."""
     os.makedirs(path, exist_ok=True)
     raw = config.to_dict()
     raw["model_type"] = _REVERSE_MODEL_TYPE.get(config.model_type, config.model_type)
@@ -77,35 +73,17 @@ def save_pretrained(model: Any, config: CambrianConfig, path: str,
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(raw, f, indent=2, sort_keys=True)
 
+
+def save_pretrained(model: Any, config: CambrianConfig, path: str,
+                    tokenizer: Optional[Any] = None,
+                    shard_size_bytes: int = 4 * 1024 ** 3) -> None:
+    """Write an HF-format checkpoint directory from a ``CambrianLM`` (or its
+    JAX-layout parameter tree)."""
+    save_config(config, path)
     params = module_params_tree(model) if isinstance(model, nn.Module) else model
     if "params" in params:
         params = params["params"]
-    # safetensors writes the raw buffer: a transposed view must be copied
-    sd = {k: np.ascontiguousarray(np.asarray(v))
-          for k, v in export_cambrian(params, config).items()}
-
-    shards, cur, cur_bytes = [], {}, 0
-    for k, v in sd.items():
-        if cur and cur_bytes + v.nbytes > shard_size_bytes:
-            shards.append(cur)
-            cur, cur_bytes = {}, 0
-        cur[k] = v
-        cur_bytes += v.nbytes
-    if cur:
-        shards.append(cur)
-
-    if len(shards) == 1:
-        save_file(shards[0], os.path.join(path, "model.safetensors"))
-    else:
-        index = {"metadata": {"total_size": sum(v.nbytes for v in sd.values())},
-                 "weight_map": {}}
-        for i, shard in enumerate(shards):
-            fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
-            save_file(shard, os.path.join(path, fname))
-            for k in shard:
-                index["weight_map"][k] = fname
-        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
-            json.dump(index, f, indent=2)
+    save_sharded(export_cambrian(params, config), path, shard_size_bytes)
 
     if tokenizer is not None:
         tokenizer.save_pretrained(path)

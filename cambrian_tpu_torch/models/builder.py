@@ -2,11 +2,15 @@
 
 ``load_pretrained_model`` keeps the reference's 4-tuple API
 ``(tokenizer, model, image_processor_list, context_len)``. The LM and
-connector load from an HF-layout checkpoint directory: safetensors ->
-``checkpoint/hf_llm.py::convert_cambrian`` (the HF name mapping) ->
-``checkpoint/from_jax.py``; with ``load_8bit`` / ``load_4bit`` the decoder
-projections are then quantized (``ops/quant.py``). Tower snapshot loading is
-not ported yet: towers get random weights, with a loud warning.
+connector load from an HF-layout checkpoint directory: safetensors shards
+(read by ``checkpoint/safetensors_io.py``), else ``pytorch_model*.bin`` /
+``*.pth`` shards -> ``checkpoint/hf_llm.py::convert_cambrian`` (the HF name
+mapping) -> ``checkpoint/from_jax.py``; with ``load_8bit`` / ``load_4bit``
+the decoder projections are then quantized (``ops/quant.py``). Each vision
+tower loads from a local snapshot of its upstream repo
+(``CAMBRIAN_TOWER_CACHE``, then the HF hub cache) through
+``checkpoint/hf_vision.py``; a tower with no snapshot gets random weights,
+with a loud warning.
 
 ``CambrianForInference.from_state_dict`` builds the model from a config and
 a state dict (keys ``lm.*`` and ``towers.{i}.*``) without allocating a
@@ -25,8 +29,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..checkpoint import hf_vision
 from ..checkpoint.from_jax import load_state_dict_checked, state_dict_from_jax
 from ..checkpoint.hf_llm import convert_cambrian
+from ..checkpoint.safetensors_io import load_file
 from ..constants import IGNORE_INDEX
 from ..data.packing import prepare_multimodal_data
 from ..infer.engine import GenerationConfig, GenerationEngine
@@ -53,16 +59,96 @@ def load_config(model_path: str) -> CambrianConfig:
     return CambrianConfig.from_dict(raw)
 
 
-def _load_safetensors(model_path: str) -> Dict[str, np.ndarray]:
-    files = sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
-    if not files:
-        raise FileNotFoundError(f"no *.safetensors shards in {model_path}")
-    from safetensors.numpy import load_file
-
+def _load_state_dict(model_path: str) -> Dict[str, np.ndarray]:
+    """Flat {name: numpy} of a checkpoint directory: every ``*.safetensors``
+    shard, else every ``pytorch_model*.bin`` (else ``*.pth``) shard through
+    ``torch.load(weights_only=True)``; bf16 comes back as fp32."""
+    st_files = sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
+    if st_files:
+        sd = {}
+        for f in st_files:
+            sd.update(load_file(f))
+        return sd
+    bin_files = (sorted(glob.glob(os.path.join(model_path, "pytorch_model*.bin")))
+                 or sorted(glob.glob(os.path.join(model_path, "*.pth"))))
+    if not bin_files:
+        raise FileNotFoundError(f"no weight shards found in {model_path}")
     sd = {}
-    for f in files:
-        sd.update(load_file(f))
+    for f in bin_files:
+        chunk = torch.load(f, map_location="cpu", weights_only=True)
+        sd.update({k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
+                   for k, v in chunk.items()})
     return sd
+
+
+def _tower_snapshot_dir(tower: VisionTower) -> Optional[str]:
+    """A local snapshot of the tower's upstream repo: under
+    ``CAMBRIAN_TOWER_CACHE`` (``org--name`` or ``org/name``), else the
+    newest snapshot in the HF hub cache (``HF_HOME``)."""
+    if tower.hf_repo is None:
+        return None
+    candidates = []
+    cache = os.environ.get("CAMBRIAN_TOWER_CACHE")
+    if cache:
+        candidates.append(os.path.join(cache, tower.hf_repo.replace("/", "--")))
+        candidates.append(os.path.join(cache, tower.hf_repo))
+    hf_home = os.environ.get("HF_HOME", os.path.expanduser("~/.cache/huggingface"))
+    hub_dir = os.path.join(hf_home, "hub", "models--" + tower.hf_repo.replace("/", "--"),
+                           "snapshots")
+    if os.path.isdir(hub_dir):
+        snaps = sorted(os.listdir(hub_dir))
+        if snaps:
+            candidates.append(os.path.join(hub_dir, snaps[-1]))
+    return next((c for c in candidates if os.path.isdir(c)), None)
+
+
+def convert_tower(tower: VisionTower, sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A tower snapshot's state dict -> the tower's (``module.*``, CPU
+    tensors, fp32 floats), by the JAX package's dispatch on the tower name:
+    SigLIP in timm/open_clip naming when its keys hold ``.attn.qkv.``."""
+    name = tower.name.lower()
+    if "convnext" in name:
+        tree = hf_vision.convert_convnext(sd, tower.config)
+    elif "siglip" in name:
+        timm_style = any(".attn.qkv." in k for k in sd)
+        conv = hf_vision.convert_siglip_timm if timm_style else hf_vision.convert_siglip_vision
+        tree = conv(sd, tower.config)
+    elif "dinov2" in name:
+        tree = hf_vision.convert_dinov2(sd, tower.config)
+    else:
+        tree = hf_vision.convert_clip_vision(sd, tower.config)
+    return state_dict_from_jax(tree, prefix="module.")
+
+
+def load_tower_params(tower: VisionTower, generator: Optional[torch.Generator] = None,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """The tower's state dict from its local snapshot (CPU tensors), else
+    random weights made on ``device`` from ``generator``, with a warning."""
+    snap = _tower_snapshot_dir(tower)
+    if snap is not None:
+        return convert_tower(tower, _load_state_dict(snap))
+    if tower.hf_repo is not None:
+        warnings.warn(
+            f"No local snapshot for tower {tower.name} ({tower.hf_repo}); "
+            "using RANDOM weights. Set CAMBRIAN_TOWER_CACHE for real inference.")
+    if generator is None:
+        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+    return _random_like(tower.state_dict(), generator, 0.02, device)
+
+
+def _to_device(sd: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor], device,
+               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Each tensor on ``device`` in its parameter's float dtype (``like``,
+    the module's meta state dict), one at a time, so that no second copy of
+    the weights exists in the wider dtype."""
+    out = {}
+    for k, v in sd.items():
+        v = v.to(device)
+        p = like.get(k)
+        if p is not None and v.is_floating_point() and p.is_floating_point():
+            v = v.to(p.dtype)
+        out[prefix + k] = v
+    return out
 
 
 def build_modules(config: CambrianConfig, dtype=torch.bfloat16, device=None
@@ -243,7 +329,10 @@ def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
 
     ``load_8bit`` / ``load_4bit`` (mutually exclusive) quantize the decoder
     projections to int8, or to int4 in groups of 128 rows; embeddings, the
-    LM head, the connector and the towers stay full precision."""
+    LM head, the connector and the towers stay full precision.
+    ``lm_head_bf16=True`` stores the LM head in bf16 (``lm_head_dtype``):
+    fp32 logits from bf16 operands, accumulated in fp32. ``model_base`` is
+    refused: the JAX loader takes it and never reads it."""
     if load_8bit and load_4bit:
         raise ValueError("load_8bit and load_4bit are mutually exclusive")
     if model_base is not None:
@@ -253,22 +342,21 @@ def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
     config = load_config(model_path)
     if quant_mode:
         config = config.replace(quantize=quant_mode)
-    lm_sd = state_dict_from_jax(convert_cambrian(_load_safetensors(model_path), config),
+    if kwargs.get("lm_head_bf16"):
+        config = config.replace(lm_head_dtype="bf16")
+    with torch.device("meta"):
+        lm, towers = build_modules(config, dtype)
+    lm_sd = state_dict_from_jax(convert_cambrian(_load_state_dict(model_path), config),
                                 prefix="lm.")
     if quant_mode:
         lm_sd = quantize_decoder(lm_sd, quant_mode)
-    sd = {k: v.to(device) for k, v in lm_sd.items()}
-    with torch.device("meta"):
-        _, towers = build_modules(config, dtype)
+    sd = _to_device(lm_sd, {f"lm.{k}": v for k, v in lm.state_dict().items()}, device)
+    del lm_sd
     for i, t in enumerate(towers):
-        if t.hf_repo is not None:
-            warnings.warn(
-                f"Tower snapshot loading is not ported yet: {t.name} ({t.hf_repo}) "
-                "uses RANDOM weights.")
         # seeded per tower, so that two loads give the same model
         gen = torch.Generator(device=device).manual_seed(i)
-        sd.update(_random_like({f"towers.{i}.{k}": v for k, v in t.state_dict().items()},
-                               gen, 0.02, device))
+        sd.update(_to_device(load_tower_params(t, gen, device), t.state_dict(), device,
+                             prefix=f"towers.{i}."))
 
     tokenizer = None
     try:

@@ -102,8 +102,8 @@ class CambrianLM(nn.Module):
         if cfg.mm_projector_type != "sva":
             raise NotImplementedError(
                 f"projector type {cfg.mm_projector_type!r} is not ported yet")
-        if cfg.lm_head_dtype == "bf16":
-            raise NotImplementedError("the bf16 lm_head option is not ported yet")
+        if cfg.lm_head_dtype not in (None, "bf16"):
+            raise ValueError(f"lm_head_dtype must be None or 'bf16', got {cfg.lm_head_dtype!r}")
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
@@ -128,8 +128,11 @@ class CambrianLM(nn.Module):
             self.add_module(f"layers_{i}", LlamaDecoderLayer(c, **kw))
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, device=device)
         if not c.tie_word_embeddings:
+            # fp32, or bf16 under the serving option lm_head_dtype="bf16"
+            # (half the bytes of the largest read of a decode step)
+            head_dtype = torch.bfloat16 if c.lm_head_dtype == "bf16" else torch.float32
             self.lm_head = nn.Linear(c.hidden_size, c.vocab_size, bias=False,
-                                     dtype=torch.float32, device=device)
+                                     dtype=head_dtype, device=device)
 
     # -- vision connector ---------------------------------------------------
 
@@ -217,8 +220,7 @@ class CambrianLM(nn.Module):
         return self.lm_head.weight
 
     def logits(self, hidden):
-        """fp32 logits: the head runs in fp32 on fp32 activations, whatever
-        dtype the head is stored in."""
+        """fp32 logits (``head_logits``)."""
         return head_logits(self.cfg, self.head(), hidden)
 
     def _image_start(self, input_ids) -> torch.Tensor:
@@ -300,11 +302,31 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return token_loss.sum() / valid.sum().clamp_min(1)
 
 
+def _bf16_head_logits(head: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits from bf16 operands with fp32 accumulation, never rounded
+    to bf16 (``cambrian_tpu/models/cambrian.py::_f32_acc_dot_general``). On
+    the card one GEMM reads the head as stored (``aten::mm.dtype``), so the
+    option's halved read is kept; on the CPU, and where autograd needs the
+    product, the plain version: fp32 products of the bf16-rounded operands."""
+    h = hidden.to(torch.bfloat16)
+    w = head.to(torch.bfloat16)             # a no-op for a head stored bf16
+    grad = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
+    if h.is_cuda and not grad:
+        out = torch.mm(h.reshape(-1, h.shape[-1]), w.T, out_dtype=torch.float32)
+        return out.reshape(*h.shape[:-1], w.shape[0])
+    return h.float() @ w.float().T
+
+
 def head_logits(cfg: CambrianConfig, head: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits from the head weight [V, hidden] (``CambrianLM.head()``:
     the JAX package's ``lm_head/kernel`` transposed, or the tied embedding),
-    with the config's logit scale and final softcap."""
-    logits = hidden.float() @ head.float().T
+    with the config's logit scale and final softcap. The head runs in fp32
+    on fp32 activations, or, under ``lm_head_dtype="bf16"``, on bf16
+    operands with fp32 accumulation (``_bf16_head_logits``)."""
+    if cfg.lm_head_dtype == "bf16":
+        logits = _bf16_head_logits(head, hidden)
+    else:
+        logits = hidden.float() @ head.float().T
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcapping is not None:

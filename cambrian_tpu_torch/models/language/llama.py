@@ -1,6 +1,8 @@
-"""LLaMA-family decoder (cambrian_tpu/models/language/llama.py), LLaMA only:
-fp32 RMSNorm, GQA with rotary embeddings (HF rotate-half convention), a KV
-cache with a shared write offset, and fp32 attention softmax.
+"""LLaMA-family decoder (cambrian_tpu/models/language/llama.py), LLaMA and
+Phi-3: fp32 RMSNorm, GQA with rotary embeddings (HF rotate-half convention),
+a KV cache with a shared write offset, and fp32 attention softmax. Phi-3 is
+the LLaMA block with a sliding window and, where the config has it, scaled
+rotary frequencies (LongRoPE/"su" or linear, ``rope_scaling_factors``).
 
 Prefill follows the JAX package's branch rule exactly: the flash-attention
 kernel when ``s >= 128`` (no softcap), plain attention over a dense mask
@@ -15,6 +17,7 @@ weight-only quantized linears (``ops/quant.py``), as in the JAX package's
 ``load_8bit`` / ``load_4bit`` serving paths.
 """
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -31,11 +34,11 @@ from ..config import CambrianConfig
 
 def check_supported(cfg: CambrianConfig) -> None:
     """Raise for the decoder switches this port does not cover yet."""
-    if cfg.model_type != "llama":
+    if cfg.model_type not in ("llama", "phi3"):
         raise NotImplementedError(
-            f"decoder family {cfg.model_type!r} is not ported yet (LLaMA only)")
+            f"decoder family {cfg.model_type!r} is not ported yet (LLaMA and Phi-3)")
     if cfg.rope_scaling:
-        raise NotImplementedError("rope_scaling is not ported yet")
+        rope_scaling_factors(cfg, 0)        # raises for a type the JAX package refuses
     if cfg.quantize not in (None, "int8", "int4"):
         raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported")
     if cfg.use_qk_norm or cfg.attn_logit_softcapping is not None:
@@ -56,14 +59,46 @@ def decoder_linear(cfg: CambrianConfig, in_features: int, out_features: int, bia
 
 
 def rope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
-                 dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                 dtype=torch.float32, ext_factors: Optional[torch.Tensor] = None,
+                 mscale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [B, S, head_dim] (duplicated-half layout), computed in
-    fp32 and cast to the compute dtype before they are applied."""
+    fp32 and cast to the compute dtype before they are applied.
+    ``ext_factors`` ([head_dim/2] fp32) divide the inverse frequencies and
+    ``mscale`` rescales both tables (LongRoPE/"su" and linear scaling)."""
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=position_ids.device) / head_dim))
+    if ext_factors is not None:
+        inv_freq = inv_freq / ext_factors.to(inv_freq.device)
     angles = position_ids.float()[..., None] * inv_freq
     emb = torch.cat([angles, angles], dim=-1)
-    return emb.cos().to(dtype), emb.sin().to(dtype)
+    return (emb.cos() * mscale).to(dtype), (emb.sin() * mscale).to(dtype)
+
+
+def rope_scaling_factors(cfg: CambrianConfig, seq_capacity: int
+                         ) -> Tuple[Optional[torch.Tensor], float]:
+    """(ext_factors, mscale) of ``cfg.rope_scaling`` for a sequence capacity:
+    the KV cache's length when there is a cache, else the call's span (the
+    JAX package's stand-in for HF's dynamic long/short switch, so an engine
+    must size its cache as the JAX engine does).
+
+    "longrope"/"su" (Phi-3 128k): the long factor list when the capacity
+    exceeds ``original_max_position_embeddings``, else the short one, and
+    the attention rescale sqrt(1 + ln s / ln orig) with s = max positions /
+    orig; "linear": every frequency divided by ``factor``. No scaling gives
+    (None, 1.0); any other type raises, as in the JAX package."""
+    rs = cfg.rope_scaling
+    if not rs:
+        return None, 1.0
+    typ = rs.get("type", rs.get("rope_type", ""))
+    if typ in ("longrope", "su"):
+        orig = cfg.original_max_position_embeddings or cfg.max_position_embeddings
+        factors = rs["long_factor"] if seq_capacity > orig else rs["short_factor"]
+        scale = cfg.max_position_embeddings / orig
+        mscale = 1.0 if scale <= 1.0 else math.sqrt(1.0 + math.log(scale) / math.log(orig))
+        return torch.tensor(factors, dtype=torch.float32), mscale
+    if typ == "linear":
+        return torch.full((cfg.head_dim // 2,), float(rs["factor"]), dtype=torch.float32), 1.0
+    raise ValueError(f"unsupported rope_scaling type: {typ!r}")
 
 
 def _rotate_half(x):
@@ -138,7 +173,9 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).view(b, s, h, d)
         k = self.k_proj(x).view(b, s, kvh, d)
         v = self.v_proj(x).view(b, s, kvh, d)
-        cos, sin = rope_cos_sin(position_ids, d, c.rope_theta, x.dtype)
+        # the cache's length when decoding or prefilling, else this call's span
+        ext, mscale = rope_scaling_factors(c, cache[0].shape[1] if cache is not None else s)
+        cos, sin = rope_cos_sin(position_ids, d, c.rope_theta, x.dtype, ext, mscale)
         q, k = apply_rope(q, k, cos, sin)
 
         if cache is not None:

@@ -12,8 +12,9 @@ Usage, with the flags of ``scripts/cambrian/pretrain_cambrian_8b.sh``
 
 The model trains on ``--device`` (default ``cuda``). Weights come from an HF
 checkpoint directory (a Cambrian checkpoint, or a plain LLaMA one with a
-fresh connector) or, for a stock name, from a seeded random init; the towers
-get seeded random weights (tower snapshot loading is not ported yet).
+fresh connector) or, for a stock name, from a seeded random init; each tower
+loads its local snapshot (``CAMBRIAN_TOWER_CACHE``), else gets seeded random
+weights with a warning.
 ``--pretrain_mm_mlp_adapter`` loads a stage-1 connector dump.
 """
 
@@ -32,7 +33,14 @@ import torch
 from .. import conversation as conversation_lib
 from ..checkpoint import hf_llm
 from ..checkpoint.from_jax import load_state_dict_checked, state_dict_from_jax
-from ..models.builder import _load_safetensors, _random_like, build_modules, load_config
+from ..models.builder import (
+    _load_state_dict,
+    _random_like,
+    _to_device,
+    build_modules,
+    load_config,
+    load_tower_params,
+)
 from ..models.cambrian import CambrianLM
 from ..models.config import (
     COMMAND_R_35B,
@@ -175,7 +183,7 @@ def load_pretrain_mm_mlp_adapter(lm: CambrianLM, path: str, num_towers: int) -> 
     connector-only dump sets the connector; a full Cambrian checkpoint sets
     every tensor it holds, as the JAX package's loader does."""
     if os.path.isdir(path):
-        sd = _load_safetensors(path)
+        sd = _load_state_dict(path)
     else:
         sd = {k: v.float().numpy()
               for k, v in torch.load(path, map_location="cpu", weights_only=True).items()}
@@ -199,8 +207,9 @@ def build_model(config: CambrianConfig, model_name_or_path: str, dtype, device):
     with torch.device("meta"):
         lm, towers = build_modules(config, dtype)
     name = model_name_or_path
-    if os.path.isdir(name) and any(f.endswith(".safetensors") for f in os.listdir(name)):
-        hf = _load_safetensors(name)
+    if os.path.isdir(name) and any(f.endswith((".safetensors", ".bin"))
+                                   for f in os.listdir(name)):
+        hf = _load_state_dict(name)
         try:
             sd = state_dict_from_jax(hf_llm.convert_cambrian(hf, config))
         except KeyError:
@@ -213,8 +222,10 @@ def build_model(config: CambrianConfig, model_name_or_path: str, dtype, device):
         sd = _init_params(lm)
     load_state_dict_checked(lm, {k: v.to(device) for k, v in sd.items()}, assign=True)
     for i, t in enumerate(towers):
+        # the tower's snapshot, else random weights seeded per tower
         g = torch.Generator(device=device).manual_seed(i + 1)
-        load_state_dict_checked(t, _random_like(t.state_dict(), g, 0.02, device), assign=True)
+        load_state_dict_checked(t, _to_device(load_tower_params(t, g, device), t.state_dict(),
+                                              device), assign=True)
     return lm, towers
 
 

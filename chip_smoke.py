@@ -31,8 +31,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    with their registers and the 8B site plan's shared memory printed;
 2. K1, flash attention, against its plain PyTorch version on the card at the
    shapes the main path gives it (SigLIP, CLIP, DINOv2 blocks; decoder
-   prefill with GQA) in bf16 and fp32, plus a causal case with padding and
-   dead rows; max abs error against the fp32 plain result (and of the row
+   prefill with GQA; Phi-3's prefill of phase 11's long request, D = 96
+   with the 2,048-slot window) in bf16 and fp32, plus a causal case with
+   padding and dead rows; max abs error against the fp32 plain result (and of the row
    statistic K1 writes for the backward against its plain version),
    CUDA-event times (each call alone behind a spin kernel) of the kernel,
    the plain version and ``F.scaled_dot_product_attention``
@@ -58,7 +59,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    be identical and the kernels launched exactly as often as the path needs;
    unquantized, once more with a sliding window shorter than the prompt:
    ``generate`` and ``generate_stream`` on the card and ``generate`` on the
-   CPU must give the same tokens;
+   CPU must give the same tokens; and as a Phi-3 with LongRoPE whose KV
+   cache exceeds ``original_max_position_embeddings`` (the long factors);
 5. Cambrian-8B at full width (four towers, SVA, LLaMA-3-8B), bf16 weights
    and an fp32 LM head made on the card from a seed: three requests of 32
    greedy tokens through ``CambrianForInference.generate``; each must launch
@@ -136,7 +138,31 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    kernel for the unaligned case and the SIMT kernel for the fp32 one, each
    of those two no more often than its own case's calls, and the K7 and K5
    function (with its template arguments) that each K7 and K5 case plans;
-   K8's TFLOP/s (2 M H (C + C2) / time) are printed.
+   K8's TFLOP/s (2 M H (C + C2) / time) are printed;
+11. Cambrian-Phi-3 (``cambrian_phi3()``: the four towers, SVA and
+   Phi-3-mini, 32 layers, hidden 3072, D = 96, the 2,048-slot window):
+   (a) bf16 weights at full width and depth made on the card, three
+   requests of 32 greedy tokens with the fp32 LM head and the same three
+   with ``lm_head_dtype="bf16"`` on the same tensors (first-token logits
+   within bf16 rounding of both operands of the fp32 head's, per
+   vocabulary row; token agreement, decode tokens/s and the head's device
+   time printed), and one request of 2,600 slots through ``generate`` and
+   ``generate_stream`` (chunks of 8), whose tokens must agree; every
+   request launches K1 122 times; (b) K3 and K4 against plain at Phi-3's
+   seven projection shapes (bf16, M = 1 and request 0's prompt; the
+   profiled run must show ``gemv_m1_kernel<mode>`` and
+   ``gemm_wgmma_kernel``), then the model quantized on the card to int8
+   and to int4, one request each: 7,168 launches of its kernel, the
+   prefill on the GEMM and 31 decode steps on ``gemv_m1_kernel`` by the
+   route counter; (c) a Cambrian-Phi-3 checkpoint (full width, 2 decoder
+   layers, bf16 safetensors shards by the port's writer) and the four tower
+   snapshots at full width and depth (HF naming for SigLIP, CLIP and
+   DINOv2 at 37 x 37, timm naming for ConvNeXt-XXL) written under
+   ``build/``, loaded by ``load_pretrained_model`` with warnings as errors;
+   every tensor must equal the converters' output on the CPU from the same
+   files (the resampled DINOv2 position table within 1e-6) and one request
+   the tokens of ``from_state_dict`` on those tensors; the files are
+   deleted.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -166,6 +192,19 @@ STREAM_CHUNK = 8
 # the tiny slice's sliding-window case: a window shorter than its prompt
 WINDOW = 24
 WINDOW_TOKENS = 16
+# Cambrian-Phi-3 (phase 11): the long request's slots (the 2,048-slot
+# window bites in its prefill and decode), the decoder's window and
+# projections (site, K, N), and the 2-layer checkpoint that
+# load_pretrained_model reads
+PHI3_LONG_SLOTS = 2600
+PHI3_WINDOW = 2048
+PHI3_QUANT_SHAPES = [("q_proj", 3072, 3072), ("k_proj", 3072, 3072), ("v_proj", 3072, 3072),
+                     ("o_proj", 3072, 3072), ("gate_proj", 3072, 8192),
+                     ("up_proj", 3072, 8192), ("down_proj", 8192, 3072)]
+PHI3_LOAD_LAYERS = 2
+# the tiny slice's LongRoPE case (phase 4): its KV cache, 159 prompt slots + 8
+# new, runs past original_max_position_embeddings, so the long factors apply
+TINY_ROPE_ORIG = 64
 # stage-1 training (phase 9): the launch script's batch and length
 TRAIN_STEPS = 3
 TRAIN_BATCH = 8
@@ -420,15 +459,21 @@ def register_use(log):
     return out
 
 
-def build_prompts(cfg, rng):
-    """Token ids with one image marker, packed as the model packs them."""
+def build_prompts(cfg, rng, lengths=None):
+    """Token ids with one image marker, packed as the model packs them:
+    N_REQUESTS prompts of 24 + 4 r and 20 + 3 r ids around the marker, or,
+    with ``lengths``, one of each (ids before, ids after) pair."""
     from cambrian_tpu_torch import IMAGE_TOKEN_INDEX, prepare_multimodal_data
 
+    sizes = [(640, 480), (480, 640), (1024, 1024)]
+    lengths = lengths or [(24 + 4 * r, 20 + 3 * r) for r in range(N_REQUESTS)]
+    high = min(128000, cfg.vocab_size)
     prompts = []
-    for r, size in enumerate([(640, 480), (480, 640), (1024, 1024)][:N_REQUESTS]):
-        pre = rng.integers(0, 128000, 24 + 4 * r)
-        post = rng.integers(0, 128000, 20 + 3 * r)
+    for r, (n_pre, n_post) in enumerate(lengths):
+        pre = rng.integers(0, high, n_pre)
+        post = rng.integers(0, high, n_post)
         ids = np.concatenate([[cfg.bos_token_id], pre, [IMAGE_TOKEN_INDEX], post])
+        size = sizes[r % len(sizes)]
         packed = prepare_multimodal_data(
             ids[None], ids[None].copy(), np.ones((1, len(ids)), bool), [size],
             cfg.image_token_len, cfg.mm_vision_tower_aux_token_len_list,
@@ -446,31 +491,38 @@ def kernel_phase(torch, fa, prompt):
     prefill_valid = torch.zeros(s + NEW_TOKENS, dtype=torch.bool)
     prefill_valid[:s] = torch.from_numpy(prompt["mask"])
     cases = [
-        # name, b, s_q, s_k, h, kvh, d, causal, key_valid, per-request launches
-        ("siglip", 1, 729, 729, 16, 16, 72, False, None, 27),
-        ("clip", 1, 577, 577, 16, 16, 64, False, None, 23),
-        ("dinov2", 1, 730, 730, 24, 24, 64, False, None, 40),
-        ("prefill_request0", 1, s, s + NEW_TOKENS, 32, 8, 128, True, prefill_valid[None], 32),
+        # name, b, s_q, s_k, h, kvh, d, causal, key_valid, per-request
+        # launches (Cambrian-8B), sliding window
+        ("siglip", 1, 729, 729, 16, 16, 72, False, None, 27, None),
+        ("clip", 1, 577, 577, 16, 16, 64, False, None, 23, None),
+        ("dinov2", 1, 730, 730, 24, 24, 64, False, None, 40, None),
+        ("prefill_request0", 1, s, s + NEW_TOKENS, 32, 8, 128, True, prefill_valid[None], 32,
+         None),
         ("prefill_640", 1, 640, 640 + NEW_TOKENS, 32, 8, 128, True,
-         (torch.arange(640 + NEW_TOKENS) < 640)[None], 0),
+         (torch.arange(640 + NEW_TOKENS) < 640)[None], 0, None),
+        # Phi-3-mini's prefill of phase 11's long request: D = 96, the window
+        # shorter than the prompt
+        ("phi3_prefill", 1, PHI3_LONG_SLOTS, PHI3_LONG_SLOTS + NEW_TOKENS, 32, 32, 96, True,
+         (torch.arange(PHI3_LONG_SLOTS + NEW_TOKENS) < PHI3_LONG_SLOTS)[None], 0, PHI3_WINDOW),
     ]
     dead = torch.ones((2, 340), dtype=torch.bool)
     dead[0, :50] = False      # causal rows 0..49 of batch 0 see no valid key
     dead[1] = False           # batch 1 sees none at all
-    cases.append(("dead_rows", 2, 300, 340, 8, 2, 128, True, dead, 0))
+    cases.append(("dead_rows", 2, 300, 340, 8, 2, 128, True, dead, 0, None))
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     records = []
-    for name, b, s_q, s_k, h, kvh, d, causal, valid, per_req in cases:
+    for name, b, s_q, s_k, h, kvh, d, causal, valid, per_req, window in cases:
         if valid is not None:
             valid = valid.to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, s_q, h, d), generator=g, device=dev).to(dtype)
             k = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
             v = torch.randn((b, s_k, kvh, d), generator=g, device=dev).to(dtype)
-            out = fa.flash_attention(q, k, v, valid, causal)
+            out = fa.flash_attention(q, k, v, valid, causal, sliding_window=window)
             torch.cuda.synchronize()
-            ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), valid, causal)
+            ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), valid, causal,
+                                               sliding_window=window)
             err = float((out.float() - ref).abs().max())
             tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
             check(torch.isfinite(out).all().item(), f"{name} {dtype}: non-finite output")
@@ -478,8 +530,9 @@ def kernel_phase(torch, fa, prompt):
             # the row statistic K1 writes for the backward: +inf on the same
             # (dead) rows; elsewhere the fp32 log-sum-exp of the same logits,
             # summed in another order (|lse| < 20 here)
-            _, lse = fa._flash_fwd(q, k, v, valid, causal, None, 0, d ** -0.5, True)
-            lse_ref = fa.flash_attention_lse_reference(q.float(), k.float(), valid, causal)
+            _, lse = fa._flash_fwd(q, k, v, valid, causal, window, 0, d ** -0.5, True)
+            lse_ref = fa.flash_attention_lse_reference(q.float(), k.float(), valid, causal,
+                                                       sliding_window=window)
             live = torch.isfinite(lse_ref)
             check(torch.equal(live, torch.isfinite(lse)) and bool((lse[~live] > 0).all()),
                   f"{name} {dtype}: the statistic's +inf rows differ from the plain version's")
@@ -491,10 +544,11 @@ def kernel_phase(torch, fa, prompt):
             # each call alone behind a spin kernel: at the serving shapes the
             # wrapper's host work outlasts the kernel, so calls back to back
             # would time the host
-            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, valid, causal),
+            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, valid, causal,
+                                                           sliding_window=window),
                          spin=SITE_SPIN_CYCLES)
             plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
-                q, k, v, valid, causal), spin=SITE_SPIN_CYCLES)
+                q, k, v, valid, causal, sliding_window=window), spin=SITE_SPIN_CYCLES)
             dtype_name = str(dtype).replace("torch.", "")
             # the (query, key) pairs this case's mask lets through
             keep = torch.ones((b, s_q, s_k), dtype=torch.bool, device=dev)
@@ -502,12 +556,14 @@ def kernel_phase(torch, fa, prompt):
                 keep &= valid[:, None, :]
             if causal:
                 keep &= torch.ones((s_q, s_k), dtype=torch.bool, device=dev).tril()
+            if window is not None:
+                keep &= torch.ones((s_q, s_k), dtype=torch.bool, device=dev).triu(1 - window)
             pairs = int(keep.sum())
             n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() + (
                 0 if valid is None else valid.numel())
             bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 4 * h * d * pairs, dtype_name)
             library_ms = None
-            if per_req:
+            if per_req or name.startswith("phi3"):
                 # the library call on the same work: heads first, GQA expanded,
                 # the mask dense
                 qt = q.transpose(1, 2).contiguous()
@@ -517,13 +573,14 @@ def kernel_phase(torch, fa, prompt):
                 library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=dense), spin=SITE_SPIN_CYCLES)
             rec = dict(case=name, dtype=dtype_name, b=b, s_q=s_q,
-                       s_k=s_k, h=h, kvh=kvh, d=d, causal=causal, max_abs_err=err,
+                       s_k=s_k, h=h, kvh=kvh, d=d, causal=causal, window=window, max_abs_err=err,
                        tol=tol, lse_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
                        ops_ms=ops_ms, per_request=per_req,
                        tflops=4 * h * d * pairs / ms / 1e9)
             lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
             print(f"kernel {name:16s} {dtype_name:8s} Sq={s_q} Sk={s_k} H={h}/{kvh} D={d} "
+                  + ("" if window is None else f"window={window} ") +
                   f"err={err:.3e} lse_err={lse_err:.1e} kernel={ms:.4f} ms "
                   f"({rec['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib} "
                   f"bound={bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
@@ -531,9 +588,12 @@ def kernel_phase(torch, fa, prompt):
     return records
 
 
-def quant_kernel_phase(torch, quant, prompt_len):
-    """K3, K4 and K4b/K4c against their plain versions at the 8B decoder's
-    projection shapes; returns per-case records."""
+def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tuple(QUANT_KERNELS),
+                       dtypes=None, label="8B"):
+    """K3, K4 and K4b/K4c (``names``) against their plain versions at the
+    decoder's projection shapes (the 8B decoder's by default), bf16 and fp32
+    (``dtypes``); returns per-case records."""
+    dtypes = dtypes or (torch.bfloat16, torch.float32)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -544,7 +604,7 @@ def quant_kernel_phase(torch, quant, prompt_len):
     records = []
     int8pack = None     # torch.ops.aten._weight_int8pack_mm, where this build runs it on CUDA
     profiled_cases = []  # (name, site, x, weights, scales, record) of each bf16 prefill and M = 1 call
-    for site, k, n in QUANT_SHAPES:
+    for site, k, n in shapes:
         w = (torch.randn((k, n), generator=g, device=dev) * 0.02).bfloat16()
         q8, s8 = quant.quantize_int8(w)
         q4, s4 = quant.quantize_int4(w)
@@ -558,11 +618,12 @@ def quant_kernel_phase(torch, quant, prompt_len):
                 lambda x, wq, sc: quant.int4_matmul_reference(x, wq, sc, scale_on_weights=True),
                 q4, s4, quant.dequantize_int4),
         }
+        cases = {name: cases[name] for name in names}
         prefill = {}     # name: (x, the record) of each bf16 prefill case
         decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3, K4, K4b
         for name, (fn, plain, wq, sc, dequant) in cases.items():
             for m in (1, prompt_len):
-                for dtype in (torch.bfloat16, torch.float32):
+                for dtype in dtypes:
                     dtype_name = str(dtype).replace("torch.", "")
                     x = torch.randn((m, k), generator=g, device=dev).to(dtype)
                     out = fn(x, wq, sc)
@@ -647,11 +708,11 @@ def quant_kernel_phase(torch, quant, prompt_len):
     del l2
     quant_function_check(torch, quant, profiled_cases)
     del profiled_cases
-    for name in GEMV_M1_KERNELS:
+    for name in (n for n in GEMV_M1_KERNELS if n in names):
         recs = [r for r in records if r["kernel"] == name and r["gemv_kernel_ms"] is not None]
         step = {key: LAYERS * sum(r[key] for r in recs)
                 for key in ("ms", "gemv_kernel_ms", "library_ms", "bound_ms")}
-        print(f"gemv M=1 {name}: a decode step (7 shapes x {LAYERS} layers) gemv_m1_kernel "
+        print(f"gemv M=1 {name}: a {label} decode step (7 shapes x {LAYERS} layers) gemv_m1_kernel "
               f"{step['ms']:.3f} ms, gemv_kernel {step['gemv_kernel_ms']:.3f} ms, matmul "
               f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
               f"({step['bound_ms'] / step['ms']:.1%} of bound)", flush=True)
@@ -668,14 +729,24 @@ def request_sum(records, key, kernel, prompt_len):
     return total
 
 
-def tiny_slice_phase(torch, fa, quant, rng, quantize=None):
-    """Kernel path on the card (fp32, TF32 off) against plain on the CPU."""
+def tiny_slice_phase(torch, fa, quant, rng, quantize=None, longrope=False):
+    """Kernel path on the card (fp32, TF32 off) against plain on the CPU.
+    ``longrope``: the tiny model as a Phi-3 with LongRoPE whose KV cache
+    exceeds ``original_max_position_embeddings``, so the long factors apply."""
     from cambrian_tpu_torch import IMAGE_TOKEN_INDEX, tiny_debug
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.models.language.llama import rope_scaling_factors
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_debug(num_towers=2).replace(tokenizer_model_max_length=192, quantize=quantize)
+    if longrope:
+        factors = np.random.default_rng(SEED + 4)
+        d2 = cfg.head_dim // 2
+        cfg = cfg.replace(model_type="phi3", original_max_position_embeddings=TINY_ROPE_ORIG,
+                          rope_scaling={"type": "longrope",
+                                        "short_factor": factors.uniform(1.0, 1.2, d2).tolist(),
+                                        "long_factor": factors.uniform(2.0, 4.0, d2).tolist()})
     sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED), 0.05,
                            dtype=torch.float32, device="cpu")
     cpu = CambrianForInference.from_state_dict(cfg, sd, torch.float32,
@@ -695,7 +766,15 @@ def tiny_slice_phase(torch, fa, quant, rng, quantize=None):
     steps = gpu.engine.last_timings["decode_steps"]
     logit_err = float((gpu.engine.last_next_logits.cpu() - cpu.engine.last_next_logits)
                       .abs().max())
-    label = quantize or "fp32"
+    label = "phi3 longrope" if longrope else quantize or "fp32"
+    if longrope:
+        k_len = len(ids) + cfg.image_block_len - 1 + 8      # the prompt's slots + 8 new
+        ext, mscale = rope_scaling_factors(cfg, k_len)
+        check(k_len > TINY_ROPE_ORIG and ext.tolist() == torch.tensor(
+            cfg.rope_scaling["long_factor"]).tolist(),
+            f"tiny slice ({label}): a {k_len}-slot cache did not take the long factors")
+        print(f"tiny slice ({label}): {k_len}-slot cache past {TINY_ROPE_ORIG}: long factors, "
+              f"mscale {mscale:.6f}", flush=True)
     print(f"tiny slice ({label}): cpu tokens {want.tolist()} gpu tokens {got.tolist()} "
           f"launches {counts} first-token logits max abs diff {logit_err:.3e}", flush=True)
     check(got.shape == (1, 8) and (got == want).all(), f"tiny slice ({label}) tokens differ")
@@ -707,7 +786,7 @@ def tiny_slice_phase(torch, fa, quant, rng, quantize=None):
     check(counts == expected, f"tiny slice ({label}) launched {counts}, not {expected}")
     check(logit_err < 1e-3, f"tiny slice ({label}) logits differ by {logit_err}")
     window = None
-    if quantize is None:
+    if quantize is None and not longrope:
         # a sliding window shorter than the prompt: generate and
         # generate_stream on the card retire the same cache slots, and give
         # the plain path's tokens on the CPU
@@ -867,6 +946,401 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
     torch.cuda.empty_cache()
     return dict(requests=requests, launches=launches, n_params=n_params,
                 weight_bytes=weight_bytes, peak_bytes=peak)
+
+
+# the port's tower parameter names -> the upstream snapshots' (the inverse of
+# checkpoint/hf_vision.py): HF naming for the ViT blocks, open_clip's timm
+# naming for the ConvNeXt blocks
+VIT_BLOCK = [("norm1", "layer_norm1"), ("norm2", "layer_norm2"),
+             ("attn.out_proj", "self_attn.out_proj"), ("attn.", "self_attn."), ("mlp.", "mlp.")]
+DINO_BLOCK = [("attn.q_proj", "attention.attention.query"),
+              ("attn.k_proj", "attention.attention.key"),
+              ("attn.v_proj", "attention.attention.value"),
+              ("attn.out_proj", "attention.output.dense"), ("ls1_gamma", "layer_scale1.lambda1"),
+              ("ls2_gamma", "layer_scale2.lambda1"), ("norm1", "norm1"), ("norm2", "norm2"),
+              ("mlp.", "mlp.")]
+CONVNEXT_BLOCK = [("dwconv", "conv_dw"), ("norm", "norm"), ("pwconv1", "mlp.fc1"),
+                  ("pwconv2", "mlp.fc2"), ("gamma", "gamma")]
+DINOV2_NATIVE_SIDE = 37        # facebook/dinov2-giant's grid at 518 px
+
+
+def _renamed(rest, table):
+    for a, b in table:
+        if rest.startswith(a):
+            return b + rest[len(a):]
+    raise KeyError(rest)
+
+
+def tower_snapshot(torch, tower, sd, g):
+    """An upstream snapshot {name: bf16 tensor} of a production tower with
+    the weights ``sd`` (its ``module.*`` state dict) at the upstream depth
+    (CLIP: 24 layers and the final norm, where the tower runs 23) and
+    resolution (DINOv2: a fresh 37 x 37 position table from ``g``, which the
+    loader resamples to the tower's 27 x 27): SigLIP, CLIP and DINOv2 in HF
+    naming, ConvNeXt in open_clip's timm naming."""
+    name, c = tower.name.lower(), tower.config
+    dev = next(iter(sd.values())).device
+    blocks, out = {}, {}
+    for k, v in sd.items():
+        m = re.fullmatch(r"module\.blocks_(\d+)\.(.+)", k)
+        if m:
+            blocks.setdefault(int(m[1]), {})[m[2]] = v
+    if "convnext" in name:
+        for k, v in sd.items():
+            k = k[len("module.trunk."):]
+            block = re.fullmatch(r"stage_(\d+)_block_(\d+)\.(.+)", k)
+            down = re.fullmatch(r"downsample_(norm|conv)_(\d+)\.(.+)", k)
+            if block:
+                k = f"stages.{block[1]}.blocks.{block[2]}.{_renamed(block[3], CONVNEXT_BLOCK)}"
+            elif down:
+                k = f"stages.{down[2]}.downsample.{0 if down[1] == 'norm' else 1}.{down[3]}"
+            else:
+                k = k.replace("stem_conv.", "stem.0.").replace("stem_norm.", "stem.1.")
+            out["visual.trunk." + k] = v
+    elif "dinov2" in name:
+        n_pos = 1 + DINOV2_NATIVE_SIDE ** 2
+        out["embeddings.cls_token"] = sd["module.cls_token"]
+        out["embeddings.mask_token"] = torch.zeros((1, c.hidden_size), device=dev)
+        out["embeddings.position_embeddings"] = torch.randn(
+            (1, n_pos, c.hidden_size), generator=g, device=dev) * 0.02
+        for leaf in ("weight", "bias"):
+            out[f"embeddings.patch_embeddings.projection.{leaf}"] = sd[f"module.patch_embed.{leaf}"]
+            out[f"layernorm.{leaf}"] = sd[f"module.final_layernorm.{leaf}"]
+        for i, blk in blocks.items():
+            out.update({f"encoder.layer.{i}.{_renamed(k, DINO_BLOCK)}": v for k, v in blk.items()})
+    else:
+        p = "vision_model."
+        out[p + "embeddings.patch_embedding.weight"] = sd["module.patch_embed.weight"]
+        if c.patch_bias:
+            out[p + "embeddings.patch_embedding.bias"] = sd["module.patch_embed.bias"]
+        out[p + "embeddings.position_embedding.weight"] = sd["module.pos_embed"]
+        if c.class_token:
+            out[p + "embeddings.class_embedding"] = sd["module.cls_token"].reshape(-1)
+        for leaf, fill in (("weight", torch.ones), ("bias", torch.zeros)):
+            if c.pre_layernorm:
+                out[f"{p}pre_layrnorm.{leaf}"] = sd[f"module.pre_layernorm.{leaf}"]
+            out[f"{p}post_layernorm.{leaf}"] = sd.get(f"module.final_layernorm.{leaf}",
+                                                      fill(c.hidden_size, device=dev))
+        for i in range(c.num_layers):
+            # the layers past the tower's tap (CLIP's last) repeat its last block
+            blk = blocks.get(i, blocks[max(blocks)])
+            out.update({f"{p}encoder.layers.{i}.{_renamed(k, VIT_BLOCK)}": v
+                        for k, v in blk.items()})
+    return {k: v.to(torch.bfloat16) for k, v in out.items()}
+
+
+def head_bound(torch, w, h, h_other):
+    """How far fp32 logits from bf16-rounded operands may lie from the fp32
+    head's, per vocabulary row: (2^-7 + 2^-16) sum_k |h_k w_k| for rounding
+    both operands, 2 K 2^-24 of the same sum for the two fp32 sums, plus
+    sum_k |h'_k - h_k| |w_k| where the two runs' final hidden states differ.
+    ``w`` the fp32 head [V, K], ``h`` / ``h_other`` [1, K] fp32."""
+    k = w.shape[1]
+    wa = w.abs()
+    return ((2 ** -7 + 2 ** -16 + 2 * k * 2 ** -24) * (h.abs() @ wa.T)
+            + (h_other - h).abs() @ wa.T)
+
+
+def phi3_phase(torch, fa, quant):
+    """Phase 11, Cambrian-Phi-3 (``cambrian_phi3()``): (a) bf16 weights at
+    full width and depth with the fp32 and the bf16 LM head, and a long
+    request through ``generate`` and ``generate_stream``; (b) int8 and int4;
+    (c) ``load_pretrained_model`` on a checkpoint and tower snapshots written
+    by the port. Returns its records and the launches of its three paths."""
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.models.cambrian import head_logits
+    from cambrian_tpu_torch.models.config import cambrian_phi3
+
+    dev = torch.device("cuda")
+    cfg = cambrian_phi3()
+    rng = np.random.default_rng(SEED + 11)
+    prompts = build_prompts(cfg, rng)
+    n_ids = PHI3_LONG_SLOTS - cfg.image_block_len + 1       # bos and the marker included
+    long_prompt = build_prompts(cfg, rng, [(n_ids // 2 - 1, n_ids - n_ids // 2 - 1)])[0]
+    check(len(long_prompt["mask"]) == PHI3_LONG_SLOTS and cfg.sliding_window == PHI3_WINDOW,
+          f"the long Phi-3 prompt has {len(long_prompt['mask'])} slots")
+
+    # (a) bf16 weights, the fp32 head and the bf16 head on the same tensors;
+    # fp32 products in fp32 (the phases before leave TF32 on), so that the
+    # fp32 head is the reference the bf16 head's bound assumes
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = random_state_dict(cfg, torch.Generator(device=dev).manual_seed(SEED), 0.02,
+                           dtype=torch.bfloat16, device=dev)
+    models = {"fp32": CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16),
+              "bf16": CambrianForInference.from_state_dict(cfg.replace(lm_head_dtype="bf16"),
+                                                           sd, torch.bfloat16)}
+    del sd
+    torch.cuda.synchronize()
+    m = models["fp32"]
+    n_params = sum(p.numel() for p in m.lm.parameters()) + sum(
+        p.numel() for t in m.towers for p in t.parameters())
+    check(models["bf16"].lm.lm_head.weight.dtype == torch.bfloat16
+          and m.lm.lm_head.weight.dtype == torch.float32, "Phi-3 heads' dtypes")
+    print(f"Phi-3 bf16 build: {n_params / 1e9:.3f}B float parameters, both heads, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    counters = all_counters(fa, quant)
+    requests = {"fp32": [], "bf16": []}
+    heads = []
+    zero_counts(counters)                    # the main path's count starts here
+    for r, pr in enumerate(prompts):
+        hidden, logits = {}, {}
+        for head, model in models.items():
+            seen = []
+
+            def keep_first(module, inputs, output, seen=seen):
+                if not seen:
+                    seen.append(output)      # the prefill's final hidden states
+
+            hook = model.lm.norm.register_forward_hook(keep_first)
+            try:
+                rec = serve_request(torch, model, counters, cfg, r, pr)
+            finally:
+                hook.remove()
+            last = int(np.flatnonzero(pr["mask"])[-1])
+            hidden[head] = seen[0][:, last].float()
+            logits[head] = model.engine.last_next_logits
+            rec["head"] = head
+            requests[head].append(rec)
+        w = models["fp32"].lm.head().detach()
+        tol = head_bound(torch, w, hidden["fp32"], hidden["bf16"])
+        diff = (logits["bf16"] - logits["fp32"]).abs()
+        t32, t16 = requests["fp32"][-1]["tokens"], requests["bf16"][-1]["tokens"]
+        agree = float(np.mean(np.equal(t32, t16)))
+        same_hidden = bool(torch.equal(hidden["fp32"], hidden["bf16"]))
+        rec = dict(request=r, max_abs_diff=float(diff.max()), max_tol=float(tol.max()),
+                   worst_share=float((diff / tol).max()), token_agreement=agree,
+                   same_hidden=same_hidden)
+        heads.append(rec)
+        print(f"Phi-3 request {r}: bf16 head vs fp32 head first-token logits max abs diff "
+              f"{rec['max_abs_diff']:.3e} (bound per row, max {rec['max_tol']:.3e}; worst "
+              f"{rec['worst_share']:.1%} of its bound); hidden states equal: {same_hidden}; "
+              f"tokens agree {agree:.1%}; decode {requests['fp32'][-1]['decode_tokens_per_s']:.2f}"
+              f" / {requests['bf16'][-1]['decode_tokens_per_s']:.2f} tok/s (fp32 / bf16 head)",
+              flush=True)
+        check(bool((diff <= tol).all()), f"Phi-3 request {r}: the bf16 head's logits lie "
+              f"outside bf16 rounding of the fp32 head's")
+    # the head alone (device time, medians of 30) at a decode step and at the
+    # prefill of request 0's slots, under inference mode as the engine runs it
+    head_times = {}
+    s0 = len(prompts[0]["mask"])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for rows in (1, s0):
+        h = torch.randn((1, rows, cfg.hidden_size), generator=g, device=dev).bfloat16()
+        for head, model in models.items():
+            w = model.lm.head()
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: head_logits(model.lm.cfg, w, h), 30,
+                             spin=SITE_SPIN_CYCLES, median=True)
+            n_bytes = w.numel() * w.element_size() + h.numel() * 2 + rows * cfg.vocab_size * 4
+            b_ms, b_by, _, _ = bound(n_bytes, 2 * rows * w.numel(), "bfloat16")
+            head_times[f"{head} M={rows}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"Phi-3 LM head {head} at M={rows}: {ms:.4f} ms (bound {b_ms:.4f} ms, "
+                  f"{b_by})", flush=True)
+    # the long request: the window bites in the prefill and in every decode step
+    model = models["fp32"]
+    long_gen = serve_request(torch, model, counters, cfg, 0, long_prompt)
+    long_stream = serve_request(torch, model, counters, cfg, 0, long_prompt, stream=True)
+    check(long_stream["tokens"] == long_gen["tokens"],
+          "Phi-3 long request: generate_stream's tokens differ from generate's")
+    print(f"Phi-3 long request ({PHI3_LONG_SLOTS} slots, window {PHI3_WINDOW}): generate and "
+          f"generate_stream (chunks of {STREAM_CHUNK}) agree on {NEW_TOKENS} tokens", flush=True)
+    launches = read_counts(counters)
+    unused = {k: launches[k] for k in VISION_KERNELS if launches[k]}
+    check(not unused, f"Phi-3 bf16: the main path launched K5-K8 {unused}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Phi-3 bf16 (both heads) peak memory allocated: {peak / 2**30:.2f} GiB", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del models, model, w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) int8 and int4, quantized on the card layer by layer
+    quant_records = quant_kernel_phase(torch, quant, s0, PHI3_QUANT_SHAPES,
+                                       ("int8_matmul", "int4_matmul"), (torch.bfloat16,), "Phi-3")
+    for name in ("int8_matmul", "int4_matmul"):
+        for label, rows in (("decode step", 1), ("prefill", s0)):
+            recs = [x for x in quant_records if x["kernel"] == name and x["m"] == rows]
+            per = {key: LAYERS * sum(x[key] for x in recs)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"Phi-3 {name}: decoder GEMMs per {label}: kernel {per['ms']:.3f} ms, plain "
+                  f"{per['plain_ms']:.3f} ms, matmul {per['library_ms']:.3f} ms, bound "
+                  f"{per['bound_ms']:.3f} ms", flush=True)
+    quantized = {}
+    zero_counts(counters)
+    for q in ("int8", "int4"):
+        qcfg = cfg.replace(quantize=q)
+        sd = random_state_dict(qcfg, torch.Generator(device=dev).manual_seed(SEED), 0.02,
+                               dtype=torch.bfloat16, device=dev)
+        model = CambrianForInference.from_state_dict(qcfg, sd, torch.bfloat16)
+        del sd
+        fn = getattr(quant, f"{q}_matmul")
+        fn.function_launches.clear()
+        rec = serve_request(torch, model, counters, qcfg, 0, prompts[0])
+        routes = dict(fn.function_launches)
+        want = {"gemm": QUANT_PER_STEP, "gemv_m1_kernel": QUANT_PER_STEP * (NEW_TOKENS - 1)}
+        check(rec["launches"][f"{q}_matmul"] == QUANT_LAUNCHES,
+              f"Phi-3 {q}: {q}_matmul launched {rec['launches'][f'{q}_matmul']}x, "
+              f"not {QUANT_LAUNCHES}x")
+        check(routes == want, f"Phi-3 {q}: routes {routes}, not {want}")
+        rec["functions"] = routes
+        quantized[q] = rec
+        ref = requests["fp32"][0]
+        print(f"Phi-3 {q} request 0: prefill {rec['prefill_ms']:.1f} ms (bf16 "
+              f"{ref['prefill_ms']:.1f}), decode {rec['decode_tokens_per_s']:.2f} tok/s (bf16 "
+              f"{ref['decode_tokens_per_s']:.2f}); routes {routes}", flush=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    quant_launches = read_counts(counters)
+
+    # (c) load_pretrained_model end to end
+    load = phi3_load_phase(torch, counters, prompts[0])
+    paths = [launches, quant_launches, load.pop("launches")]
+    return dict(requests=requests, heads=heads, head_times=head_times,
+                long=[long_gen, long_stream], quant_kernels=quant_records, quantized=quantized,
+                load=load, peak_bytes=peak,
+                launches={k: sum(p[k] for p in paths) for k in launches})
+
+
+def phi3_load_phase(torch, counters, prompt):
+    """Phase 11 (c): under ``build/``, a Cambrian-Phi-3 checkpoint at full
+    width and PHI3_LOAD_LAYERS decoder layers (``config.json`` and bf16
+    safetensors shards with their index, by the port's writer) and the four
+    tower snapshots at full width and depth under a temporary
+    ``CAMBRIAN_TOWER_CACHE``; ``load_pretrained_model`` with warnings as
+    errors (the directory has no tokenizer, whose warning alone is let
+    through, and transformers is kept out of the process); every loaded tensor against the converters' output on the CPU
+    from the same files (bit for bit; the resampled DINOv2 position table
+    within 1e-6); one request against ``from_state_dict`` on those tensors.
+    The files are deleted at the end."""
+    import warnings
+
+    from cambrian_tpu_torch.checkpoint import safetensors_io
+    from cambrian_tpu_torch.checkpoint.from_jax import state_dict_from_jax
+    from cambrian_tpu_torch.checkpoint.hf_llm import convert_cambrian, export_cambrian
+    from cambrian_tpu_torch.checkpoint.save import module_params_tree, save_config
+    from cambrian_tpu_torch.models import builder
+    from cambrian_tpu_torch.models.config import cambrian_phi3
+
+    dev = torch.device("cuda")
+    cfg = cambrian_phi3().replace(num_hidden_layers=PHI3_LOAD_LAYERS)
+    root = os.path.join(REPO, "build", "phi3_load")
+    ckpt, cache = os.path.join(root, "ckpt"), os.path.join(root, "towers")
+    saved_env = {k: os.environ.get(k) for k in ("CAMBRIAN_TOWER_CACHE", "HF_HOME")}
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sd = builder.random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+        model = builder.CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+        del sd
+        t0 = time.perf_counter()
+        hf = {k: torch.from_numpy(v).to(torch.bfloat16)
+              for k, v in export_cambrian(module_params_tree(model.lm), cfg).items()}
+        n_bytes = safetensors_io.save_sharded(hf, ckpt, shard_size_bytes=1 << 30)
+        save_config(cfg, ckpt)
+        del hf
+        shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+        for t in model.towers:
+            snap = os.path.join(cache, t.hf_repo.replace("/", "--"))
+            os.makedirs(snap)
+            n_bytes += safetensors_io.save_file(tower_snapshot(torch, t, t.state_dict(), g),
+                                                os.path.join(snap, "model.safetensors"))
+        write_s = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"Phi-3 load: wrote {n_bytes / 1e9:.3f} GB ({len(shards)} checkpoint shards and "
+              f"4 tower snapshots) in {write_s:.1f} s", flush=True)
+
+        os.environ["CAMBRIAN_TOWER_CACHE"] = cache
+        os.environ["HF_HOME"] = os.path.join(root, "hf")
+        # The directory holds no tokenizer. The loader's attempt to read one
+        # imports transformers, whose sentencepiece extension faults when the
+        # interpreter exits on the card's machine (exit code 139 after the
+        # last line): the import is refused here, and the loader warns that
+        # no tokenizer was loaded, the one warning let through.
+        blocked = "transformers" not in sys.modules
+        if blocked:
+            sys.modules["transformers"] = None
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                warnings.filterwarnings("ignore", message="tokenizer not loaded")
+                t0 = time.perf_counter()
+                _, loaded, _, _ = builder.load_pretrained_model(ckpt, device="cuda",
+                                                                dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+        finally:
+            if blocked:
+                del sys.modules["transformers"]
+        check(loaded.config.model_type == "phi3"
+              and loaded.config.num_hidden_layers == PHI3_LOAD_LAYERS,
+              f"Phi-3 load: config {loaded.config.model_type}, "
+              f"{loaded.config.num_hidden_layers} layers")
+
+        # the converters on the CPU, from the same files
+        t0 = time.perf_counter()
+        mismatched, ref_sd, pos_err = [], {}, None
+        want = state_dict_from_jax(convert_cambrian(builder._load_state_dict(ckpt),
+                                                    loaded.config), prefix="lm.")
+        parts = [({f"lm.{k}": v for k, v in loaded.lm.state_dict().items()}, want, None)]
+        for i, t in enumerate(loaded.towers):
+            snap = builder._tower_snapshot_dir(t)
+            check(snap is not None and snap.startswith(cache), f"{t.name}: snapshot {snap}")
+            tower_want = builder.convert_tower(t, builder._load_state_dict(snap))
+            parts.append(({f"towers.{i}.{k}": v for k, v in t.state_dict().items()},
+                          {f"towers.{i}.{k}": v for k, v in tower_want.items()}, t))
+            del tower_want
+        for got, want, t in parts:
+            check(set(got) == set(want), f"Phi-3 load: keys differ "
+                  f"{sorted(set(got) ^ set(want))[:10]}")
+            for k, v in want.items():
+                w = v.to(dev).to(got[k].dtype)
+                if t is not None and "dinov2" in t.name.lower() and k.endswith("module.pos_embed"):
+                    pos_err = float((got[k].float() - w.float()).abs().max())
+                    check(pos_err <= 1e-6, f"Phi-3 load: DINOv2 resample differs by {pos_err}")
+                elif not torch.equal(got[k], w):
+                    mismatched.append(k)
+                ref_sd[k] = w
+        del parts, want
+        check(not mismatched, f"Phi-3 load: {len(mismatched)} tensors differ from the CPU "
+              f"converters', {mismatched[:10]}")
+        check_s = time.perf_counter() - t0
+        ref = builder.CambrianForInference.from_state_dict(loaded.config, ref_sd, torch.bfloat16)
+        del ref_sd
+        kw = dict(images=request_images(torch, loaded.towers, 0), image_sizes=[prompt["size"]],
+                  max_new_tokens=NEW_TOKENS, eos_token_id=None)
+        zero_counts(counters)                # the path's count starts here
+        out = loaded.generate(prompt["ids"], **kw)
+        launches = read_counts(counters)
+        want_k1 = TOWER_K1_CALLS + PHI3_LOAD_LAYERS
+        check(launches["flash_attention_fwd"] == want_k1,
+              f"Phi-3 load: K1 launched {launches['flash_attention_fwd']}x, not {want_k1}x")
+        ref_out = ref.generate(prompt["ids"], **kw)
+        check(out.shape == (1, NEW_TOKENS) and np.array_equal(out, ref_out),
+              "Phi-3 load: the loaded model's tokens differ from from_state_dict's")
+        print(f"Phi-3 load: load_pretrained_model {load_s:.1f} s ({n_bytes / 1e9 / load_s:.2f} "
+              f"GB/s), no warning; every tensor equals the CPU converters' ({check_s:.1f} s), the "
+              f"DINOv2 {DINOV2_NATIVE_SIDE}^2 -> {loaded.towers[2].config.grid_side}^2 resample "
+              f"within {pos_err:.1e}; {NEW_TOKENS} tokens equal from_state_dict's", flush=True)
+        del loaded, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(bytes=n_bytes, shards=len(shards), write_s=write_s, load_s=load_s,
+                    check_s=check_s, pos_embed_err=pos_err, tokens=out[0].tolist(),
+                    launches=launches)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def backward_kernel_phase(torch, fa):
@@ -2287,6 +2761,7 @@ def main(argv=None):
     quant_kernels = quant_kernel_phase(torch, quant, prompt_len)
     tiny = {q or "fp32": tiny_slice_phase(torch, fa, quant, rng, q)
             for q in (None, "int8", "int4")}
+    tiny["phi3_longrope"] = tiny_slice_phase(torch, fa, quant, rng, longrope=True)
     sites = {}       # K5-K8's drop-in sites, captured in the bf16 serving phase
     full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q,
                                           sites=sites if q is None else None)
@@ -2310,10 +2785,13 @@ def main(argv=None):
     vision = vision_kernel_phase(torch, fa, quant, sites)
     del sites
     print(f"phase 10 (K5-K8): {time.perf_counter() - t10:.1f} s", flush=True)
+    t11 = time.perf_counter()
+    phi3 = phi3_phase(torch, fa, quant)
+    print(f"phase 11 (Cambrian-Phi-3): {time.perf_counter() - t11:.1f} s", flush=True)
 
-    # launches: each 8B path's counts (serving, training), read just after
-    # it, summed over paths
-    paths = [f["launches"] for f in full.values()] + [train["launches"]]
+    # launches: each path's counts (8B serving and training, Phi-3 serving
+    # and loading), read just after it, summed over paths
+    paths = [f["launches"] for f in full.values()] + [train["launches"], phi3["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -2422,7 +2900,7 @@ def main(argv=None):
             json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()}, sass=sass,
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
-                           vision=vision, summary=summary), f, indent=1)
+                           vision=vision, phi3=phi3, summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

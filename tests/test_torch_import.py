@@ -1,10 +1,12 @@
 """The port imports without JAX (nor flax, optax, orbax), without the JAX
-package and without a GPU toolchain: kernels are built on first use, never
-at import. The probe covers serving, the training path and the op modules
-of kernels K5-K8."""
+package, without ``safetensors`` and without a GPU toolchain: kernels are
+built on first use, never at import. The probe covers serving, checkpoint
+I/O and tower loading, the training path and the op modules of kernels
+K5-K8; a scan of the sources covers imports made inside functions."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -33,6 +35,8 @@ import cambrian_tpu_torch.data.dataset
 import cambrian_tpu_torch.data.preprocess
 import cambrian_tpu_torch.data.native_image
 import cambrian_tpu_torch.checkpoint.save
+import cambrian_tpu_torch.checkpoint.safetensors_io
+import cambrian_tpu_torch.checkpoint.hf_vision
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "optax", "orbax", "triton", "PIL",
                                  "transformers", "safetensors") if m in sys.modules),
@@ -52,6 +56,26 @@ def test_import_loads_no_jax_and_builds_nothing():
                          env=env, cwd=REPO, timeout=120, check=True)
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert probe == {"loaded": [], "jax_package": [], "built": 0}
+
+
+# an import of jax, of the JAX package or of safetensors, at any depth
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|cambrian_tpu|safetensors)\b(?!_torch)",
+                        re.MULTILINE)
+
+
+def test_sources_import_no_jax_no_jax_package_no_safetensors():
+    """Every module of the port and ``chip_smoke.py``, including imports
+    inside functions, which the probe above does not reach."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "cambrian_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    found = {}
+    for path in paths:
+        with open(path) as f:
+            hits = _FORBIDDEN.findall(f.read())
+        if hits:
+            found[os.path.relpath(path, REPO)] = hits
+    assert len(paths) > 40 and not found, found
 
 
 def test_from_jax_keeps_quantized_leaves():
