@@ -6,7 +6,9 @@ The JAX engine compiles the whole generation into one program; eager
 PyTorch runs the same steps from Python. ``generate_stream`` yields the ids so
 far after every chunk of ``stream_chunk`` decode steps, with the JAX engine's
 chunking, cache sizing and stopping rules; in eager PyTorch a chunk is only
-the cadence of the yields. Continuous batching is not ported yet.
+the cadence of the yields. ``infer/continuous.py`` serves concurrent
+requests through one shared cache; its chunked decode samples each row with
+``sample_token_per_slot``.
 """
 
 import time
@@ -48,6 +50,29 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, -1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_token_per_slot(logits: torch.Tensor, generator: Optional[torch.Generator],
+                          temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+    """``sample_token`` a row: [B, V] logits with temperatures and top-p
+    values [B] -> [B] int64 tokens; rows with temperature 0 are greedy, and
+    top-p applies to the rows whose top-p is below 1 (the smallest set with
+    cumulative probability >= top-p). The draw is the Gumbel-max form of a
+    categorical sample, made on the device from ``generator`` with no host
+    sync."""
+    greedy = logits.argmax(-1)
+    scaled = logits.float() / temps.clamp_min(1e-6)[:, None]
+    sorted_logits = scaled.sort(-1, descending=True).values
+    cum = torch.softmax(sorted_logits, -1).cumsum(-1)
+    # where the sums never reach top-p, the last (smallest) logit: nothing
+    # is dropped, as the JAX package's out-of-range cutoff drops nothing
+    cutoff_idx = (cum < top_ps[:, None]).sum(-1, keepdim=True).clamp(max=scaled.shape[-1] - 1)
+    cutoff = sorted_logits.gather(-1, cutoff_idx)
+    drop = (top_ps[:, None] < 1.0) & (scaled < cutoff)
+    filtered = scaled.masked_fill(drop, float("-inf"))
+    noise = torch.empty_like(filtered).exponential_(generator=generator)
+    sampled = (filtered - noise.log()).argmax(-1)
+    return torch.where(temps == 0.0, greedy, sampled)
 
 
 class GenerationEngine:

@@ -19,7 +19,7 @@ Training losses: ``cross_entropy_loss`` on whole logits, and
 [B, S, V] logits (``cambrian_tpu/models/cambrian.py:611-776``).
 """
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Union
 
 import torch
 from torch import nn
@@ -282,8 +282,11 @@ class CambrianLM(nn.Module):
                                im_start=im_start)
         return self.logits(hidden), cache
 
-    def decode_step(self, token_ids, position_ids, cache, cache_valid, cache_index: int):
-        """One decode step over the cache. Returns (logits [B, V], cache)."""
+    def decode_step(self, token_ids, position_ids, cache, cache_valid,
+                    cache_index: Union[int, torch.Tensor]):
+        """One decode step over the cache, writing slot ``cache_index``: an
+        int shared by every row, or a [B] tensor of one index a row (an index
+        past the cache writes nothing). Returns (logits [B, V], cache)."""
         hidden = self.embed_tokens(token_ids)
         hidden = self._decoder(hidden, make_decode_mask(cache_valid), position_ids,
                                cache, cache_index, None, None, None, inject=False)

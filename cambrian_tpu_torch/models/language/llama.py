@@ -1,8 +1,9 @@
 """LLaMA-family decoder (cambrian_tpu/models/language/llama.py), LLaMA and
 Phi-3: fp32 RMSNorm, GQA with rotary embeddings (HF rotate-half convention),
-a KV cache with a shared write offset, and fp32 attention softmax. Phi-3 is
-the LLaMA block with a sliding window and, where the config has it, scaled
-rotary frequencies (LongRoPE/"su" or linear, ``rope_scaling_factors``).
+a KV cache written at a shared offset or at one index a row, and fp32
+attention softmax. Phi-3 is the LLaMA block with a sliding window and, where
+the config has it, scaled rotary frequencies (LongRoPE/"su" or linear,
+``rope_scaling_factors``).
 
 Prefill follows the JAX package's branch rule exactly: the flash-attention
 kernel when ``s >= 128`` (no softcap), plain attention over a dense mask
@@ -68,7 +69,9 @@ def rope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=position_ids.device) / head_dim))
     if ext_factors is not None:
-        inv_freq = inv_freq / ext_factors.to(inv_freq.device)
+        # a host tensor: copied without waiting for the stream, so a decode
+        # step queued behind others does not stall the host
+        inv_freq = inv_freq / ext_factors.to(inv_freq.device, non_blocking=True)
     angles = position_ids.float()[..., None] * inv_freq
     emb = torch.cat([angles, angles], dim=-1)
     return (emb.cos() * mscale).to(dtype), (emb.sin() * mscale).to(dtype)
@@ -155,6 +158,19 @@ def init_kv_cache(cfg: CambrianConfig, batch: int, max_len: int,
         for _ in range(cfg.num_hidden_layers))
 
 
+def write_cache_rows(buf: torch.Tensor, rows: torch.Tensor, index: torch.Tensor) -> None:
+    """``buf[b, index[b]] = rows[b]`` for each row b of ``buf`` [B, L, ...];
+    an index at or past L writes nothing, as the JAX scatter drops it: the
+    row's old value goes back in place. The index stays on the device, so
+    nothing waits for the host."""
+    b, length = buf.shape[:2]
+    index = index.to(buf.device)
+    flat = buf.view(b, length, -1)
+    at = index.clamp(0, length - 1).long().view(b, 1, 1).expand(b, 1, flat.shape[2])
+    new = rows.reshape(b, 1, -1).to(buf.dtype)
+    flat.scatter_(1, at, torch.where((index < length).view(b, 1, 1), new, flat.gather(1, at)))
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: CambrianConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -180,9 +196,17 @@ class LlamaAttention(nn.Module):
 
         if cache is not None:
             cache_k, cache_v = cache
-            idx = int(cache_index)
-            cache_k[:, idx:idx + s].copy_(k)
-            cache_v[:, idx:idx + s].copy_(v)
+            if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+                # per-row write positions [B] (continuous batching: each slot
+                # sits at its own depth), one new row each
+                if s != 1:
+                    raise ValueError(f"a vector cache_index writes one row, got {s}")
+                write_cache_rows(cache_k, k[:, 0], cache_index)
+                write_cache_rows(cache_v, v[:, 0], cache_index)
+            else:
+                idx = int(cache_index)
+                cache_k[:, idx:idx + s].copy_(k)
+                cache_v[:, idx:idx + s].copy_(v)
             # attend over the whole cache as stored (its dtype rounding
             # included), cast to the compute dtype
             k, v = cache_k.to(q.dtype), cache_v.to(q.dtype)

@@ -5,7 +5,9 @@
 
 Phases, each of which must pass (a failure raises and exits non-zero):
 
-1. the card's name and power limit (nvidia-smi), then the build of every
+1. the card's name and power limit (nvidia-smi), whether ``requests``
+   imports (phase 12's HTTP client; else ``urllib.request``), then the
+   build of every
    kernel from the repository's sources (one nvcc per source, all started
    together, sm_90a), ptxas' registers and spills of each kernel, and the
    tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA) of each
@@ -53,7 +55,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    the same bits on a second call, and is timed as the median of 30 calls
    beside the first port's ``gemv_kernel`` (``_route="gemv_kernel"``) and
    ``torch.matmul``, with its TB/s, its share of the bound and a decode
-   step's sum of each;
+   step's sum of each; and bf16 at M = 4, the continuous-batching decode
+   (phase 12), which runs ``gemv_kernel`` (by counter and in the profiled
+   run): error against plain on fp32-upcast inputs, medians of 30 with the
+   L2 flushed beside ``torch.matmul``, the bound and a decode step's sums;
 4. a tiny Cambrian, unquantized, int8 and int4: the kernel path on the card
    in fp32 (TF32 off) against the plain path on the CPU; greedy tokens must
    be identical and the kernels launched exactly as often as the path needs;
@@ -61,11 +66,16 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    ``generate`` and ``generate_stream`` on the card and ``generate`` on the
    CPU must give the same tokens; and as a Phi-3 with LongRoPE whose KV
    cache exceeds ``original_max_position_embeddings`` (the long factors);
+   unquantized, int8 and int4, the continuous-batching engine on the card
+   (the image request and two text requests on 2 slots, chunks of 4) must
+   give the tokens of the same engine on the CPU; the phase restores the
+   TF32 flags it found, so the later phases' fp32 products stay fp32;
 5. Cambrian-8B at full width (four towers, SVA, LLaMA-3-8B), bf16 weights
    and an fp32 LM head made on the card from a seed: three requests of 32
    greedy tokens through ``CambrianForInference.generate``; each must launch
    K1 exactly 27 + 23 + 40 + 32 = 122 times (decode steps use plain
-   attention) and give finite logits;
+   attention) and give finite logits; the fp32 LM head timed in fp32 and in
+   TF32 at the prefill and at a decode step;
 6. the same model quantized on the card, layer by layer, with ``load_8bit``
    and then ``load_4bit`` semantics (the bf16 model freed first): two
    requests through ``generate``, each launching K1 122 times and its quant
@@ -164,6 +174,32 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    the tokens of ``from_state_dict`` on those tensors; the files are
    deleted.
 
+12. continuous batching on each model of phases 5 and 6 while it is live
+   (bf16, int8, int4): ``ContinuousBatchingEngine`` with the worker's
+   defaults (4 slots, max_len = context_len + 1024, bf16 cache, chunks of
+   8); 8 requests submitted at once, cycling phase 5's prompts and images,
+   each encoded through ``_prepare_generate``, six with 32 new tokens, one
+   12 and one 20 (slots retire and are re-admitted while others decode),
+   one with an EOS taken from inside a chunk of its prompt's sequential
+   output. Every request must finish with its budget or at its EOS, and its
+   first token must equal sequential ``generate``'s (the share of agreeing
+   tokens is printed); K1 exactly 122 times a request (90 at its encode, 32
+   at its admission); quantized, 7 x 32 GEMM launches an admission and
+   7 x 32 ``gemv_kernel`` launches a decode step (route counter). Every
+   chunk's steps run under ``torch.cuda.set_sync_debug_mode("error")``: no
+   host sync inside a chunk. Printed: each request's time to first token,
+   the tokens/s across slots (all chunks, and those without an
+   admission), the wall ms of each chunk, peak memory, and phase 5's or
+   6's sequential tokens/s. Then 4 text requests whose second chunk (all
+   decode) runs under ``torch.profiler`` (quantized: ``gemv_kernel<., mode,
+   4>`` 7 x 32 x 8 times and no other quant function, no
+   ``gemv_m1_kernel``), and with int4 4 more under ``CAMBRIAN_INT4_V2=1``
+   (K4b at M = 4). With bf16, the port's ``ModelWorker`` (continuous
+   batching) on the live model serves 4 concurrent text-only streams over
+   localhost HTTP with a numpy stand-in tokenizer: every chunk error code 0,
+   each stream its whole budget; the server and the worker's stepper stop
+   before the model is freed.
+
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
 """
@@ -230,6 +266,23 @@ QUANT_SHAPES = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096,
 # medians of GEMV_ITERS calls beside the first port's gemv_kernel
 GEMV_M1_KERNELS = ("int8_matmul", "int4_matmul", "int4_matmul_scale_on_weights")
 GEMV_ITERS = 30
+# continuous batching (phase 12): the worker's defaults (model_worker.py),
+# so a decode step runs every projection at M = CB_SLOTS on gemv_kernel
+CB_SLOTS = 4
+CB_CHUNK = 8
+CB_EXTRA_LEN = 1024          # max_len = context_len + 1024
+# the 8 requests submitted at once: request r takes phase 5's prompt and
+# image r % 3 and budget CB_BUDGETS[r]; request CB_EOS_REQUEST carries as its
+# EOS a token from inside a chunk of its prompt's sequential output
+CB_BUDGETS = [32, 12, 20, 32, 32, 32, 32, 32]
+CB_EOS_REQUEST = 3
+# one more pass of CB_SLOTS text requests of CB_TEXT_LEN ids and
+# CB_TEXT_TOKENS tokens, whose second chunk (all decode) is profiled
+CB_TEXT_LEN = 40
+CB_TEXT_TOKENS = 2 * CB_CHUNK
+# the HTTP phase: concurrent text-only streams through the port's worker
+HTTP_STREAMS = 4
+HTTP_TOKENS = 16
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
     "int4_matmul": ("cambrian_tpu/ops/quant.py:227", "int4"),
@@ -589,10 +642,12 @@ def kernel_phase(torch, fa, prompt):
 
 
 def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tuple(QUANT_KERNELS),
-                       dtypes=None, label="8B"):
+                       dtypes=None, label="8B", slots=None):
     """K3, K4 and K4b/K4c (``names``) against their plain versions at the
     decoder's projection shapes (the 8B decoder's by default), bf16 and fp32
-    (``dtypes``); returns per-case records."""
+    (``dtypes``); with ``slots``, also bf16 at M = ``slots`` (the
+    continuous-batching decode, on ``gemv_kernel``); returns per-case
+    records."""
     dtypes = dtypes or (torch.bfloat16, torch.float32)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
@@ -621,88 +676,101 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
         cases = {name: cases[name] for name in names}
         prefill = {}     # name: (x, the record) of each bf16 prefill case
         decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3, K4, K4b
+        batched = {}     # name: (x, the record) of each bf16 M = slots case
+        runs = [(m, dtype) for m in (1, prompt_len) for dtype in dtypes]
+        runs += [(slots, torch.bfloat16)] if slots else []
         for name, (fn, plain, wq, sc, dequant) in cases.items():
-            for m in (1, prompt_len):
-                for dtype in dtypes:
-                    dtype_name = str(dtype).replace("torch.", "")
-                    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
-                    out = fn(x, wq, sc)
+            for m, dtype in runs:
+                dtype_name = str(dtype).replace("torch.", "")
+                x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                out = fn(x, wq, sc)
+                torch.cuda.synchronize()
+                ref = plain(x.float(), wq, sc)
+                err = float((out.float() - ref).abs().max())
+                # bf16: the output's rounding (2^-8 relative) plus, with the
+                # scale on the weights, their bf16 rounding; fp32: sums
+                rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+                tol = rel * max(1.0, float(ref.abs().max()))
+                check(torch.isfinite(out).all().item(), f"{name} {site} M={m}: non-finite")
+                check(out.shape == (m, n) and out.dtype == dtype,
+                      f"{name} {site} M={m}: {tuple(out.shape)} {out.dtype}")
+                check(err <= tol, f"{name} {site} M={m} {dtype_name}: "
+                      f"max abs error {err} > {tol}")
+                # the bf16 M = 1 GEMV of K3 and K4 (gemv_m1_kernel): medians of
+                # GEMV_ITERS calls, beside the first port's gemv_kernel
+                m1 = m == 1 and dtype == torch.bfloat16 and name in GEMV_M1_KERNELS
+                # the continuous-batching decode's GEMV, medians as at M = 1
+                m_slots = m == slots
+                iters = GEMV_ITERS if m1 or m_slots else 10
+                med = m1 or m_slots
+                ms = cuda_ms(torch, lambda: fn(x, wq, sc), iters, flush, median=med)
+                plain_ms = cuda_ms(torch, lambda: plain(x, wq, sc), iters, flush, median=med)
+                w_deq = dequant(wq, sc, dtype)
+                library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_deq), iters, flush,
+                                     median=med)
+                del w_deq
+                old_ms = None
+                if m1:
+                    # a fixed order of sums: two calls agree bit for bit
+                    check(torch.equal(fn(x, wq, sc), out),
+                          f"{name} {site} M=1: two calls differ")
+                    old = fn(x, wq, sc, _route="gemv_kernel")
                     torch.cuda.synchronize()
-                    ref = plain(x.float(), wq, sc)
-                    err = float((out.float() - ref).abs().max())
-                    # bf16: the output's rounding (2^-8 relative) plus, with the
-                    # scale on the weights, their bf16 rounding; fp32: sums
-                    rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
-                    tol = rel * max(1.0, float(ref.abs().max()))
-                    check(torch.isfinite(out).all().item(), f"{name} {site} M={m}: non-finite")
-                    check(out.shape == (m, n) and out.dtype == dtype,
-                          f"{name} {site} M={m}: {tuple(out.shape)} {out.dtype}")
-                    check(err <= tol, f"{name} {site} M={m} {dtype_name}: "
-                          f"max abs error {err} > {tol}")
-                    # the bf16 M = 1 GEMV of K3 and K4 (gemv_m1_kernel): medians of
-                    # GEMV_ITERS calls, beside the first port's gemv_kernel
-                    m1 = m == 1 and dtype == torch.bfloat16 and name in GEMV_M1_KERNELS
-                    iters = GEMV_ITERS if m1 else 10
-                    ms = cuda_ms(torch, lambda: fn(x, wq, sc), iters, flush, median=m1)
-                    plain_ms = cuda_ms(torch, lambda: plain(x, wq, sc), iters, flush, median=m1)
-                    w_deq = dequant(wq, sc, dtype)
-                    library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_deq), iters, flush,
-                                         median=m1)
-                    del w_deq
-                    old_ms = None
-                    if m1:
-                        # a fixed order of sums: two calls agree bit for bit
-                        check(torch.equal(fn(x, wq, sc), out),
-                              f"{name} {site} M=1: two calls differ")
-                        old = fn(x, wq, sc, _route="gemv_kernel")
-                        torch.cuda.synchronize()
-                        old_err = float((old.float() - ref).abs().max())
-                        check(old_err <= tol, f"{name} {site} gemv_kernel: error {old_err} > {tol}")
-                        old_ms = cuda_ms(torch, lambda: fn(x, wq, sc, _route="gemv_kernel"),
-                                         iters, flush, median=True)
-                    int8pack_ms = None
-                    if name == "int8_matmul" and dtype == torch.bfloat16:
-                        if int8pack is None:
-                            try:
-                                torch.ops.aten._weight_int8pack_mm(x, q8.T.contiguous(),
-                                                                   s8.to(dtype))
-                                int8pack = True
-                            except (RuntimeError, NotImplementedError) as e:
-                                print(f"_weight_int8pack_mm on CUDA: none ({str(e)[:120]})",
-                                      flush=True)
-                                int8pack = False
-                        if int8pack:
-                            wt, st = q8.T.contiguous(), s8.to(dtype)
-                            int8pack_ms = cuda_ms(torch, lambda: torch.ops.aten._weight_int8pack_mm(
-                                x, wt, st), flush=flush)
-                    n_bytes = wq.numel() + sc.numel() * 4 + (m * k + m * n) * x.element_size()
-                    bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 2 * m * n * k,
-                                                                 dtype_name)
-                    tflops = 2 * m * n * k / (ms * 1e9)
-                    rec = dict(kernel=name, site=site, m=m, k=k, n=n, dtype=dtype_name,
-                               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                               library_ms=library_ms, library_int8pack_ms=int8pack_ms,
-                               gemv_kernel_ms=old_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               bytes_ms=bytes_ms, ops_ms=ops_ms, tflops=tflops,
-                               tbps=n_bytes / (ms * 1e9), function=None)
-                    print(f"kernel {name:29s} {site:9s} {dtype_name:8s} M={m:<4d} K={k:<5d} "
-                          f"N={n:<5d} err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-                          f"matmul={library_ms:.4f} ms"
-                          + ("" if int8pack_ms is None else f" int8pack={int8pack_ms:.4f} ms")
-                          + f" bound={bound_ms * 1e3:.2f} us ({bound_by}) {tflops:.1f} TFLOP/s",
+                    old_err = float((old.float() - ref).abs().max())
+                    check(old_err <= tol, f"{name} {site} gemv_kernel: error {old_err} > {tol}")
+                    old_ms = cuda_ms(torch, lambda: fn(x, wq, sc, _route="gemv_kernel"),
+                                     iters, flush, median=True)
+                int8pack_ms = None
+                if name == "int8_matmul" and dtype == torch.bfloat16:
+                    if int8pack is None:
+                        try:
+                            torch.ops.aten._weight_int8pack_mm(x, q8.T.contiguous(),
+                                                               s8.to(dtype))
+                            int8pack = True
+                        except (RuntimeError, NotImplementedError) as e:
+                            print(f"_weight_int8pack_mm on CUDA: none ({str(e)[:120]})",
+                                  flush=True)
+                            int8pack = False
+                    if int8pack:
+                        wt, st = q8.T.contiguous(), s8.to(dtype)
+                        int8pack_ms = cuda_ms(torch, lambda: torch.ops.aten._weight_int8pack_mm(
+                            x, wt, st), flush=flush)
+                n_bytes = wq.numel() + sc.numel() * 4 + (m * k + m * n) * x.element_size()
+                bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 2 * m * n * k,
+                                                             dtype_name)
+                tflops = 2 * m * n * k / (ms * 1e9)
+                rec = dict(kernel=name, site=site, m=m, k=k, n=n, dtype=dtype_name,
+                           max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, library_int8pack_ms=int8pack_ms,
+                           gemv_kernel_ms=old_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           bytes_ms=bytes_ms, ops_ms=ops_ms, tflops=tflops,
+                           tbps=n_bytes / (ms * 1e9), function=None)
+                print(f"kernel {name:29s} {site:9s} {dtype_name:8s} M={m:<4d} K={k:<5d} "
+                      f"N={n:<5d} err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+                      f"matmul={library_ms:.4f} ms"
+                      + ("" if int8pack_ms is None else f" int8pack={int8pack_ms:.4f} ms")
+                      + f" bound={bound_ms * 1e3:.2f} us ({bound_by}) {tflops:.1f} TFLOP/s",
+                      flush=True)
+                records.append(rec)
+                if m1:
+                    print(f"gemv M=1 {name:12s} {site:9s} gemv_m1_kernel {ms * 1e3:.2f} us, "
+                          f"gemv_kernel {old_ms * 1e3:.2f} us, matmul {library_ms * 1e3:.2f} "
+                          f"us, bound {bound_ms * 1e3:.2f} us, {rec['tbps']:.3f} TB/s "
+                          f"({bound_ms / ms:.1%} of bound), err {err:.3e} (tol {tol:.2e}); "
+                          f"faster than gemv_kernel: {ms < old_ms}, no slower than "
+                          f"matmul: {ms <= library_ms}", flush=True)
+                    decode[name] = (x, rec)
+                if m_slots:
+                    print(f"gemv M={m} {name:12s} {site:9s} gemv_kernel {ms * 1e3:.2f} us, "
+                          f"matmul {library_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+                          f"us, bound {bound_ms * 1e3:.2f} us, {rec['tbps']:.3f} TB/s "
+                          f"({bound_ms / ms:.1%} of bound), err {err:.3e} (tol {tol:.2e})",
                           flush=True)
-                    records.append(rec)
-                    if m1:
-                        print(f"gemv M=1 {name:12s} {site:9s} gemv_m1_kernel {ms * 1e3:.2f} us, "
-                              f"gemv_kernel {old_ms * 1e3:.2f} us, matmul {library_ms * 1e3:.2f} "
-                              f"us, bound {bound_ms * 1e3:.2f} us, {rec['tbps']:.3f} TB/s "
-                              f"({bound_ms / ms:.1%} of bound), err {err:.3e} (tol {tol:.2e}); "
-                              f"faster than gemv_kernel: {ms < old_ms}, no slower than "
-                              f"matmul: {ms <= library_ms}", flush=True)
-                        decode[name] = (x, rec)
-                    if dtype == torch.bfloat16 and m == prompt_len:
-                        prefill[name] = (x, rec)
-        for name, (x, rec) in list(prefill.items()) + list(decode.items()):
+                    batched[name] = (x, rec)
+                if dtype == torch.bfloat16 and m == prompt_len:
+                    prefill[name] = (x, rec)
+        for name, (x, rec) in (list(prefill.items()) + list(decode.items())
+                               + list(batched.items())):
             profiled_cases.append((name, site, x, cases[name][2], cases[name][3], rec))
         del w, prefill
     del l2
@@ -716,6 +784,15 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
               f"{step['ms']:.3f} ms, gemv_kernel {step['gemv_kernel_ms']:.3f} ms, matmul "
               f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
               f"({step['bound_ms'] / step['ms']:.1%} of bound)", flush=True)
+        if slots:
+            recs = [r for r in records if r["kernel"] == name and r["m"] == slots]
+            step = {key: LAYERS * sum(r[key] for r in recs)
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"gemv M={slots} {name}: a {label} continuous-batching decode step (7 shapes x "
+                  f"{LAYERS} layers) gemv_kernel {step['ms']:.3f} ms, matmul "
+                  f"{step['library_ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, bound "
+                  f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%} of bound)",
+                  flush=True)
     return records
 
 
@@ -723,9 +800,10 @@ def request_sum(records, key, kernel, prompt_len):
     """One 8B request's worth of a quant kernel's ``key`` (bf16): each
     projection once per layer at the prompt length and 31 times at M = 1."""
     total = 0.0
+    calls = {prompt_len: 1, 1: NEW_TOKENS - 1}
     for r in records:
         if r["kernel"] == kernel and r["dtype"] == "bfloat16" and r[key] is not None:
-            total += LAYERS * r[key] * (1 if r["m"] == prompt_len else NEW_TOKENS - 1)
+            total += LAYERS * r[key] * calls.get(r["m"], 0)
     return total
 
 
@@ -737,6 +815,7 @@ def tiny_slice_phase(torch, fa, quant, rng, quantize=None, longrope=False):
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
     from cambrian_tpu_torch.models.language.llama import rope_scaling_factors
 
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_debug(num_towers=2).replace(tokenizer_model_max_length=192, quantize=quantize)
@@ -806,9 +885,44 @@ def tiny_slice_phase(torch, fa, quant, rng, quantize=None, longrope=False):
               "tiny slice with a sliding window: generate and generate_stream differ")
         check((w_gen == w_cpu).all(), "tiny slice with a sliding window: card and CPU differ")
         window = dict(window=WINDOW, tokens=w_gen.tolist())
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    return dict(tokens=got.tolist(), launches=counts, logit_err=logit_err, window=window)
+    continuous = None
+    if not longrope:
+        continuous = tiny_continuous(torch, cpu, gpu, ids, kw, rng, label, got)
+    # the flags as this phase found them: the phases after it keep their
+    # own fp32 products (the 8B LM head among them) in fp32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return dict(tokens=got.tolist(), launches=counts, logit_err=logit_err, window=window,
+                continuous=continuous)
+
+
+def tiny_continuous(torch, cpu, gpu, ids, kw, rng, label, sequential):
+    """The continuous-batching engine on the card against the same engine on
+    the CPU (fp32 caches): the image request beside two text requests on 2
+    slots, chunks of 4, so that a slot is re-admitted while the other
+    decodes; the greedy tokens must be identical."""
+    from cambrian_tpu_torch.infer.continuous import ContinuousBatchingEngine
+    from cambrian_tpu_torch.infer.engine import GenerationConfig
+
+    texts = [rng.integers(5, cpu.config.vocab_size, n) for n in (20, 33)]
+    out = {}
+    for where, model in (("cpu", cpu), ("gpu", gpu)):
+        eng = ContinuousBatchingEngine(model.lm, num_slots=2,
+                                       max_len=cpu.config.tokenizer_model_max_length + 64,
+                                       cache_dtype=torch.float32)
+        pids, pmask, ppos, feats, aux_masks, cfg, _ = model._prepare_generate(ids, **kw)
+        reqs = [eng.submit(pids[0], pmask[0], ppos[0], feats, aux_masks, cfg)]
+        for i, t in enumerate(texts):
+            reqs.append(eng.submit(t, np.ones(len(t), bool), np.arange(len(t)),
+                                   config=GenerationConfig(max_new_tokens=10 + 2 * i)))
+        out[where] = [o.tolist() for o in eng.run_until_complete(reqs, chunk=4)]
+    same_as_generate = out["gpu"][0] == sequential[0].tolist()
+    print(f"tiny slice ({label}), continuous batching: cpu {out['cpu']} gpu {out['gpu']}; the "
+          f"image request equals generate's tokens: {same_as_generate}", flush=True)
+    check(out["gpu"] == out["cpu"], f"tiny slice ({label}): continuous batching on the card "
+          f"and on the CPU differ")
+    check([len(t) for t in out["gpu"]] == [8, 10, 12],
+          f"tiny slice ({label}), continuous batching: lengths {[len(t) for t in out['gpu']]}")
+    return dict(tokens=out["gpu"], same_as_generate=same_as_generate)
 
 
 def serve_request(torch, model, counters, cfg, r, pr, stream=False):
@@ -923,6 +1037,12 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
     peak = torch.cuda.max_memory_allocated()
     print(f"8B {label} peak memory allocated: {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)",
           flush=True)
+    head = fp32_head_times(torch, model, len(prompts[0]["mask"])) if quantize is None else None
+    t12 = time.perf_counter()
+    continuous = continuous_phase(torch, quant, model, counters, cfg, prompts, requests,
+                                  quantize)
+    print(f"phase 12 ({label}): {time.perf_counter() - t12:.1f} s", flush=True)
+    http = http_phase(torch, model, counters, cfg) if quantize is None else None
     if sites is not None:
         pr = prompts[0]
         t0 = time.perf_counter()
@@ -945,7 +1065,351 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(requests=requests, launches=launches, n_params=n_params,
-                weight_bytes=weight_bytes, peak_bytes=peak)
+                weight_bytes=weight_bytes, peak_bytes=peak, continuous=continuous, http=http,
+                head=head)
+
+
+def fp32_head_times(torch, model, rows):
+    """The 8B fp32 LM head's device time (medians of 10) at the prefill's
+    ``rows`` and at a decode step, in fp32 (as phases 5, 6 and 12 run it) and
+    in TF32 (as phases 5 and 6 ran it while phase 4 left TF32 on)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    try:
+        with torch.inference_mode():
+            for m in (rows, 1):
+                h = torch.randn((1, m, model.config.hidden_size), generator=g,
+                                device="cuda").bfloat16()
+                for mode in (False, True):
+                    torch.backends.cuda.matmul.allow_tf32 = mode
+                    out[f"{m}_{'tf32' if mode else 'fp32'}"] = cuda_ms(
+                        torch, lambda: model.lm.logits(h), 10, median=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"8B fp32 LM head (ms, medians of 10): {rows} rows fp32 {out[f'{rows}_fp32']:.3f}, "
+          f"TF32 {out[f'{rows}_tf32']:.3f}; 1 row fp32 {out['1_fp32']:.3f}, TF32 "
+          f"{out['1_tf32']:.3f}", flush=True)
+    return out
+
+
+def cb_first_tokens(torch, model, prompts, sequential):
+    """Each prompt's sequential greedy tokens (``generate``, 32 new): phase
+    5's or 6's where it ran the prompt, else one request run here."""
+    seq = {}
+    for rec in sequential:
+        if not rec["stream"] and not rec.get("scale_on_weights"):
+            seq.setdefault(rec["request"], rec["tokens"])
+    for r, pr in enumerate(prompts):
+        if r not in seq:
+            seq[r] = model.generate(pr["ids"], images=request_images(torch, model.towers, r),
+                                    image_sizes=[pr["size"]], max_new_tokens=NEW_TOKENS,
+                                    eos_token_id=None)[0].tolist()
+    return seq
+
+
+def text_requests(engine, cfg, rng, n, tokens):
+    """``n`` text-only requests of CB_TEXT_LEN random ids, ``tokens`` greedy
+    tokens each."""
+    from cambrian_tpu_torch.infer.engine import GenerationConfig
+
+    out = []
+    for _ in range(n):
+        ids = np.concatenate([[cfg.bos_token_id],
+                              rng.integers(0, min(128000, cfg.vocab_size), CB_TEXT_LEN - 1)])
+        out.append(engine.submit(ids, np.ones(len(ids), bool), np.arange(len(ids)),
+                                 config=GenerationConfig(max_new_tokens=tokens)))
+    return out
+
+
+def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, quantize):
+    """Phase 12: ``ContinuousBatchingEngine`` on the live 8B model with the
+    worker's defaults (CB_SLOTS slots, max_len = context_len + 1024, bf16
+    cache, chunks of CB_CHUNK): the 8 requests of CB_BUDGETS, each encoded
+    through ``_prepare_generate`` and all submitted at once, driven by
+    ``step_chunk`` until every one has finished; every chunk's steps run
+    under ``torch.cuda.set_sync_debug_mode("error")``. Then CB_SLOTS text
+    requests whose second chunk runs under ``torch.profiler``, and, with
+    int4, CB_SLOTS more under ``CAMBRIAN_INT4_V2=1`` (K4b at M = CB_SLOTS).
+    Returns the records; ``launches`` are the phase's counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cambrian_tpu_torch.infer.continuous import ContinuousBatchingEngine
+
+    label = quantize or "bf16"
+    kernel = f"{quantize}_matmul" if quantize else None
+    engine = ContinuousBatchingEngine(model.lm, num_slots=CB_SLOTS,
+                                      max_len=cfg.tokenizer_model_max_length + CB_EXTRA_LEN)
+    check(engine.cache[0][0].dtype == torch.bfloat16 and engine.device.type == "cuda",
+          f"phase 12 ({label}): cache {engine.cache[0][0].dtype} on {engine.device}")
+    seq = cb_first_tokens(torch, model, prompts, sequential)
+    eos_seq = seq[CB_EOS_REQUEST % len(prompts)]
+    k = next(i for i in range(1, NEW_TOKENS) if eos_seq[i] not in eos_seq[:i] and i % CB_CHUNK)
+    eos = eos_seq[k]
+
+    # every chunk's steps with host syncs made errors
+    decode_steps = 0
+    decode_chunk = engine._decode_chunk
+
+    def checked_chunk(chunk, *args):
+        nonlocal decode_steps
+        decode_steps += chunk
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return decode_chunk(chunk, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._decode_chunk = checked_chunk
+    routes = {name: getattr(quant, name).function_launches for name in QUANT_KERNELS}
+    for r in routes.values():
+        r.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)                    # the phase's count starts here
+    prepared = []
+    for r, budget in enumerate(CB_BUDGETS):
+        pr = prompts[r % len(prompts)]
+        pids, pmask, ppos, feats, aux_masks, gcfg, _ = model._prepare_generate(
+            pr["ids"], images=request_images(torch, model.towers, r % len(prompts)),
+            image_sizes=[pr["size"]], max_new_tokens=budget,
+            eos_token_id=eos if r == CB_EOS_REQUEST else None)
+        prepared.append((pids[0], pmask[0], ppos[0], feats, aux_masks, gcfg))
+    first = {}
+    t_submit = time.perf_counter()
+    reqs = [engine.submit(*args, on_token=lambda tok, r=r: first.setdefault(
+        r, time.perf_counter())) for r, args in enumerate(prepared)]
+    chunks = []
+    while not all(q.finished for q in reqs):
+        pending = engine._pending.qsize()
+        before = sum(len(q.tokens) for q in reqs)
+        t0 = time.perf_counter()
+        active = engine.step_chunk(CB_CHUNK)
+        chunks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           admitted=pending - engine._pending.qsize(),
+                           tokens=sum(len(q.tokens) for q in reqs) - before, active=active))
+    wall_ms = (time.perf_counter() - t_submit) * 1e3
+    main_steps = decode_steps
+    main = read_counts(counters)
+    main_routes = {name: dict(r) for name, r in routes.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    n_tokens = sum(len(q.tokens) for q in reqs)
+    records = []
+    for r, q in enumerate(reqs):
+        ref = seq[r % len(prompts)]
+        budget = CB_BUDGETS[r]
+        stopped = r == CB_EOS_REQUEST and q.tokens[-1] == eos
+        check(q.finished and (len(q.tokens) == budget or (stopped and len(q.tokens) <= budget)),
+              f"phase 12 ({label}) request {r}: {len(q.tokens)} tokens, budget {budget}")
+        check(all(0 <= t < cfg.vocab_size for t in q.tokens),
+              f"phase 12 ({label}) request {r}: a token out of range")
+        check(q.tokens[0] == ref[0], f"phase 12 ({label}) request {r}: first token "
+              f"{q.tokens[0]}, sequential generate's {ref[0]}")
+        n = min(len(q.tokens), len(ref))
+        agree = sum(a == b for a, b in zip(q.tokens[:n], ref[:n])) / n
+        records.append(dict(request=r, prompt=r % len(prompts), budget=budget,
+                            tokens=list(q.tokens), agree=agree, eos=stopped,
+                            ttft_ms=(first[r] - t_submit) * 1e3))
+        print(f"phase 12 ({label}) request {r}: prompt {r % len(prompts)}, {len(q.tokens)} of "
+              f"{budget} tokens{' (stopped at its EOS)' if stopped else ''}, time to first "
+              f"token {records[-1]['ttft_ms']:.1f} ms, {agree:.1%} of tokens agree with "
+              f"sequential generate", flush=True)
+    eos_rec = records[CB_EOS_REQUEST]
+    print(f"phase 12 ({label}): the EOS request's stop token {eos} is token {k} of its "
+          f"prompt's sequential output (inside chunk {k // CB_CHUNK}); it stopped at its EOS: "
+          f"{eos_rec['eos']} after {len(eos_rec['tokens'])} tokens", flush=True)
+
+    k1 = len(CB_BUDGETS) * LAUNCHES_PER_REQUEST      # 90 per encode + 32 per admission
+    check(main["flash_attention_fwd"] == k1,
+          f"phase 12 ({label}): K1 launched {main['flash_attention_fwd']}x, not {k1}x")
+    unused = {name: main[name] for name in VISION_KERNELS if main[name]}
+    check(not unused, f"phase 12 ({label}): launched K5-K8 {unused}")
+    if kernel:
+        want = {"gemm": QUANT_PER_STEP * len(CB_BUDGETS),
+                "gemv_kernel": QUANT_PER_STEP * main_steps}
+        check(main_routes[kernel] == want and main[kernel] == sum(want.values()),
+              f"phase 12 ({label}): {kernel} routes {main_routes[kernel]} ({main[kernel]} "
+              f"launches), not {want}")
+    decode = [c for c in chunks if not c["admitted"] and c["tokens"]]
+    decode_tok_s = sum(c["tokens"] for c in decode) / sum(c["ms"] for c in decode) * 1e3
+    tok_s = n_tokens / wall_ms * 1e3
+    seq_tok_s = [rec["decode_tokens_per_s"] for rec in sequential]
+    print(f"phase 12 ({label}): {len(CB_BUDGETS)} requests, {n_tokens} tokens in {wall_ms:.1f} ms "
+          f"({len(chunks)} chunks, {main_steps} decode steps): {tok_s:.2f} tokens/s across "
+          f"slots, {decode_tok_s:.2f} in the {len(decode)} chunks without an admission; "
+          f"sequential generate on the same prompts {min(seq_tok_s):.2f}-{max(seq_tok_s):.2f} "
+          f"tokens/s (phase {5 if quantize is None else 6}); wall ms a chunk "
+          f"{[round(c['ms'], 1) for c in chunks]} (admissions {[c['admitted'] for c in chunks]}); "
+          f"peak memory {peak / 2**30:.2f} GiB; no host sync inside a chunk", flush=True)
+
+    rng = np.random.default_rng(SEED + 12)
+    fns = {}
+    # one profiled chunk, all decode, every projection at M = CB_SLOTS: the
+    # first chunk of CB_SLOTS text requests admits them, the second runs
+    # profiled (again, on fresh requests, if the trace comes back empty)
+    for _ in range(3):
+        extra = text_requests(engine, cfg, rng, CB_SLOTS, CB_TEXT_TOKENS)
+        engine.step_chunk(CB_CHUNK)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.step_chunk(CB_CHUNK)
+            torch.cuda.synchronize()
+        check(all(q.finished and len(q.tokens) == CB_TEXT_TOKENS for q in extra),
+              f"phase 12 ({label}): the profiled pass gave "
+              f"{[len(q.tokens) for q in extra]} tokens")
+        events = kernel_events(prof)
+        if events:
+            break
+        print("profiler: a trace holds no kernel", flush=True)
+    check(events, f"phase 12 ({label}): three profiled chunks came back without a kernel")
+    for _, n, key in events:
+        for fn in quant_functions([key]):
+            fns[fn] = fns.get(fn, 0) + n
+    busy_ms = sum(us for us, _, _ in events) / 1e3
+    top = [(round(us / 1e3, 3), n, key[:70]) for us, n, key in events[:8]]
+    print(f"phase 12 ({label}) profiled decode chunk ({CB_CHUNK} steps): {busy_ms:.2f} ms "
+          f"of kernel time ({busy_ms / CB_CHUNK:.2f} a step); quant functions {fns}; the "
+          f"longest kernels (ms, launches, name): {top}", flush=True)
+    if kernel:
+        mode = list(QUANT_KERNELS).index(kernel)
+        gemv = {f: n for f, n in fns.items() if f.startswith("gemv_kernel<")
+                and f.endswith(f",{mode},{CB_SLOTS}>")}
+        check(sum(gemv.values()) == QUANT_PER_STEP * CB_CHUNK and set(fns) == set(gemv),
+              f"phase 12 ({label}): the profiled chunk ran {fns}, not {QUANT_PER_STEP * CB_CHUNK} "
+              f"x gemv_kernel<.,{mode},{CB_SLOTS}> alone")
+    if quantize == "int4":
+        os.environ["CAMBRIAN_INT4_V2"] = "1"
+        try:
+            routes["int4_matmul_scale_on_weights"].clear()
+            v2 = text_requests(engine, cfg, rng, CB_SLOTS, CB_CHUNK)
+            engine.run_until_complete(v2, chunk=CB_CHUNK)
+        finally:
+            del os.environ["CAMBRIAN_INT4_V2"]
+        want = {"gemm": QUANT_PER_STEP * CB_SLOTS, "gemv_kernel": QUANT_PER_STEP * CB_CHUNK}
+        got = dict(routes["int4_matmul_scale_on_weights"])
+        check(got == want, f"phase 12 (int4, CAMBRIAN_INT4_V2=1): routes {got}, not {want}")
+        main_routes["int4_matmul_scale_on_weights"] = got
+    launches = read_counts(counters)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(requests=records, chunks=chunks, wall_ms=wall_ms, tokens=n_tokens,
+                tokens_per_s=tok_s, decode_tokens_per_s=decode_tok_s,
+                decode_steps=main_steps, peak_bytes=peak, main_launches=main,
+                routes=main_routes, launches=launches, profiled_kernel_ms=busy_ms,
+                profiled_functions=fns)
+
+
+class StandInTokenizer:
+    """A numpy stand-in for the 8B tokenizer, which the card machine lacks:
+    each whitespace-separated word becomes one id below the special ids, from
+    its bytes; ``decode`` writes each id as a word. No EOS, so a stream runs
+    its whole budget."""
+    bos_token_id = 128000
+    eos_token_id = None
+
+    def __call__(self, text):
+        from types import SimpleNamespace
+
+        ids = [self.bos_token_id]
+        for word in text.split():
+            b = np.frombuffer(word.encode(), np.uint8).astype(np.int64)
+            ids.append(int((b * (np.arange(len(b)) + 1) * 131).sum() % 100000) + 100)
+        return SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f" w{int(i)}" for i in ids
+                       if not (skip_special_tokens and int(i) >= self.bos_token_id))
+
+
+def http_stream(url, payload, timeout):
+    """POST ``payload`` and read the \0-framed JSON chunks of the reply, by
+    ``requests`` where it imports, else by ``urllib.request``."""
+    try:
+        import requests
+    except ImportError:
+        requests = None
+    if requests is not None:
+        r = requests.post(url, json=payload, stream=True, timeout=timeout)
+        raw = b"\0".join(r.iter_lines(decode_unicode=False, delimiter=b"\0"))
+    else:
+        import urllib.request
+
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read()
+    return [json.loads(c) for c in raw.split(b"\0") if c]
+
+
+def http_phase(torch, model, counters, cfg):
+    """The port's ``ModelWorker`` (continuous batching, the worker's
+    defaults) on the live bf16 8B model on localhost, with the stand-in
+    tokenizer: HTTP_STREAMS concurrent text-only streams of HTTP_TOKENS
+    greedy tokens through ``/worker_generate_stream``; every chunk must have
+    error code 0 and each stream its whole budget. The server and the
+    worker's stepper thread stop before the model is freed."""
+    import socket
+    import threading
+
+    from cambrian_tpu_torch.serve.model_worker import ModelWorker, serve
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    addr = f"http://localhost:{port}"
+    bundle = (StandInTokenizer(), model, [t.image_processor for t in model.towers],
+              cfg.tokenizer_model_max_length)
+    worker = ModelWorker("http://unused", addr, "w0", "cambrian-8b", None, "cambrian-8b",
+                         register=False, model_bundle=bundle, continuous_batching=True,
+                         num_slots=CB_SLOTS, cb_chunk=CB_CHUNK)
+    server = serve(worker, "localhost", port)
+    animals = ["cat", "dog", "heron", "otter"]
+    out = {}
+
+    def stream(i):
+        prompt = (f"USER: describe a {animals[i % len(animals)]} that sits by the river at "
+                  f"dusk in a few words ASSISTANT:")
+        try:
+            out[i] = (prompt, http_stream(addr + "/worker_generate_stream", {
+                "model": "cambrian-8b", "prompt": prompt, "temperature": 0.0,
+                "max_new_tokens": HTTP_TOKENS}, timeout=300))
+        except Exception as e:  # reported by the check below
+            out[i] = (prompt, e)
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(HTTP_STREAMS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=400)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.close()
+    launches = read_counts(counters)
+    try:
+        import requests  # noqa: F401
+        client = "requests"
+    except ImportError:
+        client = "urllib.request"
+    check(sorted(out) == list(range(HTTP_STREAMS)), f"HTTP: streams {sorted(out)} returned")
+    for i, (prompt, chunks) in sorted(out.items()):
+        check(not isinstance(chunks, Exception), f"HTTP stream {i}: {chunks!r}")
+        check(chunks and all(c["error_code"] == 0 for c in chunks),
+              f"HTTP stream {i}: {chunks[-1:]}")
+        check(len(chunks) == HTTP_TOKENS and chunks[-1]["text"].startswith(prompt),
+              f"HTTP stream {i}: {len(chunks)} chunks, not {HTTP_TOKENS}")
+    print(f"HTTP ({client}): {HTTP_STREAMS} concurrent streams of {HTTP_TOKENS} tokens through "
+          f"the port's worker (continuous batching, {CB_SLOTS} slots) in {wall_ms:.1f} ms; "
+          f"launches { {k: v for k, v in launches.items() if v} }; stream 0 ends "
+          f"{out[0][1][-1]['text'][-60:]!r}", flush=True)
+    return dict(streams=HTTP_STREAMS, tokens=HTTP_TOKENS, wall_ms=wall_ms, client=client,
+                launches=launches)
 
 
 # the port's tower parameter names -> the upstream snapshots' (the inverse of
@@ -1725,6 +2189,12 @@ def quant_function_check(torch, quant, cases, calls=3):
         m = x.shape[0]
         if m == 1:
             want, fn = "gemv_m1_kernel", f"gemv_m1_kernel<{mode}>"
+        elif m <= 8:
+            # the first port's GEMV: <dtype, mode, rows rounded up to 1, 2, 4, 8>
+            rows = 1 << (m - 1).bit_length()
+            want = "gemv_kernel"
+            fn = next((f for f in launched if f.startswith("gemv_kernel<")
+                       and f.endswith(f",{mode},{rows}>")), f"gemv_kernel<bf16,{mode},{rows}>")
         else:
             want = "gemm"
             fn = f"gemm_wgmma_kernel<{mode},{wgmma_tile_columns(m, rec['n'], sms)}>"
@@ -1734,8 +2204,7 @@ def quant_function_check(torch, quant, cases, calls=3):
               f"launched {launched}")
         rec["function"] = fn
         planned.add(fn)
-        print(f"kernel {name:29s} {site:9s} {'decode' if m == 1 else 'prefill'} ran {fn}",
-              flush=True)
+        print(f"kernel {name:29s} {site:9s} M={m:<4d} ran {fn}", flush=True)
     others = {fn: n for fn, n in launched.items() if fn not in planned}
     check(not others, f"the profiled bf16 prefill and M = 1 calls also ran {others}")
     print(f"quant functions of the profiled run ({calls} calls a case): {launched}", flush=True)
@@ -2612,6 +3081,11 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    try:
+        import requests  # noqa: F401
+        print("HTTP client: requests imports here", flush=True)
+    except ImportError:
+        print("HTTP client: urllib.request (requests does not import here)", flush=True)
     t0 = time.perf_counter()
     built = cuda_build.build("flash_attention", "flash_attention_bwd", "quant_matmul",
                              "layer_norm", "dwconv", "sva_attention", "fused_mlp")
@@ -2758,7 +3232,7 @@ def main(argv=None):
     prompts = build_prompts(cambrian_8b(), rng)
     prompt_len = len(prompts[0]["mask"])
     kernels = kernel_phase(torch, fa, prompts[0])
-    quant_kernels = quant_kernel_phase(torch, quant, prompt_len)
+    quant_kernels = quant_kernel_phase(torch, quant, prompt_len, slots=CB_SLOTS)
     tiny = {q or "fp32": tiny_slice_phase(torch, fa, quant, rng, q)
             for q in (None, "int8", "int4")}
     tiny["phi3_longrope"] = tiny_slice_phase(torch, fa, quant, rng, longrope=True)
@@ -2792,6 +3266,8 @@ def main(argv=None):
     # launches: each path's counts (8B serving and training, Phi-3 serving
     # and loading), read just after it, summed over paths
     paths = [f["launches"] for f in full.values()] + [train["launches"], phi3["launches"]]
+    paths += [f["continuous"]["launches"] for f in full.values()]
+    paths += [f["http"]["launches"] for f in full.values() if f["http"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -2831,7 +3307,8 @@ def main(argv=None):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": request_sum(recs, "library_ms", name, prompt_len),
         })
-        for label, m in (("decode step", 1), ("prefill", prompt_len)):
+        for label, m in (("decode step", 1), ("prefill", prompt_len),
+                         (f"continuous-batching decode step (M = {CB_SLOTS})", CB_SLOTS)):
             # the 7 x 32 projections of one decoder forward at this M
             per = {key: LAYERS * sum(r[key] or 0.0 for r in recs if r["m"] == m)
                    for key in ("ms", "plain_ms", "library_ms", "library_int8pack_ms",
@@ -2846,6 +3323,28 @@ def main(argv=None):
         print(f"{name}: per request {rows[-1]['ms']:.1f} ms (bound "
               f"{rows[-1]['bound_ms']:.2f} ms, matmul {rows[-1]['library_ms']:.1f} ms)",
               flush=True)
+    # K3, K4 and K4b at M = CB_SLOTS: the continuous-batching decode step's
+    # 7 x 32 projections on gemv_kernel; launches from phase 12's routes
+    for name, (replaces, _) in QUANT_KERNELS.items():
+        recs = [r for r in quant_kernels if r["kernel"] == name and r["m"] == CB_SLOTS]
+        step = {key: LAYERS * sum(r[key] for r in recs)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        rows.append({
+            "name": f"{name}_m{CB_SLOTS}",
+            "route": "cuda",
+            "source": "cambrian_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": replaces,
+            "launches": sum(f["continuous"]["routes"][name].get("gemv_kernel", 0)
+                            for f in full.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": step["ms"],
+            "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"],
+            "bound_by": "bytes" if step["bytes_ms"] >= step["ops_ms"] else "operations",
+            "library_ms": step["library_ms"],
+        })
+        check(rows[-1]["launches"] > 0, f"{name}: no gemv_kernel launch at M = {CB_SLOTS} "
+              f"in phase 12")
     # K2: per training step, 32 calls at the decoder's shape (bf16)
     rows.append({
         "name": "flash_attention_bwd",

@@ -2,7 +2,9 @@
 package, without ``safetensors`` and without a GPU toolchain: kernels are
 built on first use, never at import. The probe covers serving, checkpoint
 I/O and tower loading, the training path and the op modules of kernels
-K5-K8; a scan of the sources covers imports made inside functions."""
+K5-K8, continuous batching and the serving stack (worker, controller,
+remote worker, web server); a scan of the sources covers imports made inside
+functions."""
 
 import json
 import os
@@ -21,6 +23,14 @@ import cambrian_tpu_torch
 import cambrian_tpu_torch.inference
 import cambrian_tpu_torch.models.builder
 import cambrian_tpu_torch.serve.cli
+import cambrian_tpu_torch.infer.continuous
+import cambrian_tpu_torch.utils
+import cambrian_tpu_torch.serve.model_worker
+import cambrian_tpu_torch.serve.controller
+import cambrian_tpu_torch.serve.register_worker
+import cambrian_tpu_torch.serve.remote_worker
+import cambrian_tpu_torch.serve.test_message
+import cambrian_tpu_torch.serve.gradio_web_server
 import cambrian_tpu_torch.ops.flash_attention as fa
 import cambrian_tpu_torch.ops.quant as quant
 import cambrian_tpu_torch.ops.norms as norms
