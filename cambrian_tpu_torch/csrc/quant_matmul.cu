@@ -26,7 +26,7 @@
 //
 // Decode (M <= 8) is a GEMV: the weight read is all the work (int8: K*N
 // bytes, int4: K*N/2 bytes plus the fp32 scales) and the memory rate bounds
-// it. Two kernels, chosen by _gemv_plan in ops/quant.py:
+// it. Three kernels, chosen by _gemv_plan in ops/quant.py:
 //   - gemv_m1_kernel<mode> takes bf16 x at M = 1 in every mode (every
 //     decode step of generate / generate_stream under load_8bit / load_4bit,
 //     and under CAMBRIAN_INT4_V2=1 / CAMBRIAN_INT4_V1=1) where the operands
@@ -44,7 +44,15 @@
 //     scale on the weights costs two more instructions an element, and int4
 //     at M = 1 is issue-bound. The plan, not this file, picks the launch
 //     shape; the C entry refuses any shape the plan would not give.
-//   - gemv_kernel takes the rest (fp32, M = 2..8, other operands).
+//   - gemv_m8_kernel<mode, MT, W> takes bf16 x at M = 2..8 (a continuous-
+//     batching decode step runs every projection at M = its slots) on the
+//     same operands, with x's rows 16-byte aligned (ldx % 8 == 0): the same
+//     cluster split of K, 64- or 128-byte slabs (W = 8 or 16 bytes a lane),
+//     every mode's products on mma.sync m16n8k16 with the M rows of x
+//     (zero-padded to MT = 2, 4 or 8 in shared memory) in M of B's 8
+//     columns, so that every weight byte is read once for all rows and the
+//     instructions a weight do not grow with M (see the kernel's note).
+//   - gemv_kernel takes the rest (fp32, other operands).
 //     It gives each block a 32-column slab of N and loops over all of K
 //     inside the block: 4 threads cover the slab along N with 8-byte loads
 //     (8 columns each), 64 such K slices split the rows, each keeping 8 or 16
@@ -980,7 +988,8 @@ __device__ __forceinline__ float nibble_f32(uint32_t v, int b) {
 // The rows of scales a block stages: mode 0's one row; mode 1's scale
 // groups of the block's rows (one where a group spans K; otherwise the
 // block's rows are whole groups).
-__device__ __host__ __forceinline__ int m1_groups(int mode, const M1Args& a) {
+template <class A>  // M1Args or M8Args
+__device__ __host__ __forceinline__ int m1_groups(int mode, const A& a) {
   return mode == kInt8 || a.group == a.K ? 1 : 2 * a.rows_per_block / a.group;
 }
 
@@ -1032,8 +1041,9 @@ __device__ __forceinline__ float4 m1_scale_staged(float4 v) {
 
 // float4 i (i < n) of the block's scales, row g0 + i / (slab / 4) of the
 // [rows, N] scales (mode 0: one row), zero past the last row or past N.
-__device__ __forceinline__ float4 m1_scale_load(const M1Args& a, int rows, int g0, int slab0,
-                                                int n, int i) {
+template <class A>  // M1Args or M8Args
+__device__ __forceinline__ float4 m1_scale_load(const A& a, int rows, int g0, int slab0, int n,
+                                                int i) {
   const int per_group = a.slab / 4;
   const int g = g0 + i / per_group, c = slab0 + 4 * (i % per_group);
   return i < n && g < rows && c < a.N
@@ -1352,19 +1362,28 @@ __global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m1_kernel(M1Args a) {
   }
 }
 
+// Whether a K split is one _gemv_split (ops/quant.py) can give: the blocks
+// and warps split the stored rows in whole units (int8: batches; int4:
+// scale groups, or 64 packed rows where one group spans K), every rank has
+// rows.
+bool split_takes(int mode, int k, int group, int slab, int rows_per_block, int rows_per_warp,
+                 int cluster, int warps) {
+  const int rows = mode == kInt8 ? k : k / 2;
+  const int batch = kM1Loads * 32 / (slab / 16);
+  const int unit = mode == kInt8 ? batch : (group == k ? 64 : group / 2);
+  return rows_per_warp > 0 && unit % batch == 0 && rows_per_warp % unit == 0 &&
+         rows_per_block == warps * rows_per_warp && (long)(cluster - 1) * rows_per_block < rows &&
+         rows <= (long)cluster * rows_per_block;
+}
+
 // Whether the launch shape is one _gemv_plan (ops/quant.py) can give; the
 // operands' alignment, N % 16 and K % 8 are checked by the caller.
 bool m1_takes(int mode, const M1Args& a, int cluster, int warps) {
   if ((a.slab != 64 && a.slab != 128) || (cluster != 2 && cluster != 4 && cluster != 8) ||
       warps < 1 || warps > kM1MaxWarps || (mode == kInt4ScaleOnWeights && a.slab != 128))
     return false;
-  const int rows = mode == kInt8 ? a.K : a.K / 2;
-  const int batch = kM1Loads * 32 / (a.slab / 16);
-  const int unit = mode == kInt8 ? batch : (a.group == a.K ? 64 : a.group / 2);
-  return a.rows_per_warp > 0 && unit % batch == 0 && a.rows_per_warp % unit == 0 &&
-         a.rows_per_block == warps * a.rows_per_warp &&
-         (long)(cluster - 1) * a.rows_per_block < rows &&
-         rows <= (long)cluster * a.rows_per_block &&
+  return split_takes(mode, a.K, a.group, a.slab, a.rows_per_block, a.rows_per_warp, cluster,
+                     warps) &&
          m1_smem_bytes(mode, a, warps) <= kM1SmemBytes;
 }
 
@@ -1385,6 +1404,364 @@ int launch_gemv_m1(const M1Args& a, int cluster, int warps, cudaStream_t st) {
   const cudaError_t err = cudaLaunchKernelEx(&cfg, gemv_m1_kernel<MODE>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// GEMV: 2 <= M <= 8, bf16 x, modes 0-2, on the tensor cores, split over a
+// thread-block cluster
+// ---------------------------------------------------------------------------
+
+// These match GEMV_M8_BATCH_BYTES and GEMV_M8_SMEM_BYTES in ops/quant.py.
+constexpr int kM8BatchBytes = 128;       // weight bytes a lane loads a batch
+constexpr int kM8SmemBytes = 96 * 1024;  // x, the scales and the sums; two blocks an SM fit
+
+struct M8Args {
+  const __nv_bfloat16* x;  // [M, K], rows ldx apart; base and rows 16-byte aligned
+  int64_t ldx;
+  const uint8_t* w;        // int8 [K, N] or packed int4 [K/2, N], 16-byte aligned
+  const float* scale;      // [N] (mode 0) or [K/group, N], 16-byte aligned
+  __nv_bfloat16* out;      // [M, N]
+  int M, N, K, group;
+  int slab;                // stored bytes of a row a cluster owns: 64 or 128
+  int rows_per_block, rows_per_warp;  // stored rows
+};
+
+// Words (bf16 pairs) from one row of the staged x to the next: the block's
+// K rows, padded so that the 8 rows' B fragments fall in 32 distinct banks.
+__device__ __host__ __forceinline__ int m8_x_stride(int mode, int rows_per_block) {
+  const int words = rows_per_block * (mode == kInt8 ? 1 : 2) / 2;
+  return words + (36 - words % 32) % 32;
+}
+
+// the kernel's shared memory: MT rows of x, the slab's scales (mode 0: one
+// row; modes 1, 2: the block's groups) and the sums of the columns the block
+// finishes, for MT rows, from every warp of the cluster
+__host__ __forceinline__ size_t m8_smem_bytes(int mode, const M8Args& a, int warps, int mt) {
+  const int groups = mode == kInt8 || a.group == a.K ? 1 : 2 * a.rows_per_block / a.group;
+  return 4 * ((size_t)mt * m8_x_stride(mode, a.rows_per_block) + (size_t)groups * a.slab +
+              (size_t)warps * mt * a.slab);
+}
+
+// W bytes of a weight row that are read once: past L1, not kept there
+template <int W>
+__device__ __forceinline__ void m8_ld(const uint8_t* p, uint32_t (&v)[W / 4]) {
+  if constexpr (W == 16) {
+    const uint4 u = ld_stream(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(v[0]), "=r"(v[1])
+                 : "l"(p));
+  }
+}
+
+// One batch of a lane's loads: its W columns of the stored rows of each
+// 16-K-row tile from rb on that an m16n8k16 A fragment takes from lane
+// t = lane % 4: int8 rows 2t, 2t + 1, 2t + 8, 2t + 9; packed int4 rows t
+// and t + 4 (K rows 2t, 2t + 1 and 2t + 8, 2t + 9). Zero past the warp's
+// last row or past N.
+template <int MODE, int W>
+__device__ __forceinline__ void m8_load(const M8Args& a, bool live, int col, int rb, int end,
+                                        int t, uint32_t (&buf)[kM8BatchBytes / W][W / 4]) {
+  constexpr int kTileLoads = MODE == kInt8 ? 4 : 2, kTileRows = MODE == kInt8 ? 16 : 8;
+#pragma unroll
+  for (int u = 0; u < kM8BatchBytes / W; ++u) {
+    const int j = u % kTileLoads;
+    const int r = rb + (u / kTileLoads) * kTileRows +
+                  (MODE == kInt8 ? 2 * t + (j & 1) + 8 * (j >> 1) : t + 4 * j);
+    if (live && r < end) {
+      m8_ld<W>(a.w + (int64_t)r * a.N + col, buf[u]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) buf[u][i] = 0u;
+    }
+  }
+}
+
+// A lane's sums: the C fragments of its W / 2 column pairs (c0, c1: the
+// pair's first column at x rows 2t, 2t + 1; c2, c3: its second column) and,
+// in mode 1, the current scale group's; its batches so far and its columns
+// of the staged scales.
+template <int MODE, int W>
+struct M8Sums {
+  float acc[W / 2][4] = {};
+  float part[MODE == kInt4 ? W / 2 : 1][4] = {};
+  int group_batch = 0;
+  const float* group_scale = nullptr;  // the lane's W columns of the group's staged scales
+  int scale_stride = 0;                // floats from one group's staged scales to the next
+};
+
+// Consume one batch: each tile's weights dequantized to bf16 pairs along K
+// (the A fragments: int8 by the exact bit trick of the wgmma GEMM, int4 by
+// gemv_m1_kernel<2>'s; mode 2 then q * bf16(scale), rounded once by HMUL2)
+// times x's B fragment (b0, b1: x row g = lane / 4 at the tile's K rows
+// 2t, 2t + 1 and 2t + 8, 2t + 9; zero past MT), one m16n8k16 a column pair.
+// In mode 1, at the end of a scale group or of the warp's rows (last), the
+// group's sums times its scales into acc.
+template <int MODE, int MT, int W>
+__device__ __forceinline__ void m8_consume(const uint32_t* xs, int x_stride, int tau0, int g,
+                                           int t, const uint32_t (&buf)[kM8BatchBytes / W][W / 4],
+                                           bool last, int group_batches, M8Sums<MODE, W>& s) {
+  constexpr int kTileLoads = MODE == kInt8 ? 4 : 2;
+  constexpr int kTiles = kM8BatchBytes / W / kTileLoads;
+  uint32_t sc[MODE == kInt4ScaleOnWeights ? W : 1];  // mode 2: the lane's bf16 scales, as pairs
+  if constexpr (MODE == kInt4ScaleOnWeights) {
+    const uint4* sp = reinterpret_cast<const uint4*>(s.group_scale);
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const uint4 v = sp[q];
+      sc[4 * q] = v.x, sc[4 * q + 1] = v.y, sc[4 * q + 2] = v.z, sc[4 * q + 3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    uint32_t b[2] = {0u, 0u};
+    if (g < MT) {
+      const uint32_t* xr = xs + g * x_stride + 8 * (tau0 + i) + t;
+      b[0] = xr[0];
+      b[1] = xr[4];
+    }
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      // columns 4q .. 4q + 3: pairs (4q, 4q + 1) and (4q + 2, 4q + 3)
+      if constexpr (MODE == kInt8) {
+        // rows 2t, 2t + 1, 2t + 8, 2t + 9
+        const uint32_t l0 = buf[kTileLoads * i][q], l1 = buf[kTileLoads * i + 1][q];
+        const uint32_t l2 = buf[kTileLoads * i + 2][q], l3 = buf[kTileLoads * i + 3][q];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // byte c of two rows into bytes 0 and 2: column c's pair along K
+          const int sel0 = 2 * h | (4 + 2 * h) << 8, sel1 = (2 * h + 1) | (5 + 2 * h) << 8;
+          const uint32_t a[4] = {int8x2_to_bf16(__byte_perm(l0, l1, sel0)),
+                                 int8x2_to_bf16(__byte_perm(l0, l1, sel1)),
+                                 int8x2_to_bf16(__byte_perm(l2, l3, sel0)),
+                                 int8x2_to_bf16(__byte_perm(l2, l3, sel1))};
+          mma_16816(s.acc[2 * q + h], a, b);
+        }
+      } else {
+        uint32_t p0[4], p1[4];  // (q of row 2r, q of row 2r + 1) of columns 4q .. 4q + 3
+        int4_pairs(buf[kTileLoads * i][q], p0);
+        int4_pairs(buf[kTileLoads * i + 1][q], p1);
+        if constexpr (MODE == kInt4ScaleOnWeights) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            p0[c] = bf16x2_mul(p0[c], sc[4 * q + c]);
+            p1[c] = bf16x2_mul(p1[c], sc[4 * q + c]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t a[4] = {p0[2 * h], p0[2 * h + 1], p1[2 * h], p1[2 * h + 1]};
+          if constexpr (MODE == kInt4)
+            mma_16816(s.part[2 * q + h], a, b);
+          else
+            mma_16816(s.acc[2 * q + h], a, b);
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kInt4) {
+    if (++s.group_batch == group_batches || last) {
+#pragma unroll
+      for (int p = 0; p < W / 2; ++p) {
+        const float2 sv = *reinterpret_cast<const float2*>(s.group_scale + 2 * p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s.acc[p][e] = fmaf(s.part[p][e], e < 2 ? sv.x : sv.y, s.acc[p][e]);
+          s.part[p][e] = 0.f;
+        }
+      }
+      s.group_batch = 0;
+      s.group_scale += s.scale_stride;
+    }
+  } else if constexpr (MODE == kInt4ScaleOnWeights) {
+    if (++s.group_batch == group_batches) {
+      s.group_batch = 0;
+      s.group_scale += s.scale_stride;
+    }
+  }
+}
+
+// 2 <= M <= 8 rows of bf16 x, padded with zeros to MT (2, 4 or 8) in shared
+// memory, times the weights, every weight byte streamed once for all rows.
+// As gemv_m1_kernel: a cluster owns a slab of `slab` = 8 W bytes of every
+// stored row, its blocks split the rows in rank order and a block's warps
+// split the block's rows, in whole batches and (modes 1, 2) whole scale
+// groups; the sums meet in distributed shared memory in rank order. Unlike
+// it, every mode multiplies on the tensor cores: lane g = lane / 4 owns
+// bytes W g .. W g + W - 1 of the slab (16-byte loads at W = 16, 8-byte at
+// W = 8, 128 bytes a lane in flight a batch while the last is consumed),
+// lane t = lane % 4 loads the tile's rows its A fragments hold, and each
+// m16n8k16 takes a column pair of each lane group as A's 16 rows and the
+// MT rows of x as M of B's 8 columns. So its instructions a weight do not
+// grow with M: per packed byte, int8 ~2 (a byte permute and the two-LOP3,
+// one-HSUB2 reading a pair of values), int4 ~3.25 (int4_pairs), mode 2 one
+// HMUL2 a pair more, and an HMMA per 4 (int4) or 8 (int8) bytes; on the
+// CUDA cores mode 0 would need ~3 + M. The products are exact in fp32;
+// mode 1 keeps a scale group's in its own C fragments and scales them at the
+// group's end. x is staged once a block as bf16 (row stride m8_x_stride), the
+// scales as gemv_m1_kernel stages them.
+template <int MODE, int MT, int W>
+__global__ void __launch_bounds__(kM1MaxWarps * 32) gemv_m8_kernel(M8Args a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float m8_smem[];
+  constexpr int kBatchRows = 4 * kM8BatchBytes / W;  // stored rows: 2 or 4 tiles (int8), 4 or 8 (int4)
+  constexpr int kTileRows = MODE == kInt8 ? 16 : 8;
+  constexpr int kXPerRow = MODE == kInt8 ? 1 : 2;
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int warps = blockDim.x / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rows = MODE == kInt8 ? a.K : a.K / 2;
+  const int slab0 = (blockIdx.x / n_ranks) * a.slab;
+  const int col = slab0 + W * g;
+  const bool live = col < a.N;
+  const int b0 = rank * a.rows_per_block;
+  const int w0 = b0 + warp * a.rows_per_warp;
+  const int w1 = min(w0 + a.rows_per_warp, rows);  // <= w0: a warp without rows
+
+  const int xn = kXPerRow * a.rows_per_block;  // K rows of x the block stages
+  const int x_stride = m8_x_stride(MODE, a.rows_per_block);
+  const int groups = m1_groups(MODE, a);
+  const int g0 = MODE == kInt8 ? 0 : 2 * b0 / a.group;
+  const int scale_rows = MODE == kInt8 ? 1 : a.K / a.group;
+  const int share = a.slab / n_ranks;  // columns each rank finishes
+  uint32_t* xs = reinterpret_cast<uint32_t*>(m8_smem);  // [MT][x_stride] bf16 pairs, zero past M, K
+  float* ss = m8_smem + MT * x_stride;                  // [groups][slab]: the scales, zero past N
+  float* sums = ss + groups * a.slab;                   // [ranks][warps][MT][share]
+  float4* ss4 = reinterpret_cast<float4*>(ss);
+
+  // x of the block's rows (16-byte runs, MT rows) and the slab's scales,
+  // their first loads sent ahead of the weights'
+  const int xk0 = kXPerRow * b0;
+  const int runs = xn / 8, x_runs = MT * runs, n_scales = groups * (a.slab / 4);
+  const auto x_load = [&](int i) {
+    const int m = i / runs, k = xk0 + 8 * (i % runs);
+    return i < x_runs && m < a.M && k < a.K
+               ? __ldg(reinterpret_cast<const uint4*>(a.x + m * a.ldx + k))
+               : make_uint4(0u, 0u, 0u, 0u);
+  };
+  const auto x_store = [&](int i, uint4 v) {
+    *reinterpret_cast<uint4*>(xs + (i / runs) * x_stride + 4 * (i % runs)) = v;
+  };
+  uint4 xv[kM1Stage];
+  float4 sv[kM1Stage];
+#pragma unroll
+  for (int q = 0; q < kM1Stage; ++q) {
+    xv[q] = x_load(tid + q * blockDim.x);
+    sv[q] = m1_scale_load(a, scale_rows, g0, slab0, n_scales, tid + q * blockDim.x);
+  }
+  uint32_t cur[kM8BatchBytes / W][W / 4];
+  m8_load<MODE, W>(a, live, col, w0, w1, t, cur);
+#pragma unroll
+  for (int q = 0; q < kM1Stage; ++q) {
+    const int i = tid + q * blockDim.x;
+    if (i < x_runs) x_store(i, xv[q]);
+    if (i < n_scales) ss4[i] = m1_scale_staged<MODE>(sv[q]);
+  }
+  for (int i = tid + kM1Stage * blockDim.x; i < x_runs; i += blockDim.x) x_store(i, x_load(i));
+  for (int i = tid + kM1Stage * blockDim.x; i < n_scales; i += blockDim.x)
+    ss4[i] = m1_scale_staged<MODE>(m1_scale_load(a, scale_rows, g0, slab0, n_scales, i));
+  __syncthreads();
+
+  M8Sums<MODE, W> mine;
+  // int4: batches a scale group takes (never, where one group spans K), and
+  // the warp's first group's row of the staged scales
+  const int group_batches = a.group == a.K ? rows : a.group / 2 / kBatchRows;
+  if constexpr (MODE != kInt8) {
+    mine.group_scale = ss + (2 * w0 / a.group - g0) * a.slab + W * g;
+    mine.scale_stride = a.slab;
+  }
+  for (int rb = w0; rb < w1; rb += kBatchRows) {
+    uint32_t nxt[kM8BatchBytes / W][W / 4];  // the next batch goes out before this one is consumed
+    m8_load<MODE, W>(a, live, col, rb + kBatchRows, w1, t, nxt);
+    m8_consume<MODE, MT, W>(xs, x_stride, (rb - b0) / kTileRows, g, t, cur,
+                            rb + kBatchRows >= w1, group_batches, mine);
+#pragma unroll
+    for (int u = 0; u < kM8BatchBytes / W; ++u)
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) cur[u][i] = nxt[u][i];
+  }
+
+  // each lane's columns W g + 2p, + 1 at x rows 2t, 2t + 1 (rows past MT
+  // hold zeros) to the rank that finishes them, four columns a store,
+  // through distributed shared memory; one cluster barrier orders them
+  if (2 * t < MT) {
+#pragma unroll
+    for (int p = 0; p < W / 2; p += 2) {
+      const int c = W * g + 2 * p, owner = c / share;
+      float* dst = cluster.map_shared_rank(sums, owner) + c % share;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float4*>(dst + ((rank * warps + warp) * MT + 2 * t + r) * share) =
+            make_float4(mine.acc[p][r], mine.acc[p][2 + r], mine.acc[p + 1][r],
+                        mine.acc[p + 1][2 + r]);
+    }
+  }
+  cluster.sync();
+  // every warp of the cluster, rank by rank, in order
+  for (int i = tid; i < a.M * share; i += blockDim.x) {
+    const int m = i / share, c = i % share;
+    float v = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n_ranks * warps; ++j) v += sums[(j * MT + m) * share + c];
+    const int n = slab0 + rank * share + c;
+    if (n < a.N) {
+      if constexpr (MODE == kInt8) v *= ss[rank * share + c];
+      a.out[(int64_t)m * a.N + n] = __float2bfloat16(v);
+    }
+  }
+}
+
+// Whether the launch shape is one _gemv_plan gives at 2 <= M <= 8.
+bool m8_takes(int mode, const M8Args& a, int cluster, int warps) {
+  if ((a.slab != 64 && a.slab != 128) || (cluster != 2 && cluster != 4 && cluster != 8) ||
+      warps < 1 || warps > kM1MaxWarps)
+    return false;
+  const int mt = a.M <= 2 ? 2 : a.M <= 4 ? 4 : 8;
+  return split_takes(mode, a.K, a.group, a.slab, a.rows_per_block, a.rows_per_warp, cluster,
+                     warps) &&
+         m8_smem_bytes(mode, a, warps, mt) <= kM8SmemBytes;
+}
+
+template <int MODE, int MT, int W>
+int launch_gemv_m8(const M8Args& a, int cluster, int warps, cudaStream_t st) {
+  const size_t smem = m8_smem_bytes(MODE, a, warps, MT);
+  if (smem > 48 * 1024) {
+    // above the default, as dynamic shared memory the function opts into
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemv_m8_kernel<MODE, MT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, kM8SmemBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.N + a.slab - 1) / a.slab) * cluster);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemv_m8_kernel<MODE, MT, W>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, int MT>
+int launch_gemv_m8_slab(const M8Args& a, int cluster, int warps, cudaStream_t st) {
+  return a.slab == 128 ? launch_gemv_m8<MODE, MT, 16>(a, cluster, warps, st)
+                       : launch_gemv_m8<MODE, MT, 8>(a, cluster, warps, st);
+}
+
+template <int MODE>
+int launch_gemv_m8_rows(const M8Args& a, int cluster, int warps, cudaStream_t st) {
+  if (a.M <= 2) return launch_gemv_m8_slab<MODE, 2>(a, cluster, warps, st);
+  if (a.M <= 4) return launch_gemv_m8_slab<MODE, 4>(a, cluster, warps, st);
+  return launch_gemv_m8_slab<MODE, 8>(a, cluster, warps, st);
 }
 
 
@@ -1466,6 +1843,32 @@ int cambrian_quant_gemv_m1(int mode, const void* x, const void* w, const float* 
   if (mode == kInt8) return launch_gemv_m1<kInt8>(a, cluster, warps, st);
   if (mode == kInt4) return launch_gemv_m1<kInt4>(a, cluster, warps, st);
   return launch_gemv_m1<kInt4ScaleOnWeights>(a, cluster, warps, st);
+}
+
+// The bf16 GEMV of modes 0-2 at 2 <= M <= 8 (gemv_m8_kernel) under the
+// launch shape of a GemvPlan: x bf16 [M, K] with rows ldx elements apart
+// (ldx % 8 == 0), out bf16 [M, N]. Returns cudaErrorInvalidValue, launching
+// nothing, for operands or a shape the kernel does not take.
+int cambrian_quant_gemv_m8(int mode, const void* x, int64_t ldx, const void* w,
+                           const float* scale, void* out, int m, int n, int k, int group,
+                           int slab, int cluster, int warps, int rows_per_block,
+                           int rows_per_warp, void* stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (mode < kInt8 || mode > kInt4ScaleOnWeights || m < 2 || m > 8 || n < 16 || n % 16 != 0 ||
+      k < 8 || k % 8 != 0 || ldx < k || ldx % 8 != 0 || misaligned(x) || misaligned(w) ||
+      misaligned(scale))
+    return (int)cudaErrorInvalidValue;
+  if (mode != kInt8 && (group < 1 || k % group != 0 ||
+                        (group % 128 != 0 && !(group == k && k % 128 == 0))))
+    return (int)cudaErrorInvalidValue;
+  const M8Args a{static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const uint8_t*>(w),
+                 scale, static_cast<__nv_bfloat16*>(out), m, n, k, mode == kInt8 ? 1 : group,
+                 slab, rows_per_block, rows_per_warp};
+  if (!m8_takes(mode, a, cluster, warps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kInt8) return launch_gemv_m8_rows<kInt8>(a, cluster, warps, st);
+  if (mode == kInt4) return launch_gemv_m8_rows<kInt4>(a, cluster, warps, st);
+  return launch_gemv_m8_rows<kInt4ScaleOnWeights>(a, cluster, warps, st);
 }
 
 const char* cambrian_cuda_error_string(int err) {

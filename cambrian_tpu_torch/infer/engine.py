@@ -143,10 +143,26 @@ class GenerationEngine:
 
     @torch.inference_mode()
     def generate(self, input_ids, attention_mask, position_ids, aux_features=None,
-                 aux_masks=None, config: Optional[GenerationConfig] = None) -> np.ndarray:
+                 aux_masks=None, config: Optional[GenerationConfig] = None,
+                 stopping: Optional[Callable[[np.ndarray], bool]] = None,
+                 on_device: bool = True) -> np.ndarray:
         """Generated ids [B, <= max_new_tokens] (prompt excluded), pad past
         each sample's end; trailing columns where every sample has finished
-        are trimmed."""
+        are trimmed.
+
+        As in the JAX engine, a ``stopping`` callable (given the ids so far
+        after every token; True ends generation) or ``on_device=False`` runs
+        the call through ``generate_stream`` and returns its last yield.
+        Otherwise the decode loop below runs: ``on_device`` keeps the JAX
+        meaning, no Python-side stopping."""
+        if stopping is not None or not on_device:
+            out = None
+            for out in self.generate_stream(input_ids, attention_mask, position_ids,
+                                            aux_features, aux_masks, config, stopping):
+                pass
+            if out is None:
+                return np.zeros((np.asarray(input_ids).shape[0], 0), np.int32)
+            return out
         cfg = config or GenerationConfig()
         dev = self.device
         next_logits, cache, cache_valid, next_pos = self._prefill(

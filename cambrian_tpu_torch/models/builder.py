@@ -266,9 +266,10 @@ class CambrianForInference:
         """Reference generate() semantics: a 1-D prompt (with the image
         marker when ``images`` is given) and per-tower image batches ->
         generated ids [1, T]. ``self.engine.last_timings`` then also holds
-        the tower encode time."""
+        the tower encode time. A ``stopping`` keyword (e.g. a
+        ``KeywordsStoppingCriteria``) goes to ``GenerationEngine.generate``."""
         *args, encode_ms = self._prepare_generate(input_ids, images, image_sizes, **gen_kwargs)
-        out = self.engine.generate(*args)
+        out = self.engine.generate(*args, stopping=gen_kwargs.get("stopping"))
         self.engine.last_timings["encode_ms"] = encode_ms
         return out
 

@@ -13,9 +13,10 @@ the hand-written CUDA kernels of ``csrc/quant_matmul.cu`` for CUDA tensors
 versions for CPU tensors; on the card there is no fallback. ``int4_matmul``
 hands over to ``int4_matmul_scale_on_weights`` under ``CAMBRIAN_INT4_V2=1``
 or ``CAMBRIAN_INT4_V1=1``, the JAX package's switches for those kernels.
-A bf16 decode call (M = 1) of K3, K4 or K4b/K4c runs ``gemv_m1_kernel``
-under the launch shape ``_gemv_plan`` gives it, where its operands allow;
-every other call at M <= 8 runs the first port's ``gemv_kernel``. Nothing is compiled or
+A bf16 decode call of K3, K4 or K4b/K4c runs ``gemv_m1_kernel`` (M = 1)
+or ``gemv_m8_kernel`` (M = 2..8, the continuous-batching decode) under the
+launch shape ``_gemv_plan`` gives it, where its operands allow; every other
+call at M <= 8 runs the first port's ``gemv_kernel``. Nothing is compiled or
 loaded at import time.
 """
 
@@ -52,6 +53,12 @@ GEMV_SLABS = (128, 64)          # stored bytes of a row a cluster owns
 # mode 2's slab: its m16n8k16 products take 8 lanes' 16 columns a row
 GEMV_MMA_SLAB = 128
 GEMV_CLUSTERS = (2, 4, 8)
+# The bf16 M = 2..8 decode GEMV (gemv_m8_kernel); these must match
+# kM8BatchBytes and kM8SmemBytes. Its rows of x, zero-padded to one of
+# GEMV_M8_ROWS, take M of an m16n8k16 product's 8 columns.
+GEMV_M8_BATCH_BYTES = 128       # weight bytes a lane loads a batch (8 x 16 or 16 x 8)
+GEMV_M8_SMEM_BYTES = 96 << 10   # x, scales and sums; above 48 KB the kernel opts in
+GEMV_M8_ROWS = (2, 4, 8)
 
 
 # -- quantizers ---------------------------------------------------------------
@@ -167,7 +174,8 @@ def int4_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tens
 # -- the decode GEMV's plan -----------------------------------------------------
 
 class GemvPlan(NamedTuple):
-    """A launch of ``gemv_m1_kernel``. Each cluster of ``cluster`` blocks owns
+    """A launch of ``gemv_m1_kernel`` (M = 1) or ``gemv_m8_kernel`` (M =
+    2..8). Each cluster of ``cluster`` blocks owns
     a slab of ``slab`` stored bytes of every weight row (int8: that many
     columns; packed int4: as many columns of two K rows each). Its blocks
     split the stored rows in rank order, ``rows_per_block`` each, and a
@@ -193,28 +201,61 @@ def _gemv_unit(mode: int, k: int, group: int, slab: int) -> int:
     return 64 if group == k else group // 2
 
 
+def _gemv_rows(m: int) -> int:
+    """The rows of x a GEMV instance is built for: 1 (gemv_m1_kernel), or M
+    rounded up to one of GEMV_M8_ROWS (gemv_m8_kernel's MT)."""
+    return 1 if m == 1 else next(r for r in GEMV_M8_ROWS if r >= m)
+
+
+def _gemv_function(m: int) -> str:
+    return "gemv_m1_kernel" if m == 1 else "gemv_m8_kernel"
+
+
+def _route_function(plan: Optional[GemvPlan], m: int) -> str:
+    """The kernel function a call of M = ``m`` under ``plan`` (a GemvPlan or
+    None) launches, as ``function_launches`` counts it."""
+    if plan is not None:
+        return _gemv_function(m)
+    return "gemv_kernel" if m <= GEMV_M8_ROWS[-1] else "gemm"
+
+
 def _gemv_takes(mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int,
-                ptrs: Sequence[int]) -> bool:
-    """The operands gemv_m1_kernel takes: bf16 x at M = 1, int8 or int4
-    (either scaling), N a multiple of a lane's 16 columns, K of whole
-    16-byte runs of x, 16-byte-aligned x, weights and scales, and for int4 a
-    scale group of a multiple of 128 K rows, or one group over a K of a
-    multiple of 128."""
-    if dtype != torch.bfloat16 or m != 1 or mode not in _MODES:
+                ptrs: Sequence[int], ldx: Optional[int] = None) -> bool:
+    """The operands gemv_m1_kernel (M = 1) and gemv_m8_kernel (M = 2..8)
+    take: bf16 x, int8 or int4 (either scaling), N a multiple of a lane's 16
+    columns, K of whole 16-byte runs of x, 16-byte-aligned x, weights and
+    scales, at M > 1 rows of x ``ldx`` (default K) elements apart, a
+    multiple of 8 (every row 16-byte aligned), and for int4 a scale group of
+    a multiple of 128 K rows, or one group over a K of a multiple of 128."""
+    if dtype != torch.bfloat16 or not 1 <= m <= GEMV_M8_ROWS[-1] or mode not in _MODES:
         return False
     if n % 16 or k % 8 or any(p % 16 for p in ptrs):
+        return False
+    if m > 1 and (k if ldx is None else ldx) % 8:
         return False
     return mode == _MODE_INT8 or group % 128 == 0 or (group == k and k % 128 == 0)
 
 
-def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan) -> bool:
-    """Whether the kernel takes the launch shape (the C side refuses the
-    same): splits on whole units, no block without rows, and x, the int4
-    scales and the sums within the kernel's shared memory."""
+def _gemv_m8_smem(mode: int, k: int, group: int, plan: GemvPlan, mt: int) -> int:
+    """gemv_m8_kernel's shared memory (bytes; m8_smem_bytes in the source):
+    MT rows of the block's x as bf16 pairs, each row padded to a stride of 4
+    (mod 32) words so that the B fragments' loads hit distinct banks; the
+    slab's rows of scales (int8: one; int4: the block's groups); the sums of
+    the block's columns, MT rows from every warp."""
+    words = plan.rows_per_block * (1 if mode == _MODE_INT8 else 2) // 2
+    stride = words + (36 - words % 32) % 32
+    groups = 1 if mode == _MODE_INT8 or group == k else 2 * plan.rows_per_block // group
+    return 4 * (mt * stride + groups * plan.slab + plan.warps * mt * plan.slab)
+
+
+def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan, m: int = 1) -> bool:
+    """Whether the kernel for M = ``m`` takes the launch shape (the C side
+    refuses the same): splits on whole units, no block without rows, and x,
+    the scales and the sums within the kernel's shared memory."""
     slab, cluster, warps, rows_per_block, rows_per_warp = plan
     if slab not in GEMV_SLABS or cluster not in GEMV_CLUSTERS:
         return False
-    if mode == _MODE_INT4_SCALE_ON_WEIGHTS and slab != GEMV_MMA_SLAB:
+    if m == 1 and mode == _MODE_INT4_SCALE_ON_WEIGHTS and slab != GEMV_MMA_SLAB:
         return False
     rows = k if mode == _MODE_INT8 else k // 2
     unit = _gemv_unit(mode, k, group, slab)
@@ -224,6 +265,8 @@ def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan) -> bool:
             and rows_per_block == warps * rows_per_warp
             and (cluster - 1) * rows_per_block < rows <= cluster * rows_per_block):
         return False
+    if m > 1:
+        return _gemv_m8_smem(mode, k, group, plan, _gemv_rows(m)) <= GEMV_M8_SMEM_BYTES
     # x of the block's rows, the slab's rows of scales (int8: one; int4: the
     # block's groups), and the sums of the block's columns
     if mode == _MODE_INT8:
@@ -235,7 +278,7 @@ def _gemv_fits(mode: int, n: int, k: int, group: int, plan: GemvPlan) -> bool:
 
 
 def _gemv_split(mode: int, n: int, k: int, group: int, slab: int, cluster: int,
-                warps: Optional[int] = None) -> Optional[GemvPlan]:
+                warps: Optional[int] = None, m: int = 1) -> Optional[GemvPlan]:
     """K split over ``cluster`` blocks and then over at most ``warps``
     (GEMV_WARPS) warps a block, in whole units, as evenly as the units
     allow; None if the kernel would not take it."""
@@ -245,16 +288,19 @@ def _gemv_split(mode: int, n: int, k: int, group: int, slab: int, cluster: int,
     per_warp = _cdiv(per_block, warps or GEMV_WARPS)
     n_warps = _cdiv(per_block, per_warp)
     plan = GemvPlan(slab, cluster, n_warps, n_warps * per_warp * unit, per_warp * unit)
-    return plan if _gemv_fits(mode, n, k, group, plan) else None
+    return plan if _gemv_fits(mode, n, k, group, plan, m) else None
 
 
 @functools.lru_cache(maxsize=None)
 def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[int] = None,
-                cluster: Optional[int] = None, warps: Optional[int] = None) -> Optional[GemvPlan]:
-    """The launch shape for an [N, K] weight on a card of ``sms`` SMs, so
+                cluster: Optional[int] = None, warps: Optional[int] = None,
+                m: int = 1) -> Optional[GemvPlan]:
+    """The launch shape for an [N, K] weight and ``m`` rows of x (the M = 2..8
+    kernel's shared memory counts them, rounded up to its MT) on a card of
+    ``sms`` SMs, so
     that every SM gets GEMV_BLOCKS_PER_SM blocks of GEMV_WARPS warps where N
     and K allow. Slabs of 128 bytes, or 64 where 128-byte slabs in clusters
-    of 8 would give fewer blocks (mode 2: always 128). The smallest cluster that gives that many
+    of 8 would give fewer blocks (mode 2 at M = 1: always 128). The smallest cluster that gives that many
     blocks (8 at most), halved while a block would stream less than
     GEMV_MIN_BLOCK_BYTES and every SM would still get a block, and again
     while the split would leave a block without rows; larger where a
@@ -262,12 +308,12 @@ def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[
     ``cluster`` and ``warps`` force those choices."""
     rows = k if mode == _MODE_INT8 else k // 2
     blocks = GEMV_BLOCKS_PER_SM * sms
-    if slab is None and mode == _MODE_INT4_SCALE_ON_WEIGHTS:
+    if slab is None and mode == _MODE_INT4_SCALE_ON_WEIGHTS and m == 1:
         slab = GEMV_MMA_SLAB
     if slab is None:
         slab = 128 if _cdiv(n, 128) * GEMV_CLUSTERS[-1] >= blocks else 64
     if cluster is not None:
-        return _gemv_split(mode, n, k, group, slab, cluster, warps)
+        return _gemv_split(mode, n, k, group, slab, cluster, warps, m)
     slabs = _cdiv(n, slab)
     most = next((c for c in GEMV_CLUSTERS if slabs * c >= blocks), GEMV_CLUSTERS[-1])
     while (most > GEMV_CLUSTERS[0] and rows * slab < most * GEMV_MIN_BLOCK_BYTES
@@ -275,7 +321,7 @@ def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[
         most //= 2
     order = [c for c in reversed(GEMV_CLUSTERS) if c <= most]
     for c in order + [c for c in GEMV_CLUSTERS if c > most]:
-        plan = _gemv_split(mode, n, k, group, slab, c, warps)
+        plan = _gemv_split(mode, n, k, group, slab, c, warps, m)
         if plan is not None:
             return plan
     return None
@@ -283,46 +329,56 @@ def _gemv_shape(mode: int, n: int, k: int, group: int, sms: int, slab: Optional[
 
 def _gemv_plan(mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int, x_ptr: int,
                w_ptr: int, sms: int = H100_SMS, s_ptr: int = 0, slab: Optional[int] = None,
-               cluster: Optional[int] = None, warps: Optional[int] = None) -> Optional[GemvPlan]:
-    """How a call with x [m, k] (at x_ptr), weights at w_ptr and scales at
-    s_ptr runs: a GemvPlan of gemv_m1_kernel, or None for the first port's
-    gemv_kernel (M <= 8) and the GEMMs (M > 8). ``slab``, ``cluster`` and
-    ``warps`` force those choices (the sweep's settings); None where the
-    kernel would not take them."""
-    if not _gemv_takes(mode, dtype, m, n, k, group, (x_ptr, w_ptr, s_ptr)):
+               cluster: Optional[int] = None, warps: Optional[int] = None,
+               ldx: Optional[int] = None) -> Optional[GemvPlan]:
+    """How a call with x [m, k] (at x_ptr, rows ``ldx`` elements apart, by
+    default k), weights at w_ptr and scales at s_ptr runs: a GemvPlan of
+    gemv_m1_kernel (m = 1) or gemv_m8_kernel (m = 2..8), or None for the
+    first port's gemv_kernel (M <= 8) and the GEMMs (M > 8). ``slab``,
+    ``cluster`` and ``warps`` force those choices (the sweep's settings);
+    None where the kernel would not take them."""
+    if not _gemv_takes(mode, dtype, m, n, k, group, (x_ptr, w_ptr, s_ptr), ldx):
         return None
-    return _gemv_shape(mode, n, k, group, sms, slab, cluster, warps)
+    return _gemv_shape(mode, n, k, group, sms, slab, cluster, warps, _gemv_rows(m))
 
 
 def _gemv_route(route, mode: int, dtype: torch.dtype, m: int, n: int, k: int, group: int,
-                ptrs: Sequence[int], sms: int) -> Optional[GemvPlan]:
+                ptrs: Sequence[int], sms: int, ldx: Optional[int] = None) -> Optional[GemvPlan]:
     """The plan a call launches. ``route`` None takes ``_gemv_plan``'s;
     "gemv_kernel" forces the first port's kernel (for M <= 8; None); a
-    GemvPlan forces that plan, which raises here for operands the kernel
-    does not take and on the card, from the C side, for a launch shape it
-    refuses."""
+    GemvPlan forces that plan (of gemv_m1_kernel at M = 1, gemv_m8_kernel at
+    M = 2..8), which raises here for operands the kernel does not take and
+    on the card, from the C side, for a launch shape it refuses."""
     if route is None:
-        return _gemv_plan(mode, dtype, m, n, k, group, *ptrs[:2], sms, ptrs[2])
+        return _gemv_plan(mode, dtype, m, n, k, group, *ptrs[:2], sms, ptrs[2], ldx=ldx)
     if route == "gemv_kernel":
         if m > 8:
             raise ValueError(f"gemv_kernel runs M <= 8, got M = {m}")
         return None
     if not isinstance(route, GemvPlan):
         raise ValueError(f"_route must be None, 'gemv_kernel' or a GemvPlan, got {route!r}")
-    if not _gemv_takes(mode, dtype, m, n, k, group, ptrs):
-        raise ValueError(f"gemv_m1_kernel does not take mode {mode}, {dtype}, M={m}, N={n}, "
-                         f"K={k}, group {group} at {[p % 16 for p in ptrs]} past 16 bytes")
+    if not _gemv_takes(mode, dtype, m, n, k, group, ptrs, ldx):
+        raise ValueError(f"{_gemv_function(m) if m <= 8 else 'no GEMV'} does not take mode "
+                         f"{mode}, {dtype}, M={m}, N={n}, K={k}, ldx {ldx}, group {group} at "
+                         f"{[p % 16 for p in ptrs]} past 16 bytes")
     return route
 
 
 # -- kernels ------------------------------------------------------------------
 
+_I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+# the C entries of csrc/quant_matmul.cu and their argument types
+C_ENTRIES = {
+    "cambrian_quant_matmul": [_I32, _I32, _PTR, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
+                              _PTR],
+    "cambrian_quant_gemv_m1": [_I32, _PTR, _PTR, _PTR, _PTR] + [_I32] * 8 + [_PTR],
+    "cambrian_quant_gemv_m8": [_I32, _PTR, _I64, _PTR, _PTR, _PTR] + [_I32] * 9 + [_PTR],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-    return cuda_build.load("quant_matmul", {
-        "cambrian_quant_matmul": [i32, i32, ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
-        "cambrian_quant_gemv_m1": [i32, ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]})
+    return cuda_build.load("quant_matmul", C_ENTRIES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,9 +390,9 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
             k: int, n: int, group: int, route=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch on the
     current stream (counted in ``wrapper.launches`` and, by route, in
-    ``wrapper.function_launches``: ``gemv_m1_kernel``, ``gemv_kernel`` (M <=
-    8) or ``gemm`` (M > 8, the GEMM kernels)); raise on anything the kernel
-    refuses. ``route`` is ``_gemv_route``'s."""
+    ``wrapper.function_launches``: ``gemv_m1_kernel``, ``gemv_m8_kernel``,
+    ``gemv_kernel`` (M <= 8) or ``gemm`` (M > 8, the GEMM kernels)); raise
+    on anything the kernel refuses. ``route`` is ``_gemv_route``'s."""
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -355,16 +411,20 @@ def _launch(wrapper, mode: int, x: torch.Tensor, w: torch.Tensor, scale: torch.T
         return torch.empty((0, n), dtype=x.dtype, device=x.device)
     ldx = x.stride(0) if m > 1 else k
     plan = _gemv_route(route, mode, x.dtype, m, n, k, group,
-                       (x.data_ptr(), w.data_ptr(), scale.data_ptr()), _sms(x.device))
+                       (x.data_ptr(), w.data_ptr(), scale.data_ptr()), _sms(x.device), ldx)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     wrapper.launches += 1
-    function = "gemv_m1_kernel" if plan is not None else "gemv_kernel" if m <= 8 else "gemm"
+    function = _route_function(plan, m)
     wrapper.function_launches[function] = wrapper.function_launches.get(function, 0) + 1
-    if plan is not None:
+    if plan is not None and m == 1:
         err = lib.cambrian_quant_gemv_m1(mode, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                          out.data_ptr(), n, k, group, *plan, stream)
+    elif plan is not None:
+        err = lib.cambrian_quant_gemv_m8(mode, x.data_ptr(), ldx, w.data_ptr(),
+                                         scale.data_ptr(), out.data_ptr(), m, n, k, group,
+                                         *plan, stream)
     else:
         err = lib.cambrian_quant_matmul(mode, cuda_build.dtype_code(x), x.data_ptr(), ldx,
                                         w.data_ptr(), scale.data_ptr(), out.data_ptr(),

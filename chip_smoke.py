@@ -20,7 +20,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    decode GEMV of K3, K4 and K4b/K4c (``gemv_m1_kernel<0>``, ``<1>``,
    ``<2>``) must be there, with their registers, I2F and HMMA counts and
    their main loop's SASS instructions per packed byte printed; none may
-   spill, and ``<2>`` must run its products on the tensor cores (HMMA);
+   spill, and ``<2>`` must run its products on the tensor cores (HMMA); so
+   must the 18 functions of the bf16 M = 2..8 decode GEMV
+   (``gemv_m8_kernel<mode, MT, W>``: modes 0-2, MT = 2, 4, 8 rows of x,
+   W = 16 or 8 bytes a lane), every one with HMMA, none spilling, their
+   registers, I2F, HMMA and instructions per packed byte printed;
    every instance of K6's ``layer_norm_vec_kernel`` (2 dtypes x the
    (lanes, chunks) pairs of ``norms.LN_INSTANCES``) and ``layer_norm_kernel``
    must be there without spills; so must every instance of K7's
@@ -56,9 +60,13 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    beside the first port's ``gemv_kernel`` (``_route="gemv_kernel"``) and
    ``torch.matmul``, with its TB/s, its share of the bound and a decode
    step's sum of each; and bf16 at M = 4, the continuous-batching decode
-   (phase 12), which runs ``gemv_kernel`` (by counter and in the profiled
-   run): error against plain on fp32-upcast inputs, medians of 30 with the
-   L2 flushed beside ``torch.matmul``, the bound and a decode step's sums;
+   (phase 12), which runs ``gemv_m8_kernel<mode,4,W>`` alone (by counter and
+   in the profiled run), with M = 8 at q_proj and down_proj and M = 2 and 3
+   at k_proj: error against plain on fp32-upcast inputs, two calls equal
+   bit for bit, medians of 30 with the L2 flushed beside the first port's
+   ``gemv_kernel`` (``_route="gemv_kernel"``, held against plain too),
+   ``torch.matmul`` and the plain version, the bound and a decode step's
+   sums;
 4. a tiny Cambrian, unquantized, int8 and int4: the kernel path on the card
    in fp32 (TF32 off) against the plain path on the CPU; greedy tokens must
    be identical and the kernels launched exactly as often as the path needs;
@@ -185,15 +193,16 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    first token must equal sequential ``generate``'s (the share of agreeing
    tokens is printed); K1 exactly 122 times a request (90 at its encode, 32
    at its admission); quantized, 7 x 32 GEMM launches an admission and
-   7 x 32 ``gemv_kernel`` launches a decode step (route counter). Every
+   7 x 32 ``gemv_m8_kernel`` launches a decode step (route counter). Every
    chunk's steps run under ``torch.cuda.set_sync_debug_mode("error")``: no
    host sync inside a chunk. Printed: each request's time to first token,
    the tokens/s across slots (all chunks, and those without an
    admission), the wall ms of each chunk, peak memory, and phase 5's or
    6's sequential tokens/s. Then 4 text requests whose second chunk (all
-   decode) runs under ``torch.profiler`` (quantized: ``gemv_kernel<., mode,
-   4>`` 7 x 32 x 8 times and no other quant function, no
-   ``gemv_m1_kernel``), and with int4 4 more under ``CAMBRIAN_INT4_V2=1``
+   decode) runs under ``torch.profiler`` (quantized: ``gemv_m8_kernel<mode,
+   4, W>`` 7 x 32 x 8 times and no other quant function: no
+   ``gemv_kernel``, no ``gemv_m1_kernel``), and with int4 4 more under
+   ``CAMBRIAN_INT4_V2=1``
    (K4b at M = 4). With bf16, the port's ``ModelWorker`` (continuous
    batching) on the live model serves 4 concurrent text-only streams over
    localhost HTTP with a numpy stand-in tokenizer: every chunk error code 0,
@@ -266,8 +275,11 @@ QUANT_SHAPES = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096,
 # medians of GEMV_ITERS calls beside the first port's gemv_kernel
 GEMV_M1_KERNELS = ("int8_matmul", "int4_matmul", "int4_matmul_scale_on_weights")
 GEMV_ITERS = 30
+# phase 3's further bf16 rows of x for gemv_m8_kernel, by projection, beside
+# CB_SLOTS at every projection
+GEMV_M8_EXTRA = {"q_proj": (8,), "down_proj": (8,), "k_proj": (2, 3)}
 # continuous batching (phase 12): the worker's defaults (model_worker.py),
-# so a decode step runs every projection at M = CB_SLOTS on gemv_kernel
+# so a decode step runs every projection at M = CB_SLOTS on gemv_m8_kernel
 CB_SLOTS = 4
 CB_CHUNK = 8
 CB_EXTRA_LEN = 1024          # max_len = context_len + 1024
@@ -646,8 +658,8 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
     """K3, K4 and K4b/K4c (``names``) against their plain versions at the
     decoder's projection shapes (the 8B decoder's by default), bf16 and fp32
     (``dtypes``); with ``slots``, also bf16 at M = ``slots`` (the
-    continuous-batching decode, on ``gemv_kernel``); returns per-case
-    records."""
+    continuous-batching decode, on ``gemv_m8_kernel``) and at the further
+    rows of GEMV_M8_EXTRA; returns per-case records."""
     dtypes = dtypes or (torch.bfloat16, torch.float32)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
@@ -676,9 +688,10 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
         cases = {name: cases[name] for name in names}
         prefill = {}     # name: (x, the record) of each bf16 prefill case
         decode = {}      # name: (x, the record) of each bf16 M = 1 case of K3, K4, K4b
-        batched = {}     # name: (x, the record) of each bf16 M = slots case
+        batched = []     # (name, x, the record) of each bf16 M = 2..8 case
         runs = [(m, dtype) for m in (1, prompt_len) for dtype in dtypes]
-        runs += [(slots, torch.bfloat16)] if slots else []
+        if slots:
+            runs += [(m, torch.bfloat16) for m in (slots,) + GEMV_M8_EXTRA.get(site, ())]
         for name, (fn, plain, wq, sc, dequant) in cases.items():
             for m, dtype in runs:
                 dtype_name = str(dtype).replace("torch.", "")
@@ -699,10 +712,11 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
                 # the bf16 M = 1 GEMV of K3 and K4 (gemv_m1_kernel): medians of
                 # GEMV_ITERS calls, beside the first port's gemv_kernel
                 m1 = m == 1 and dtype == torch.bfloat16 and name in GEMV_M1_KERNELS
-                # the continuous-batching decode's GEMV, medians as at M = 1
-                m_slots = m == slots
-                iters = GEMV_ITERS if m1 or m_slots else 10
-                med = m1 or m_slots
+                # the continuous-batching decode's GEMV (gemv_m8_kernel), timed
+                # as at M = 1
+                m8 = slots is not None and 2 <= m <= 8 and dtype == torch.bfloat16
+                iters = GEMV_ITERS if m1 or m8 else 10
+                med = m1 or m8
                 ms = cuda_ms(torch, lambda: fn(x, wq, sc), iters, flush, median=med)
                 plain_ms = cuda_ms(torch, lambda: plain(x, wq, sc), iters, flush, median=med)
                 w_deq = dequant(wq, sc, dtype)
@@ -710,10 +724,10 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
                                      median=med)
                 del w_deq
                 old_ms = None
-                if m1:
+                if m1 or m8:
                     # a fixed order of sums: two calls agree bit for bit
                     check(torch.equal(fn(x, wq, sc), out),
-                          f"{name} {site} M=1: two calls differ")
+                          f"{name} {site} M={m}: two calls differ")
                     old = fn(x, wq, sc, _route="gemv_kernel")
                     torch.cuda.synchronize()
                     old_err = float((old.float() - ref).abs().max())
@@ -760,24 +774,26 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
                           f"faster than gemv_kernel: {ms < old_ms}, no slower than "
                           f"matmul: {ms <= library_ms}", flush=True)
                     decode[name] = (x, rec)
-                if m_slots:
-                    print(f"gemv M={m} {name:12s} {site:9s} gemv_kernel {ms * 1e3:.2f} us, "
-                          f"matmul {library_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-                          f"us, bound {bound_ms * 1e3:.2f} us, {rec['tbps']:.3f} TB/s "
-                          f"({bound_ms / ms:.1%} of bound), err {err:.3e} (tol {tol:.2e})",
-                          flush=True)
-                    batched[name] = (x, rec)
+                if m8:
+                    print(f"gemv M={m} {name:12s} {site:9s} gemv_m8_kernel {ms * 1e3:.2f} us, "
+                          f"gemv_kernel {old_ms * 1e3:.2f} us, matmul {library_ms * 1e3:.2f} "
+                          f"us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, "
+                          f"{rec['tbps']:.3f} TB/s ({bound_ms / ms:.1%} of bound), err "
+                          f"{err:.3e} (tol {tol:.2e}); faster than gemv_kernel: {ms < old_ms}, "
+                          f"no slower than matmul: {ms <= library_ms}", flush=True)
+                    batched.append((name, x, rec))
                 if dtype == torch.bfloat16 and m == prompt_len:
                     prefill[name] = (x, rec)
-        for name, (x, rec) in (list(prefill.items()) + list(decode.items())
-                               + list(batched.items())):
+        for name, x, rec in ([(n, x, r) for n, (x, r) in prefill.items()]
+                             + [(n, x, r) for n, (x, r) in decode.items()] + batched):
             profiled_cases.append((name, site, x, cases[name][2], cases[name][3], rec))
         del w, prefill
     del l2
     quant_function_check(torch, quant, profiled_cases)
     del profiled_cases
     for name in (n for n in GEMV_M1_KERNELS if n in names):
-        recs = [r for r in records if r["kernel"] == name and r["gemv_kernel_ms"] is not None]
+        recs = [r for r in records if r["kernel"] == name and r["m"] == 1
+                and r["gemv_kernel_ms"] is not None]
         step = {key: LAYERS * sum(r[key] for r in recs)
                 for key in ("ms", "gemv_kernel_ms", "library_ms", "bound_ms")}
         print(f"gemv M=1 {name}: a {label} decode step (7 shapes x {LAYERS} layers) gemv_m1_kernel "
@@ -787,12 +803,14 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
         if slots:
             recs = [r for r in records if r["kernel"] == name and r["m"] == slots]
             step = {key: LAYERS * sum(r[key] for r in recs)
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for key in ("ms", "gemv_kernel_ms", "plain_ms", "library_ms", "bound_ms")}
             print(f"gemv M={slots} {name}: a {label} continuous-batching decode step (7 shapes x "
-                  f"{LAYERS} layers) gemv_kernel {step['ms']:.3f} ms, matmul "
-                  f"{step['library_ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, bound "
-                  f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%} of bound)",
-                  flush=True)
+                  f"{LAYERS} layers) gemv_m8_kernel {step['ms']:.3f} ms, gemv_kernel "
+                  f"{step['gemv_kernel_ms']:.3f} ms, matmul {step['library_ms']:.3f} ms, plain "
+                  f"{step['plain_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
+                  f"({step['bound_ms'] / step['ms']:.1%} of bound); below gemv_kernel: "
+                  f"{step['ms'] < step['gemv_kernel_ms']}, at or below matmul: "
+                  f"{step['ms'] <= step['library_ms']}", flush=True)
     return records
 
 
@@ -1227,7 +1245,7 @@ def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, qu
     check(not unused, f"phase 12 ({label}): launched K5-K8 {unused}")
     if kernel:
         want = {"gemm": QUANT_PER_STEP * len(CB_BUDGETS),
-                "gemv_kernel": QUANT_PER_STEP * main_steps}
+                "gemv_m8_kernel": QUANT_PER_STEP * main_steps}
         check(main_routes[kernel] == want and main[kernel] == sum(want.values()),
               f"phase 12 ({label}): {kernel} routes {main_routes[kernel]} ({main[kernel]} "
               f"launches), not {want}")
@@ -1244,13 +1262,20 @@ def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, qu
           f"peak memory {peak / 2**30:.2f} GiB; no host sync inside a chunk", flush=True)
 
     rng = np.random.default_rng(SEED + 12)
-    fns = {}
+    mode = list(QUANT_KERNELS).index(kernel) if kernel else None
+    want_gemv = {"gemv_m8_kernel": QUANT_PER_STEP * CB_CHUNK}
     # one profiled chunk, all decode, every projection at M = CB_SLOTS: the
     # first chunk of CB_SLOTS text requests admits them, the second runs
-    # profiled (again, on fresh requests, if the trace comes back empty)
-    for _ in range(3):
+    # profiled. A trace can hold no kernel, or lose a few of a chunk's
+    # thousands (one of 1,792 gemv_m8_kernel launches, while the route
+    # counter saw them all): then the pass is profiled again, on fresh
+    # requests, three times in all. The counter must hold the chunk's every
+    # launch each time; the trace must name them all in one pass.
+    for attempt in range(1, 4):
         extra = text_requests(engine, cfg, rng, CB_SLOTS, CB_TEXT_TOKENS)
         engine.step_chunk(CB_CHUNK)
+        for r in routes.values():
+            r.clear()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             engine.step_chunk(CB_CHUNK)
             torch.cuda.synchronize()
@@ -1258,25 +1283,39 @@ def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, qu
               f"phase 12 ({label}): the profiled pass gave "
               f"{[len(q.tokens) for q in extra]} tokens")
         events = kernel_events(prof)
-        if events:
+        fns = {}
+        for _, n, key in events:
+            for fn in quant_functions([key]):
+                fns[fn] = fns.get(fn, 0) + n
+        if kernel:
+            counted = dict(routes[kernel])
+            check(counted == want_gemv, f"phase 12 ({label}): the profiled chunk's {kernel} "
+                  f"routes {counted}, not {want_gemv}")
+        if not events:
+            print(f"profiler: trace {attempt} of 3 holds no kernel", flush=True)
+            continue
+        if not kernel:
             break
-        print("profiler: a trace holds no kernel", flush=True)
-    check(events, f"phase 12 ({label}): three profiled chunks came back without a kernel")
-    for _, n, key in events:
-        for fn in quant_functions([key]):
-            fns[fn] = fns.get(fn, 0) + n
+        # gemv_m8_kernel<mode, CB_SLOTS, W> alone (W by each projection's plan)
+        gemv = {f: n for f, n in fns.items()
+                if f.startswith(f"gemv_m8_kernel<{mode},{quant._gemv_rows(CB_SLOTS)},")}
+        check(set(fns) == set(gemv), f"phase 12 ({label}): the profiled chunk ran {fns}, "
+              f"not gemv_m8_kernel<{mode},{CB_SLOTS},.> alone")
+        named = sum(gemv.values())
+        check(named <= want_gemv["gemv_m8_kernel"], f"phase 12 ({label}): the profiled chunk "
+              f"names {named} launches, more than the counter's {counted}")
+        if named == want_gemv["gemv_m8_kernel"]:
+            break
+        print(f"profiler: trace {attempt} of 3 names {named} of the chunk's "
+              f"{want_gemv['gemv_m8_kernel']} counted gemv_m8_kernel launches", flush=True)
+    else:
+        check(False, f"phase 12 ({label}): three profiled chunks came back without a kernel "
+              f"or short of the counted launches (the last: {fns})")
     busy_ms = sum(us for us, _, _ in events) / 1e3
     top = [(round(us / 1e3, 3), n, key[:70]) for us, n, key in events[:8]]
     print(f"phase 12 ({label}) profiled decode chunk ({CB_CHUNK} steps): {busy_ms:.2f} ms "
           f"of kernel time ({busy_ms / CB_CHUNK:.2f} a step); quant functions {fns}; the "
           f"longest kernels (ms, launches, name): {top}", flush=True)
-    if kernel:
-        mode = list(QUANT_KERNELS).index(kernel)
-        gemv = {f: n for f, n in fns.items() if f.startswith("gemv_kernel<")
-                and f.endswith(f",{mode},{CB_SLOTS}>")}
-        check(sum(gemv.values()) == QUANT_PER_STEP * CB_CHUNK and set(fns) == set(gemv),
-              f"phase 12 ({label}): the profiled chunk ran {fns}, not {QUANT_PER_STEP * CB_CHUNK} "
-              f"x gemv_kernel<.,{mode},{CB_SLOTS}> alone")
     if quantize == "int4":
         os.environ["CAMBRIAN_INT4_V2"] = "1"
         try:
@@ -1285,7 +1324,7 @@ def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, qu
             engine.run_until_complete(v2, chunk=CB_CHUNK)
         finally:
             del os.environ["CAMBRIAN_INT4_V2"]
-        want = {"gemm": QUANT_PER_STEP * CB_SLOTS, "gemv_kernel": QUANT_PER_STEP * CB_CHUNK}
+        want = {"gemm": QUANT_PER_STEP * CB_SLOTS, "gemv_m8_kernel": QUANT_PER_STEP * CB_CHUNK}
         got = dict(routes["int4_matmul_scale_on_weights"])
         check(got == want, f"phase 12 (int4, CAMBRIAN_INT4_V2=1): routes {got}, not {want}")
         main_routes["int4_matmul_scale_on_weights"] = got
@@ -2096,12 +2135,16 @@ K2_FUNCTIONS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_dkd
                 "bwd_dq_bf16_kernel")
 # the quant matmuls' kernel functions: decode GEMV, fp32 SIMT GEMM, the
 # mma.sync GEMM for bf16 operands TMA cannot address, the wgmma prefill GEMM,
-# the bf16 M = 1 GEMV over a thread-block cluster
+# the bf16 M = 1 and M = 2..8 GEMVs over a thread-block cluster
 QUANT_FUNCTIONS = ("gemv_kernel", "gemm_kernel", "gemm_tc_kernel", "gemm_wgmma_kernel",
-                   "gemv_m1_kernel")
+                   "gemv_m1_kernel", "gemv_m8_kernel")
 # the bf16 M = 1 decode GEMV of modes 0 (K3), 1 (K4) and 2 (K4b/K4c; on the
 # tensor cores, mma.sync)
 GEMV_M1_FUNCTIONS = ["gemv_m1_kernel<0>", "gemv_m1_kernel<1>", "gemv_m1_kernel<2>"]
+# the bf16 M = 2..8 decode GEMV on the tensor cores: <mode, rows of x it is
+# built for, bytes a lane of a row>
+GEMV_M8_FUNCTIONS = [f"gemv_m8_kernel<{mode},{mt},{w}>" for mode in range(3) for mt in (2, 4, 8)
+                     for w in (16, 8)]
 # K6's functions: the 16-byte row pass <dtype, lanes a row, chunks a lane>
 # and the scalar kernel <dtype>
 LN_FUNCTIONS = ("layer_norm_vec_kernel", "layer_norm_kernel")
@@ -2159,11 +2202,12 @@ def wgmma_tile_columns(m, n, sms):
 
 def quant_function_check(torch, quant, cases, calls=3):
     """By launch counter and by kernel name, from one ``torch.profiler`` run
-    of ``calls`` calls of each bf16 prefill and M = 1 case of K3, K4 and
-    K4b (name, site, x, weights, scales, record): each M = 1 call runs
-    gemv_m1_kernel<mode>, each prefill the wgmma GEMM of its mode at the tile
-    columns its launcher picks, and the trace holds no other quant-matmul
-    function (so no bf16 M = 1 call ran the first port's gemv_kernel). One
+    of ``calls`` calls of each bf16 prefill, M = 1 and M = 2..8 case of K3,
+    K4 and K4b (name, site, x, weights, scales, record): each M = 1 call runs
+    gemv_m1_kernel<mode>, each M = 2..8 call gemv_m8_kernel<mode, MT, W> of
+    its plan, each prefill the wgmma GEMM of its mode at the tile columns its
+    launcher picks, and the trace holds no other quant-matmul function (so
+    no bf16 decode call ran the first port's gemv_kernel). One
     run for the phase: profiler sessions in one process have come back
     without kernels, and a trace of one call has lost one of its kernels."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2184,17 +2228,19 @@ def quant_function_check(torch, quant, cases, calls=3):
         for fn in quant_functions([key]):
             launched[fn] = launched.get(fn, 0) + n
     planned = set()
-    for (name, site, x, _, _, rec), route in zip(cases, routes):
+    for (name, site, x, wq, sc, rec), route in zip(cases, routes):
         mode = list(QUANT_KERNELS).index(name)   # K3, K4, K4b: modes 0, 1, 2
         m = x.shape[0]
         if m == 1:
             want, fn = "gemv_m1_kernel", f"gemv_m1_kernel<{mode}>"
         elif m <= 8:
-            # the first port's GEMV: <dtype, mode, rows rounded up to 1, 2, 4, 8>
-            rows = 1 << (m - 1).bit_length()
-            want = "gemv_kernel"
-            fn = next((f for f in launched if f.startswith("gemv_kernel<")
-                       and f.endswith(f",{mode},{rows}>")), f"gemv_kernel<bf16,{mode},{rows}>")
+            # <mode, rows of x it is built for, bytes a lane: the plan's slab / 8>
+            plan = quant._gemv_plan(mode, x.dtype, m, rec["n"], rec["k"],
+                                    1 if mode == 0 else rec["k"] // sc.shape[0], x.data_ptr(),
+                                    wq.data_ptr(), sms, sc.data_ptr(), ldx=x.stride(0))
+            check(plan is not None, f"{name} {site} M={m}: no gemv_m8_kernel plan")
+            want = "gemv_m8_kernel"
+            fn = f"gemv_m8_kernel<{mode},{quant._gemv_rows(m)},{plan.slab // 8}>"
         else:
             want = "gemm"
             fn = f"gemm_wgmma_kernel<{mode},{wgmma_tile_columns(m, rec['n'], sms)}>"
@@ -2206,7 +2252,7 @@ def quant_function_check(torch, quant, cases, calls=3):
         planned.add(fn)
         print(f"kernel {name:29s} {site:9s} M={m:<4d} ran {fn}", flush=True)
     others = {fn: n for fn, n in launched.items() if fn not in planned}
-    check(not others, f"the profiled bf16 prefill and M = 1 calls also ran {others}")
+    check(not others, f"the profiled bf16 prefill and decode calls also ran {others}")
     print(f"quant functions of the profiled run ({calls} calls a case): {launched}", flush=True)
 
 
@@ -3143,6 +3189,26 @@ def main(argv=None):
     check(sass["gemv_m1_kernel<2>"]["hmma"] > 0 and sass["gemv_m1_kernel<2>"]["i2f"] <= 16,
           f"gemv_m1_kernel<2> off the tensor cores or widening by I2F: "
           f"{sass['gemv_m1_kernel<2>']}")
+    # the bf16 M = 2..8 decode GEMV: every instance there, none spilling,
+    # every mode's products on the tensor cores (HMMA), no widening by I2F
+    # in its loop; instructions of the main loop per packed byte of a lane's
+    # batch (GEMV_M8_BATCH_BYTES)
+    missing = [fn for fn in GEMV_M8_FUNCTIONS if fn not in usage or fn not in sass]
+    check(not missing, f"quant_matmul lacks its M = 2..8 GEMV functions {missing}")
+    for fn in GEMV_M8_FUNCTIONS:
+        regs, stack, local = usage[fn]
+        body, loads = loops.get(fn) or (None, None)
+        per_byte = None if body is None else body / quant.GEMV_M8_BATCH_BYTES
+        sass[fn].update(registers=regs, stack_bytes=stack, local_bytes=local,
+                        loop_instructions=body, loop_loads=loads,
+                        instructions_per_packed_byte=per_byte)
+        print(f"{fn}: {regs} registers, {stack} bytes of stack, {local} bytes of local memory, "
+              f"{sass[fn]['i2f']} I2F, {sass[fn]['hmma']} HMMA; main loop {body} instructions "
+              f"with {loads} LDG"
+              + ("" if per_byte is None else f", {per_byte:.3f} a packed byte"), flush=True)
+        check(stack == 0 and local == 0, f"{fn} spills: {sass[fn]}")
+        check(sass[fn]["hmma"] > 0 and sass[fn]["i2f"] <= 16,
+              f"{fn} off the tensor cores or widening by I2F: {sass[fn]}")
     # K6: every instance of the 16-byte row pass and the scalar kernel,
     # without spills
     from cambrian_tpu_torch.ops.norms import LN_INSTANCES
@@ -3324,17 +3390,19 @@ def main(argv=None):
               f"{rows[-1]['bound_ms']:.2f} ms, matmul {rows[-1]['library_ms']:.1f} ms)",
               flush=True)
     # K3, K4 and K4b at M = CB_SLOTS: the continuous-batching decode step's
-    # 7 x 32 projections on gemv_kernel; launches from phase 12's routes
+    # 7 x 32 projections on gemv_m8_kernel (the first port's gemv_kernel
+    # timed beside it); launches from phase 12's routes
     for name, (replaces, _) in QUANT_KERNELS.items():
         recs = [r for r in quant_kernels if r["kernel"] == name and r["m"] == CB_SLOTS]
         step = {key: LAYERS * sum(r[key] for r in recs)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
+                            "gemv_kernel_ms")}
         rows.append({
             "name": f"{name}_m{CB_SLOTS}",
             "route": "cuda",
             "source": "cambrian_tpu_torch/csrc/quant_matmul.cu",
             "replaces": replaces,
-            "launches": sum(f["continuous"]["routes"][name].get("gemv_kernel", 0)
+            "launches": sum(f["continuous"]["routes"][name].get("gemv_m8_kernel", 0)
                             for f in full.values()),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": step["ms"],
@@ -3342,8 +3410,9 @@ def main(argv=None):
             "bound_ms": step["bound_ms"],
             "bound_by": "bytes" if step["bytes_ms"] >= step["ops_ms"] else "operations",
             "library_ms": step["library_ms"],
+            "gemv_kernel_ms": step["gemv_kernel_ms"],
         })
-        check(rows[-1]["launches"] > 0, f"{name}: no gemv_kernel launch at M = {CB_SLOTS} "
+        check(rows[-1]["launches"] > 0, f"{name}: no gemv_m8_kernel launch at M = {CB_SLOTS} "
               f"in phase 12")
     # K2: per training step, 32 calls at the decoder's shape (bf16)
     rows.append({

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The bf16 M = 1 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4 with
-the scale on the weights, mode 2) at the seven decoder projection shapes of
-Cambrian-8B (LLaMA-3-8B), on one CUDA card, under the plan ``_gemv_plan``
-chooses and under forced slab widths, cluster sizes and warps a block.
+"""The bf16 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4 with the
+scale on the weights, mode 2) at the seven decoder projection shapes of
+Cambrian-8B (LLaMA-3-8B), on one CUDA card, at M rows of x (``--m``: 1,
+``gemv_m1_kernel``, by default; 2..8, ``gemv_m8_kernel``, a continuous-
+batching decode step over M slots), under the plan ``_gemv_plan`` chooses
+and under forced slab widths, cluster sizes and warps a block.
 
-    python3 scripts/quant_gemv_sweep.py [--iters 30] [--warps 4,8] [--no-forced]
+    python3 scripts/quant_gemv_sweep.py [--m 1] [--iters 30] [--warps 4,8] [--no-forced]
                                         [--shapes q_proj,k_proj] [--modes 0,1,2]
 
 For each shape and mode (weights made on the card from a seed): the error of
-``gemv_m1_kernel`` against the plain version on x upcast to fp32, within
+the planned kernel against the plain version on x upcast to fp32, within
 2^-7 x max(1, |ref|max); the median device time of ``--iters`` calls, each
 timed alone with the L2 flushed before it and a spin kernel ahead of it (as
 ``chip_smoke.py`` phase 3 times them), with the achieved TB/s and the share
@@ -29,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--m", type=int, default=1, help="rows of x, 1 to 8")
     parser.add_argument("--iters", type=int, default=30, help="timed calls a median")
     parser.add_argument("--warps", default="", help="also force these warps a block, e.g. 4,8")
     parser.add_argument("--no-forced", action="store_true", help="the chosen plan only")
@@ -36,6 +39,8 @@ def main(argv=None):
     parser.add_argument("--modes", default="0,1,2", help="modes: 0 int8, 1 int4, 2 int4 with "
                         "the scale on the weights")
     args = parser.parse_args(argv)
+    if not 1 <= args.m <= 8:
+        parser.error(f"--m takes 1 to 8, got {args.m}")
 
     import torch
 
@@ -74,7 +79,7 @@ def main(argv=None):
             if args.shapes and site not in args.shapes.split(","):
                 continue
             w = (torch.randn((k, n), generator=g, device=dev) * 0.02).bfloat16()
-            x = torch.randn((1, k), generator=g, device=dev).bfloat16()
+            x = torch.randn((args.m, k), generator=g, device=dev).bfloat16()
             for mode, name in ((0, "int8"), (1, "int4"), (2, "int4_sow")):
                 if str(mode) not in args.modes.split(","):
                     continue
@@ -93,7 +98,7 @@ def main(argv=None):
                     group = k // sc.shape[0]
                 ref = plain(x.float(), wq, sc)
                 tol = 2 ** -7 * max(1.0, float(ref.abs().max()))
-                n_bytes = wq.numel() + sc.numel() * 4 + (k + n) * 2
+                n_bytes = wq.numel() + sc.numel() * 4 + args.m * (k + n) * 2
                 bound_ms = n_bytes / cs.PEAK_BYTES_PER_S * 1e3
 
                 def show(label, ms, err=None, total=None):
@@ -103,7 +108,8 @@ def main(argv=None):
                           f"{n_bytes / (ms * 1e9):6.3f} TB/s {bound_ms / ms:6.1%} of bound"
                           f"{tail}", flush=True)
 
-                print(f"{name} {site} K={k} N={n}: bound {bound_ms * 1e3:.2f} us", flush=True)
+                print(f"{name} {site} M={args.m} K={k} N={n}: bound {bound_ms * 1e3:.2f} us",
+                      flush=True)
                 w_deq = deq(wq, sc, torch.bfloat16)
                 show("torch.matmul (dequantized)", timed(lambda: torch.matmul(x, w_deq)))
                 del w_deq
@@ -114,9 +120,9 @@ def main(argv=None):
                      timed(lambda: fn(x, wq, sc, _route="gemv_kernel")), err)
                 seen = {}
                 for slab, cluster, warps in settings:
-                    plan = quant._gemv_plan(mode, torch.bfloat16, 1, n, k, group, x.data_ptr(),
-                                            wq.data_ptr(), sms, sc.data_ptr(), slab, cluster,
-                                            warps)
+                    plan = quant._gemv_plan(mode, torch.bfloat16, args.m, n, k, group,
+                                            x.data_ptr(), wq.data_ptr(), sms, sc.data_ptr(),
+                                            slab, cluster, warps)
                     label = ("plan" if slab is None else
                              f"slab {slab} cluster {cluster}" + (f" warps {warps}" if warps
                                                                  else ""))

@@ -1,8 +1,10 @@
-"""The bf16 M = 1 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4, scale
-on the weights): how the wrapper plans a call (``_gemv_plan``: the route, the
-slab, the cluster, the K split), and a model of mode 2's dequantization bit
-by bit, on the CPU; ``gemv_m1_kernel`` against the plain version, on the
-card.
+"""The bf16 decode GEMV of K3 (int8), K4 (int4) and K4b/K4c (int4, scale on
+the weights) at M = 1 (``gemv_m1_kernel``) and M = 2..8 (``gemv_m8_kernel``,
+the continuous-batching decode): how the wrapper plans a call
+(``_gemv_plan``: the route, the slab, the cluster, the K split), a model of
+mode 2's dequantization bit by bit, and a model of ``gemv_m8_kernel``
+register by register, on the CPU; both kernels against the plain version,
+on the card.
 
 ``tests/test_torch_quant.py`` holds the plain versions against the JAX
 functions and the Pallas kernels, and the first port's kernels on the card.
@@ -56,9 +58,9 @@ def _group(mode, k):
     return 1 if mode == INT8 else quant.int4_group(k)
 
 
-def _plan_of(mode, k, n, group=None, **kw):
+def _plan_of(mode, k, n, group=None, m=1, **kw):
     group = _group(mode, k) if group is None else group
-    return _gemv_plan(mode, BF16, 1, n, k, group, 0, 0, **kw)
+    return _gemv_plan(mode, BF16, m, n, k, group, 0, 0, **kw)
 
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
@@ -179,13 +181,16 @@ def test_int4_sums_less_136_sum_x_match_plain(k, n):
         assert np.array_equal(got, quant._unpack_int4(q4)[kk].numpy().astype(np.float32))
 
 
-# operands the kernel does not take: the first port's gemv_kernel (None); mode
-# 2 at M = 1 in bf16 takes gemv_m1_kernel, at M = 2..8 or in fp32 gemv_kernel
+# operands the kernels do not take: the first port's gemv_kernel (None); mode
+# 2 in bf16 takes gemv_m1_kernel at M = 1 and gemv_m8_kernel at M = 2..8, in
+# fp32 gemv_kernel; at M = 2..8 rows of x whose stride is not a multiple of 8
+# elements (not every row 16-byte aligned) take gemv_kernel
 @pytest.mark.parametrize("args", [
     dict(mode=INT8, dtype=torch.float32),
     dict(mode=INT4, dtype=torch.float32),
-    dict(mode=INT8, m=2), dict(mode=INT4, m=3), dict(mode=INT8, m=8), dict(mode=INT4, m=5),
-    dict(mode=INT4_SOW, m=2), dict(mode=INT4_SOW, m=8, n=4096),
+    dict(mode=INT8, m=2, ldx=4100), dict(mode=INT4, m=3, ldx=4097), dict(mode=INT8, m=8, ldx=4196),
+    dict(mode=INT4, m=5, ldx=4098),
+    dict(mode=INT4_SOW, m=2, ldx=4100), dict(mode=INT4_SOW, m=8, n=4096, ldx=4100),
     dict(mode=INT4_SOW, dtype=torch.float32),
     dict(mode=INT8, n=20), dict(mode=INT8, n=72), dict(mode=INT8, n=100),
     dict(mode=INT4, n=20), dict(mode=INT4, n=72), dict(mode=INT4, n=100),
@@ -203,7 +208,7 @@ def test_routes_to_gemv_kernel(args):
     if a["mode"] == INT8 and "group" not in args:
         a["group"] = 1
     assert _gemv_plan(a["mode"], a["dtype"], a["m"], a["n"], a["k"], a["group"], a["x_ptr"],
-                      a["w_ptr"], s_ptr=a["s_ptr"]) is None
+                      a["w_ptr"], s_ptr=a["s_ptr"], ldx=a.get("ldx")) is None
 
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
@@ -250,14 +255,15 @@ def test_forced_route_values():
     assert _gemv_route(forced, INT8, BF16, 1, 4096, 4096, 1, ptrs, sms) is forced
     odd = GemvPlan(128, 3, 8, 100, 7)
     assert _gemv_route(odd, INT4, BF16, 1, 4096, 4096, 128, ptrs, sms) is odd
-    # ... but never for operands the kernel does not take
-    for args in [(INT8, torch.float32, 1, 4096, 4096, 1, ptrs),
-                 (INT8, BF16, 2, 4096, 4096, 1, ptrs),
-                 (INT4_SOW, BF16, 2, 4096, 4096, 128, ptrs),
-                 (INT8, BF16, 1, 100, 4096, 1, ptrs),
-                 (INT8, BF16, 1, 4096, 4096, 1, (2, 0, 0))]:
+    # ... but never for operands the kernel does not take (at M = 2..8: rows
+    # of x a stride off a multiple of 8 elements)
+    for args, ldx in [((INT8, torch.float32, 1, 4096, 4096, 1, ptrs), None),
+                      ((INT8, BF16, 2, 4096, 4096, 1, ptrs), 4100),
+                      ((INT4_SOW, BF16, 2, 4096, 4096, 128, ptrs), 4097),
+                      ((INT8, BF16, 1, 100, 4096, 1, ptrs), None),
+                      ((INT8, BF16, 1, 4096, 4096, 1, (2, 0, 0)), None)]:
         with pytest.raises(ValueError, match="does not take"):
-            _gemv_route(forced, *args, sms)
+            _gemv_route(forced, *args, sms, ldx)
     with pytest.raises(ValueError, match="_route must be"):
         _gemv_route("gemv_m1_kernel", INT8, BF16, 1, 4096, 4096, 1, ptrs, sms)
 
@@ -325,6 +331,341 @@ def test_mode2_dequantization_bit_for_bit():
             assert torch.equal(got.view(torch.int16), want.view(torch.int16)), float(s)
 
 
+# -- M = 2..8: gemv_m8_kernel's plan, route and order of sums ---------------------
+
+M8_ROWS = [2, 4, 8]
+# the plan at every M = 2..8 by mode (x's rows change only its shared memory)
+M8_SHAPES = {
+    "q_proj": {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128),
+               INT4_SOW: (64, 4, 4, 512, 128)},
+    "k_proj": {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64),
+               INT4_SOW: (64, 8, 4, 256, 64)},
+    "v_proj": {INT8: (64, 8, 4, 512, 128), INT4: (64, 8, 4, 256, 64),
+               INT4_SOW: (64, 8, 4, 256, 64)},
+    "o_proj": {INT8: (64, 8, 4, 512, 128), INT4: (64, 4, 4, 512, 128),
+               INT4_SOW: (64, 4, 4, 512, 128)},
+    "gate_proj": {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128),
+                  INT4_SOW: (128, 4, 4, 512, 128)},
+    "up_proj": {INT8: (128, 4, 4, 1024, 256), INT4: (128, 4, 4, 512, 128),
+                INT4_SOW: (128, 4, 4, 512, 128)},
+    "down_proj": {INT8: (64, 8, 4, 1792, 448), INT4: (64, 4, 4, 1792, 448),
+                  INT4_SOW: (64, 4, 4, 1792, 448)},
+}
+
+
+@pytest.mark.parametrize("m", M8_ROWS)
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("site", list(SHAPES))
+def test_m8_plan_at_the_8b_shapes(site, mode, m):
+    """Every bf16 call at M = 2..8 on an 8B projection takes gemv_m8_kernel:
+    its plan, every stored row covered once, x's stage and the sums within
+    the shared memory the C side allows, 128 or more blocks (4x and more
+    gemv_kernel's 32 at N = 1024)."""
+    (k, n), _ = SHAPES[site]
+    plan = _plan_of(mode, k, n, m=m)
+    assert plan == GemvPlan(*M8_SHAPES[site][mode])
+    assert quant._route_function(plan, m) == "gemv_m8_kernel"
+    assert _gemv_fits(mode, n, k, _group(mode, k), plan, m)
+    covered = np.zeros(_rows(mode, k), dtype=np.int64)
+    for w0, w1 in _warp_ranges(mode, k, plan):
+        covered[w0:w1] += 1
+    assert (covered == 1).all()
+    smem = quant._gemv_m8_smem(mode, k, _group(mode, k), plan, m)
+    assert smem <= quant.GEMV_M8_SMEM_BYTES
+    # x's stage: m rows of the block's K rows as bf16, padded a row
+    xk = plan.rows_per_block * (1 if mode == INT8 else 2)
+    assert m * xk * 2 <= smem
+    assert -(-n // plan.slab) * plan.cluster >= 128
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("site", list(SHAPES))
+def test_m1_plans_unchanged_by_the_m8_rule(site, mode):
+    """M = 1 keeps gemv_m1_kernel's plans (test_plan_at_the_8b_shapes): the
+    M argument of the plan reaches only the M = 2..8 kernel."""
+    (k, n), plans = SHAPES[site]
+    assert _plan_of(mode, k, n) == GemvPlan(*plans[mode])
+    assert quant._gemv_shape(mode, n, k, _group(mode, k), quant.H100_SMS) == GemvPlan(
+        *plans[mode])
+    assert quant._route_function(_plan_of(mode, k, n), 1) == "gemv_m1_kernel"
+
+
+def test_m8_smem_opts_in_above_48kb():
+    """M = 8 at down_proj in int4 stages 72,832 bytes: above the 48 KB
+    default, within the limit the C side and the plan share; a cluster of 2
+    there would need more and is no plan."""
+    plan = _plan_of(INT4, 14336, 4096, m=8)
+    assert 48 << 10 < quant._gemv_m8_smem(INT4, 14336, 128, plan, 8) <= quant.GEMV_M8_SMEM_BYTES
+    assert _plan_of(INT4, 14336, 4096, m=8, cluster=2) is None
+    assert _plan_of(INT4, 14336, 4096, m=2, cluster=2) is not None
+
+
+# (case, mode, M, dtype, ldx, x offset in elements): what M = 2..8 routes where
+M8_ROUTES = [
+    ("bf16_m2", INT8, 2, BF16, None, 0, "gemv_m8_kernel"),
+    ("bf16_m3_int4", INT4, 3, BF16, None, 0, "gemv_m8_kernel"),
+    ("bf16_m8_sow", INT4_SOW, 8, BF16, None, 0, "gemv_m8_kernel"),
+    ("row_view", INT8, 4, BF16, 4096 + 64, 0, "gemv_m8_kernel"),
+    ("fp32", INT8, 4, torch.float32, None, 0, "gemv_kernel"),
+    ("fp32_int4", INT4, 4, torch.float32, None, 0, "gemv_kernel"),
+    ("unaligned_x", INT8, 4, BF16, None, 4, "gemv_kernel"),
+    ("unaligned_x_sow", INT4_SOW, 4, BF16, None, 2, "gemv_kernel"),
+    ("odd_stride", INT8, 4, BF16, 4100, 0, "gemv_kernel"),
+    ("odd_stride_int4", INT4, 5, BF16, 4097, 0, "gemv_kernel"),
+    ("m9", INT8, 9, BF16, None, 0, "gemm"),
+    ("m9_int4", INT4, 9, BF16, None, 0, "gemm"),
+]
+
+
+@pytest.mark.parametrize("case,mode,m,dtype,ldx,off,want", M8_ROUTES,
+                         ids=[c[0] for c in M8_ROUTES])
+def test_m8_routes(case, mode, m, dtype, ldx, off, want):
+    k, n = 4096, 1024
+    group = _group(mode, k)
+    x_ptr = off * (2 if dtype == BF16 else 4)
+    plan = _gemv_plan(mode, dtype, m, n, k, group, x_ptr, 0, ldx=ldx)
+    assert quant._route_function(plan, m) == want
+    assert (plan is None) == (want != "gemv_m8_kernel")
+
+
+# -- a model of gemv_m8_kernel, register by register, on the CPU
+
+def _bf16_pair(p):
+    """A uint32 array of bf16 pairs as (low, high) fp32 arrays, exactly."""
+    p = p.astype(np.uint32)
+    return (p << 16).view(np.float32), (p & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _pair_bits(lo, hi):
+    """bf16-exact fp32 arrays (low, high) as a uint32 array of bf16 pairs."""
+    lo = np.asarray(lo, np.float32).view(np.uint32)
+    hi = np.asarray(hi, np.float32).view(np.uint32)
+    assert not (lo & 0xFFFF).any() and not (hi & 0xFFFF).any()
+    return (lo >> 16) | (hi & np.uint32(0xFFFF0000))
+
+
+def _int8x2_to_bf16(p):
+    """int8x2_to_bf16: bytes 0 and 2 as a bf16 pair (HSUB2, exact)."""
+    alo, ahi = _bf16_pair((p & np.uint32(0x007F007F)) | np.uint32(0x43004300))
+    blo, bhi = _bf16_pair((p & np.uint32(0x00800080)) | np.uint32(0x43004300))
+    return _pair_bits(alo - blo, ahi - bhi)
+
+
+def _int4_pairs(w):
+    """int4_pairs: a word of 4 packed bytes as 4 bf16 pairs (q of row 2r,
+    q of row 2r + 1), columns 0..3."""
+    l = (w & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    h = ((w >> 4) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    z01, z23 = _byte_perm(l, h, 0x5140), _byte_perm(l, h, 0x7362)
+    c43 = np.full_like(w, 0x43)
+    out = []
+    for z, sel in ((z01, 0x4140), (z01, 0x4342), (z23, 0x4140), (z23, 0x4342)):
+        lo, hi = _bf16_pair(_byte_perm(z, c43, sel))
+        out.append(_pair_bits(lo - 136, hi - 136))
+    return out
+
+
+def _bf16_mul(p, s_pair):
+    """HMUL2 of bf16 pairs: each product rounded once to bf16."""
+    lo, hi = _bf16_pair(p)
+    slo, shi = _bf16_pair(s_pair)
+    r = [(torch.from_numpy(a).to(BF16) * torch.from_numpy(b).to(BF16)).float().numpy()
+         for a, b in ((lo, slo), (hi, shi))]
+    return _pair_bits(*r)
+
+
+def _m8_model(mode, x, q, s, plan):
+    """gemv_m8_kernel's arithmetic, lane by lane: each lane's loads (rows
+    by its t, bytes by its g), its A fragments as the kernel builds them
+    (byte permutes, the bf16 readings, mode 2's HMUL2), x's B fragments from
+    the stage, the m16n8k16 product laid out as PTX lays out its fragments
+    (products exact, each tile's sum rounded to fp32 once), mode 1's group
+    scaling, the stores of C by column and row of x, and the cluster's sums
+    in rank and warp order; bf16 out [M, N]."""
+    m_rows, k = x.shape
+    n = q.shape[1]
+    mt, w = quant._gemv_rows(m_rows), plan.slab // 8
+    rows = _rows(mode, k)
+    tile_loads, tile_rows = (4, 16) if mode == INT8 else (2, 8)
+    loads = quant.GEMV_M8_BATCH_BYTES // w
+    batch = loads // tile_loads * tile_rows
+    group = k if mode == INT8 else k // s.shape[0]
+    group_batches = rows if group == k else group // 2 // batch
+    qb = q.numpy().view(np.uint8)
+    xk = np.zeros((mt, plan.cluster * plan.rows_per_block * (1 if mode == INT8 else 2) + 16),
+                  np.float32)
+    xk[:m_rows, :k] = x.float().numpy()
+    sc = s.numpy().astype(np.float32)
+    sb = s.to(BF16).float().numpy()
+    g = np.arange(8)[:, None]
+    t = np.arange(4)[None, :]
+    out = np.zeros((m_rows, n), np.float32)
+    for slab0 in range(0, n, plan.slab):
+        col = slab0 + w * g                                    # [8, 1]
+        parts = []                                             # [MT, slab] of each (rank, warp)
+        for rank in range(plan.cluster):
+            b0 = rank * plan.rows_per_block
+            for warp in range(plan.warps):
+                w0 = b0 + warp * plan.rows_per_warp
+                w1 = min(w0 + plan.rows_per_warp, rows)
+                acc = np.zeros((w // 2, 16, 8), np.float32)    # C of each column pair
+                part = np.zeros_like(acc)
+                gb = 0
+                for rb in range(w0, w1, batch):
+                    grp = 2 * rb // group if mode != INT8 else 0
+                    for i in range(loads // tile_loads):
+                        base = rb + i * tile_rows
+                        regs = []
+                        for j in range(tile_loads):
+                            r = base + (2 * t + (j & 1) + 8 * (j >> 1) if mode == INT8
+                                        else t + 4 * j)  # [1, 4]
+                            cols = col[:, :, None] + np.arange(w)[None, None, :]
+                            ok = (r < w1)[:, :, None] & (cols < n)
+                            byts = np.where(ok, qb[np.minimum(r, rows - 1)[:, :, None],
+                                                   np.minimum(cols, n - 1)], 0)
+                            byts = np.broadcast_to(byts, (8, 4, w)).astype(np.uint32)
+                            regs.append(byts[..., 0::4] | byts[..., 1::4] << 8
+                                        | byts[..., 2::4] << 16 | byts[..., 3::4] << 24)
+                        tau = (base - b0) // tile_rows
+                        kk = 2 * b0 // (2 if mode == INT8 else 1) + 16 * tau
+                        kk = b0 * (1 if mode == INT8 else 2) + 16 * tau
+                        bmat = np.zeros((16, 8), np.float32)           # B: [k][n]
+                        bmat[:, :mt] = xk[:mt, kk:kk + 16].T
+                        for qw in range(w // 4):
+                            if mode == INT8:
+                                l0, l1, l2, l3 = (r_[..., qw] for r_ in regs)
+                            else:
+                                p0 = _int4_pairs(regs[0][..., qw])
+                                p1 = _int4_pairs(regs[1][..., qw])
+                                if mode == INT4_SOW:
+                                    for c in range(4):
+                                        sv = sb[grp, np.minimum(col + 4 * qw + c, n - 1)]
+                                        sp = _pair_bits(sv, sv)
+                                        p0[c] = _bf16_mul(p0[c], np.broadcast_to(sp, (8, 4)))
+                                        p1[c] = _bf16_mul(p1[c], np.broadcast_to(sp, (8, 4)))
+                            for h in range(2):
+                                if mode == INT8:
+                                    sel0 = 2 * h | (4 + 2 * h) << 8
+                                    sel1 = (2 * h + 1) | (5 + 2 * h) << 8
+                                    a = [_int8x2_to_bf16(_byte_perm(l0, l1, sel0)),
+                                         _int8x2_to_bf16(_byte_perm(l0, l1, sel1)),
+                                         _int8x2_to_bf16(_byte_perm(l2, l3, sel0)),
+                                         _int8x2_to_bf16(_byte_perm(l2, l3, sel1))]
+                                else:
+                                    a = [p0[2 * h], p0[2 * h + 1], p1[2 * h], p1[2 * h + 1]]
+                                # PTX m16n8k16 A: a0 (g, 2t..), a1 (g + 8, 2t..),
+                                # a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..)
+                                amat = np.zeros((16, 16), np.float32)
+                                for reg, (dr, dk) in zip(a, ((0, 0), (8, 0), (0, 8), (8, 8))):
+                                    lo, hi = _bf16_pair(reg)
+                                    for gg in range(8):
+                                        for tt in range(4):
+                                            amat[gg + dr, 2 * tt + dk] = lo[gg, tt]
+                                            amat[gg + dr, 2 * tt + dk + 1] = hi[gg, tt]
+                                prod = (amat.astype(np.float64) @ bmat.astype(np.float64))
+                                tgt = part if mode == INT4 else acc
+                                tgt[2 * qw + h] = (tgt[2 * qw + h] + prod.astype(np.float32)
+                                                   ).astype(np.float32)
+                    if mode == INT4:
+                        gb += 1
+                        if gb == group_batches or rb + batch >= w1:
+                            for p in range(w // 2):
+                                cc = np.minimum(col[:, 0] + 2 * p, n - 1)
+                                srow = np.concatenate([sc[grp, cc], sc[grp, np.minimum(cc + 1,
+                                                                                   n - 1)]])
+                                acc[p] = (acc[p] + part[p] * srow[:, None]).astype(np.float32)
+                            part[:] = 0
+                            gb = 0
+                # C of pair p: row g -> column W g + 2p, row g + 8 -> W g + 2p + 1
+                mine = np.zeros((mt, plan.slab), np.float32)
+                for p in range(w // 2):
+                    for gg in range(8):
+                        mine[:, w * gg + 2 * p] = acc[p, gg, :mt]
+                        mine[:, w * gg + 2 * p + 1] = acc[p, gg + 8, :mt]
+                parts.append(mine)
+        total = np.zeros((mt, plan.slab), np.float32)
+        for part_ in parts:
+            total = (total + part_).astype(np.float32)
+        cols = slice(slab0, min(slab0 + plan.slab, n))
+        live = total[:m_rows, :cols.stop - slab0]
+        if mode == INT8:
+            live = (live * sc[cols]).astype(np.float32)
+        out[:, cols] = live
+        assert not total[m_rows:].any()            # the zero-padded rows of MT
+    return torch.from_numpy(out).to(BF16)
+
+
+def _plain(mode, x, q, s):
+    if mode == INT8:
+        return quant.int8_matmul_reference(x.float(), q, s)
+    return quant.int4_matmul_reference(x.float(), q, s, scale_on_weights=mode == INT4_SOW)
+
+
+# (mode, M, K, N, group, forced plan settings): W = 16 and 8, MT = 2, 4, 8
+# with zero-padded rows (M = 3, 5), mode 1 with two groups a warp, a group a
+# warp and one group over K
+MODEL_CASES = [
+    (INT8, 2, 512, 128, 1, dict(cluster=2, warps=2)),
+    (INT8, 3, 520, 64, 1, dict(cluster=2, warps=2)),
+    (INT8, 8, 256, 128, 1, dict(slab=64, cluster=2)),
+    (INT4, 4, 1024, 128, 128, dict(cluster=2, warps=2)),
+    (INT4, 5, 1024, 64, 128, dict(cluster=2, warps=1)),
+    (INT4, 4, 512, 128, 512, dict(cluster=2, warps=2)),
+    (INT4_SOW, 4, 512, 128, 128, dict(cluster=2, warps=2)),
+    (INT4_SOW, 8, 512, 64, 256, dict(cluster=2)),
+]
+
+
+@pytest.mark.parametrize("mode,m,k,n,group,force", MODEL_CASES, ids=lambda v: str(v))
+def test_m8_model_matches_plain(mode, m, k, n, group, force):
+    """The model of the kernel's split and order of sums within the bf16
+    tolerance of the plain version (2^-7 x max(1, |ref|max)), and exact
+    where nothing rounds: integer x, unit scales."""
+    x, q, s = _operands("cpu", mode, k, n, seed=k + n + m, m=m, group=group)
+    g = 1 if mode == INT8 else k // s.shape[0]
+    plan = _gemv_plan(mode, BF16, m, n, k, g, 0, 0, **force)
+    assert plan is not None and plan.slab == force.get("slab", plan.slab)
+    want = _plain(mode, x, q, s)
+    got = _m8_model(mode, x, q, s, plan)
+    tol = 2 ** -7 * max(1.0, float(want.abs().max()))
+    assert float((got.float() - want).abs().max()) <= tol
+    xi = torch.from_numpy(np.random.default_rng(1).integers(-3, 4, (m, k))).to(BF16)
+    ones = torch.ones_like(s)
+    exact = _m8_model(mode, xi, q, ones, plan)
+    assert torch.equal(exact.float(), _plain(mode, xi, q, ones).to(BF16).float())
+
+
+def test_c_entries_match_the_source():
+    """The ctypes argument types of every C entry match its parameters in
+    csrc/quant_matmul.cu (int, int64_t, pointers): a missing or extra
+    argument would be read as garbage on the card."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(quant.__file__).resolve().parents[1] / "csrc" / "quant_matmul.cu").read_text()
+    kinds = {"int": ctypes.c_int, "int64_t": ctypes.c_int64}
+    for name, argtypes in quant.C_ENTRIES.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]] for p in params]
+        assert argtypes == want, name
+
+
+def test_int8_pairs_bit_for_bit():
+    """gemv_m8_kernel<0>'s A fragments: for every pair of int8 values in a
+    column of two rows, the byte permute and int8x2_to_bf16 give the pair
+    (row 2t, row 2t + 1) exactly, for each byte of the word."""
+    v = np.arange(256, dtype=np.uint32)
+    r0, r1 = np.meshgrid(v, v, indexing="ij")
+    r0, r1 = r0.ravel(), r1.ravel()
+    for c in range(4):
+        w0 = r0 << (8 * c) | ((r0 + 1) % 256) << (8 * ((c + 1) % 4))
+        w1 = r1 << (8 * c) | ((r1 + 7) % 256) << (8 * ((c + 1) % 4))
+        lo, hi = _bf16_pair(_int8x2_to_bf16(_byte_perm(w0, w1, c | (4 + c) << 8)))
+        assert np.array_equal(lo, r0.astype(np.uint8).view(np.int8).astype(np.float32))
+        assert np.array_equal(hi, r1.astype(np.uint8).view(np.int8).astype(np.float32))
+
+
 # -- the kernel, on the card -------------------------------------------------------
 
 @pytest.fixture
@@ -334,13 +675,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _operands(device, mode, k, n, seed=0):
-    """bf16 x [1, k] and quantized weights of a [k, n] matrix, made with numpy
-    from a seed."""
+def _operands(device, mode, k, n, seed=0, m=1, integer=False, group=quant.INT4_GROUP):
+    """bf16 x [m, k] and quantized weights of a [k, n] matrix (int4 in
+    ``group``s), made with numpy from a seed; ``integer``: x of small
+    integers and unit scales."""
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
-    x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32)).to(device, BF16)
-    q, s = quant.quantize_int8(w) if mode == INT8 else quant.quantize_int4(w)
+    xs = rng.integers(-3, 4, (m, k)) if integer else rng.standard_normal((m, k))
+    x = torch.from_numpy(xs.astype(np.float32)).to(device, BF16)
+    q, s = quant.quantize_int8(w) if mode == INT8 else quant.quantize_int4(w, group)
+    if integer:
+        s = torch.ones_like(s)
     return x, q.to(device), s.to(device)
 
 
@@ -525,3 +870,129 @@ def test_refused_launch_shape_raises_on_card(cuda_device, mode):
             _fn(mode)(x, q, s, _route=plan)
     assert _fn(mode).launches == before + len(bad)    # counted, never run
     _held(_fn(mode)(x, q, s, _route=good), x, q, s, mode)
+
+
+# -- gemv_m8_kernel, on the card ---------------------------------------------------
+
+def _routed(mode, call):
+    """``call()``'s output and the kernel functions its wrapper counted."""
+    fn = _fn(mode)
+    before = dict(fn.function_launches)
+    out = call()
+    torch.cuda.synchronize()
+    return out, {f: c - before.get(f, 0) for f, c in fn.function_launches.items()
+                 if c != before.get(f, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("site", list(SHAPES))
+def test_m8_8b_shapes_match_plain_on_card(cuda_device, site, mode, m):
+    (k, n), _ = SHAPES[site]
+    x, q, s = _operands(cuda_device, mode, k, n, m=m, seed=k + n + m)
+    out, routes = _routed(mode, lambda: _fn(mode)(x, q, s))
+    assert routes == {"gemv_m8_kernel": 1}
+    _held(out, x, q, s, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4, 8])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_m8_exact_where_nothing_rounds_on_card(cuda_device, mode, m):
+    """Integer x and unit scales: every product and partial sum is an
+    integer below 2^24 (int8 at down_proj: |sum| <= 3 x 127 x 14336), exact
+    in fp32 in any order, so the kernel's bf16 output equals the plain
+    version's bit for bit."""
+    for k, n in ((14336, 4096), (4096, 1024)):
+        x, q, s = _operands(cuda_device, mode, k, n, m=m, seed=m, integer=True)
+        out, routes = _routed(mode, lambda: _fn(mode)(x, q, s))
+        assert routes == {"gemv_m8_kernel": 1}
+        want = (quant.int8_matmul_reference(x.float(), q, s) if mode == INT8 else
+                quant.int4_matmul_reference(x.float(), q, s, scale_on_weights=mode == INT4_SOW))
+        assert torch.equal(out, want.to(BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_m8_two_calls_bitwise_identical_on_card(cuda_device, mode):
+    x, q, s = _operands(cuda_device, mode, 14336, 4096, m=4)
+    a = _fn(mode)(x, q, s)
+    b = _fn(mode)(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_m8_row_view_of_a_wider_tensor_on_card(cuda_device, mode):
+    """x as rows of a wider buffer (a row stride of K + 64 elements) runs
+    gemv_m8_kernel and equals the contiguous call; a stride of K + 4
+    (rows off the 16-byte alignment) runs gemv_kernel."""
+    k, n, m = 4096, 1024, 4
+    x, q, s = _operands(cuda_device, mode, k, n, m=m)
+    for pad, want in ((64, "gemv_m8_kernel"), (4, "gemv_kernel")):
+        wide = torch.zeros((m, k + pad), dtype=BF16, device=cuda_device)
+        wide[:, :k] = x
+        xv = wide[:, :k]
+        assert xv.stride(0) == k + pad
+        out, routes = _routed(mode, lambda: _fn(mode)(xv, q, s))
+        assert routes == {want: 1}
+        _held(out, xv, q, s, mode)
+        if want == "gemv_m8_kernel":
+            assert torch.equal(out, _fn(mode)(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_m8_refused_launch_shape_raises_on_card(cuda_device, mode):
+    x, q, s = _operands(cuda_device, mode, 4096, 1024, m=4)
+    good = _plan_of(mode, 4096, 1024, m=4)
+    bad = [good._replace(cluster=3), good._replace(slab=32),
+           good._replace(warps=9, rows_per_block=9 * good.rows_per_warp),
+           good._replace(rows_per_block=good.rows_per_block + 1),
+           good._replace(cluster=2),                                   # rows left over
+           good._replace(cluster=2, warps=8, rows_per_warp=4096, rows_per_block=8 * 4096)]
+    before = _fn(mode).launches
+    for plan in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _fn(mode)(x, q, s, _route=plan)
+    assert _fn(mode).launches == before + len(bad)    # counted, never run
+    out, routes = _routed(mode, lambda: _fn(mode)(x, q, s, _route=good))
+    assert routes == {"gemv_m8_kernel": 1}
+    _held(out, x, q, s, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_m8_forced_plans_match_plain_on_card(cuda_device, mode):
+    """Both slabs (lanes of 16 and of 8 bytes) in every cluster size, and
+    the first port's kernel forced, at q_proj and M = 4."""
+    k, n, m = 4096, 4096, 4
+    x, q, s = _operands(cuda_device, mode, k, n, m=m)
+    for slab in (64, 128):
+        for cluster in GEMV_CLUSTERS:
+            plan = _plan_of(mode, k, n, m=m, slab=slab, cluster=cluster)
+            assert plan is not None, (slab, cluster)
+            out, routes = _routed(mode, lambda: _fn(mode)(x, q, s, _route=plan))
+            assert routes == {"gemv_m8_kernel": 1}
+            _held(out, x, q, s, mode)
+    out, routes = _routed(mode, lambda: _fn(mode)(x, q, s, _route="gemv_kernel"))
+    assert routes == {"gemv_kernel": 1}
+    _held(out, x, q, s, mode)
+
+
+@pytest.mark.cuda
+def test_m4_runs_gemv_m8_kernel_alone_on_card(cuda_device):
+    """By kernel name: the 8B shapes at M = 4 run gemv_m8_kernel<mode,4,W>
+    (W from the plan's slab) and no gemv_kernel."""
+    calls = []
+    for site, ((k, n), _) in SHAPES.items():
+        for mode in MODES:
+            x, q, s = _operands(cuda_device, mode, k, n, m=4)
+            calls.append(lambda x=x, q=q, s=s, mode=mode: _fn(mode)(x, q, s))
+    names = _kernels_run(calls)
+    for mode in MODES:
+        assert any(f"gemv_m8_kernel<{mode}, 4," in n or f"gemv_m8_kernel<{mode},4," in n
+                   for n in names), names
+    assert not any("gemv_kernel<" in n for n in names), names
