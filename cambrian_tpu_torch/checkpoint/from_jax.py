@@ -10,7 +10,15 @@ so the mapping is mechanical, leaf by leaf:
 - a quantized Dense (one that holds ``kernel_q`` or ``kernel_q4``) keeps
   its leaves as they are: names (its ``scale`` stays ``scale``), shapes and
   the int8 dtype of the packed weights;
-- every other leaf keeps its name and shape.
+- every other leaf keeps its name and shape (BEiT's ``rel_pos_table``,
+  SAM's ``rel_pos_h`` / ``rel_pos_w``, SD-2.1's ``empty_prompt_embeds``);
+- a list of trees (the hybrid tower's, one a sub-tower) numbers its items:
+  ``[a, b]`` under ``module.`` gives ``module.0.*`` and ``module.1.*``.
+
+GroupNorm (SD-2.1's, under its ``gn`` child) and LayerNorm take the ``scale``
+rule; SAM's ``ChannelLayerNorm`` already names its leaves ``weight`` and
+``bias``. The VAE's, the UNet's and SAM's neck convolutions take the HWIO
+rule.
 
 Float leaves become fp32 and integer leaves keep their dtype.
 
@@ -25,21 +33,23 @@ import torch
 from torch import nn
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
     out = {}
-    for k, v in tree.items():
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list)):
             out.update(_flatten(v, name + "."))
         else:
             out[name] = v
     return out
 
 
-def state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Flax parameter tree (numpy or jax arrays; an outer ``{"params": ...}``
-    is unwrapped) -> flat {port name: CPU tensor}, fp32 for float leaves."""
-    if set(params) == {"params"}:
+    is unwrapped; a list of trees numbers its items) -> flat {port name: CPU
+    tensor}, fp32 for float leaves."""
+    if isinstance(params, Mapping) and set(params) == {"params"}:
         params = params["params"]
     flat = _flatten(params)
     sd = {}
@@ -90,7 +100,7 @@ def load_state_dict_checked(module: nn.Module, sd: Mapping[str, torch.Tensor],
     module.load_state_dict(cast, strict=True, assign=assign)
 
 
-def load_jax_params(module: nn.Module, params: Mapping, prefix: str = "") -> nn.Module:
+def load_jax_params(module: nn.Module, params, prefix: str = "") -> nn.Module:
     """Copy a flax parameter tree into ``module`` in place; returns it."""
     load_state_dict_checked(module, state_dict_from_jax(params, prefix))
     return module

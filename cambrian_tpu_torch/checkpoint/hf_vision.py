@@ -13,8 +13,10 @@ port's ``state_dict``. Covered checkpoints (the production 4-tower ensemble):
   resampled for a ``-res`` override
 - ConvNeXt trunks in HF (ConvNextModel) or timm/open_clip naming
 
-The DPT/MiDaS, EVA-02 and Stable Diffusion converters of the JAX module come
-with their towers.
+and the encoder-study towers: the MiDaS DPT backbones (Intel/dpt-large,
+Intel/dpt-beit-large-512), the EVA-02-CLIP trunk (timm or BAAI naming) and
+the SD-2.1 UNet + VAE encoder (diffusers naming). SAM's converter lives with
+its tower (``models/encoders/sam.py``).
 """
 
 from typing import Dict, Optional
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..models.encoders.convnext import ConvNeXtConfig
 from ..models.encoders.vit import ViTConfig
+from ..ops.resize import scale_and_translate_matrix
 
 
 def _conv_kernel(w: np.ndarray) -> np.ndarray:
@@ -52,23 +55,10 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 
 def bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     """[out, in] fp32 matrix of the antialiased bicubic resize along one axis,
-    computed step by step as ``jax.image.resize(..., "bicubic",
-    antialias=True)`` computes it (``scale_and_translate``): half-pixel
-    sample centres; on a downsample the kernel is widened by in/out; each
-    output's weights are divided by their sum, with no clamping at the edges.
+    ``jax.image.resize(..., "bicubic", antialias=True)``'s weights.
     ``F.interpolate(mode="bicubic")`` differs (a = -0.75, no antialiasing,
     clamped edge taps)."""
-    f32 = np.float32
-    inv_scale = 1.0 / (out_size / in_size)            # a Python float, as in JAX
-    kernel_scale = f32(max(inv_scale, 1.0))
-    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
-    dist = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    w = _keys_cubic(dist)                                          # [in, out]
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+    return scale_and_translate_matrix(in_size, out_size, _keys_cubic)
 
 
 def interpolate_patch_pos_embed(pos: np.ndarray, old_side: int, new_side: int) -> np.ndarray:
@@ -240,6 +230,249 @@ def convert_dinov2(sd: Dict[str, np.ndarray], cfg: ViTConfig,
     if cfg.num_blocks_to_run == cfg.num_layers and cfg.final_layernorm:
         params["final_layernorm"] = _ln(sd, "layernorm")
     return params
+
+
+def convert_dpt_vit(sd: Dict[str, np.ndarray], cfg: ViTConfig) -> dict:
+    """MiDaS DPT backbones -> VisionTransformer params
+    (reference midas_encoder.py:69-83 loads DPTForDepthEstimation and taps
+    hidden_states[-1]; the depth head/neck is ignored).
+
+    Accepts Intel/dpt-large naming (``dpt.encoder.layer...``, plain ViT) and
+    Intel/dpt-beit-large-512 / BeitModel naming (``backbone.``/``beit.``/bare
+    prefix, BEiT layout with per-layer relative position bias, lambda
+    LayerScale, fused key without bias)."""
+    for prefix in ("dpt.", "backbone.", "beit.", ""):
+        if any(k.startswith(prefix + "encoder.layer.") for k in sd):
+            break
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    beit = any(".lambda_1" in k for k in sd)
+
+    params = {
+        "patch_embed": {
+            "kernel": _conv_kernel(sd["embeddings.patch_embeddings.projection.weight"]),
+            "bias": sd["embeddings.patch_embeddings.projection.bias"],
+        },
+        "cls_token": sd["embeddings.cls_token"],
+    }
+    if cfg.abs_pos_embed:
+        pos = sd["embeddings.position_embeddings"]
+        if pos.ndim == 3:
+            pos = pos[0]
+        cls_pos, patch_pos = pos[:1], pos[1:]
+        old_side = int(patch_pos.shape[0] ** 0.5)
+        if old_side != cfg.grid_side:
+            patch_pos = interpolate_patch_pos_embed(patch_pos, old_side,
+                                                    cfg.grid_side)
+        params["pos_embed"] = np.concatenate([cls_pos, patch_pos], axis=0)
+    for i in range(cfg.num_blocks_to_run):
+        lp = f"encoder.layer.{i}."
+        attn = {
+            "q_proj": _dense(sd, lp + "attention.attention.query"),
+            "k_proj": _dense(sd, lp + "attention.attention.key"),
+            "v_proj": _dense(sd, lp + "attention.attention.value"),
+            "out_proj": _dense(sd, lp + "attention.output.dense"),
+        }
+        if beit:
+            attn["rel_pos_table"] = sd[
+                lp + "attention.attention.relative_position_bias."
+                     "relative_position_bias_table"]
+        block = {
+            "norm1": _ln(sd, lp + "layernorm_before"),
+            "attn": attn,
+            "norm2": _ln(sd, lp + "layernorm_after"),
+            "mlp": {"fc1": _dense(sd, lp + "intermediate.dense"),
+                    "fc2": _dense(sd, lp + "output.dense")},
+        }
+        if beit:
+            block["ls1_gamma"] = sd[lp + "lambda_1"]
+            block["ls2_gamma"] = sd[lp + "lambda_2"]
+        params[f"blocks_{i}"] = block
+    if cfg.num_blocks_to_run == cfg.num_layers and cfg.final_layernorm:
+        params["final_layernorm"] = _ln(sd, "layernorm")
+    return params
+
+
+def convert_eva02(sd: Dict[str, np.ndarray], cfg: ViTConfig) -> dict:
+    """EVA-02-CLIP trunk -> VisionTransformer params.
+
+    The reference loads timm/eva02_large_patch14_clip_* through open_clip
+    (eva_clip_encoder.py:24-38) and taps trunk.forward_features. Accepts
+    timm Eva naming (``visual.trunk.blocks.N.attn.{q,k,v}_proj``, SwiGLU as
+    ``mlp.fc1_g/fc1_x/mlp.norm/fc2``) and BAAI EVA-02 naming
+    (``visual.blocks.N.mlp.w1/w2/ffn_ln/w3``). Rope tables are computed, not
+    stored, so they need no conversion."""
+    for prefix in ("visual.trunk.", "trunk.", "visual.", ""):
+        if any(k.startswith(prefix + "blocks.") for k in sd):
+            break
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    pos = sd["pos_embed"]
+    if pos.ndim == 3:
+        pos = pos[0]
+    cls_pos, patch_pos = pos[:1], pos[1:]
+    old_side = int(patch_pos.shape[0] ** 0.5)
+    if old_side != cfg.grid_side:
+        patch_pos = interpolate_patch_pos_embed(patch_pos, old_side,
+                                                cfg.grid_side)
+    params = {
+        "patch_embed": {
+            "kernel": _conv_kernel(sd["patch_embed.proj.weight"]),
+            "bias": sd["patch_embed.proj.bias"],
+        },
+        "cls_token": sd["cls_token"].reshape(1, 1, -1),
+        "pos_embed": np.concatenate([cls_pos, patch_pos], axis=0),
+    }
+    for i in range(cfg.num_blocks_to_run):
+        lp = f"blocks.{i}."
+        if lp + "mlp.w1.weight" in sd:   # BAAI naming
+            mlp = {"w1": _dense(sd, lp + "mlp.w1"),
+                   "w2": _dense(sd, lp + "mlp.w2"),
+                   "ffn_ln": _ln(sd, lp + "mlp.ffn_ln"),
+                   "w3": _dense(sd, lp + "mlp.w3")}
+        else:                            # timm naming
+            mlp = {"w1": _dense(sd, lp + "mlp.fc1_g"),
+                   "w2": _dense(sd, lp + "mlp.fc1_x"),
+                   "ffn_ln": _ln(sd, lp + "mlp.norm"),
+                   "w3": _dense(sd, lp + "mlp.fc2")}
+        params[f"blocks_{i}"] = {
+            "norm1": _ln(sd, lp + "norm1"),
+            "attn": {
+                "q_proj": _dense(sd, lp + "attn.q_proj"),
+                "k_proj": {"kernel": sd[lp + "attn.k_proj.weight"].T},
+                "v_proj": _dense(sd, lp + "attn.v_proj"),
+                "out_proj": _dense(sd, lp + "attn.proj"),
+            },
+            "norm2": _ln(sd, lp + "norm2"),
+            "mlp": mlp,
+        }
+    if cfg.num_blocks_to_run == cfg.num_layers and cfg.final_layernorm:
+        params["final_layernorm"] = _ln(sd, "norm")
+    return params
+
+
+def _gn(sd, prefix):
+    return {"gn": {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}}
+
+
+def _conv(sd, prefix):
+    out = {"kernel": _conv_kernel(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = sd[f"{prefix}.bias"]
+    return out
+
+
+def _sd_resnet(sd, prefix, has_temb=True):
+    block = {
+        "norm1": _gn(sd, prefix + ".norm1"),
+        "conv1": _conv(sd, prefix + ".conv1"),
+        "norm2": _gn(sd, prefix + ".norm2"),
+        "conv2": _conv(sd, prefix + ".conv2"),
+    }
+    if has_temb and prefix + ".time_emb_proj.weight" in sd:
+        block["time_emb_proj"] = _dense(sd, prefix + ".time_emb_proj")
+    if prefix + ".conv_shortcut.weight" in sd:
+        block["conv_shortcut"] = _conv(sd, prefix + ".conv_shortcut")
+    return block
+
+
+def _sd_transformer(sd, prefix):
+    tp = prefix + ".transformer_blocks.0."
+    block = {
+        "norm1": _ln(sd, tp + "norm1"),
+        "norm2": _ln(sd, tp + "norm2"),
+        "norm3": _ln(sd, tp + "norm3"),
+        "ff_geglu": _dense(sd, tp + "ff.net.0.proj"),
+        "ff_out": _dense(sd, tp + "ff.net.2"),
+    }
+    for a in ("attn1", "attn2"):
+        for proj in ("to_q", "to_k", "to_v"):
+            block[f"{a}_{proj}"] = _dense(sd, f"{tp}{a}.{proj}")
+        block[f"{a}_to_out"] = _dense(sd, f"{tp}{a}.to_out.0")
+    return {
+        "norm": _gn(sd, prefix + ".norm"),
+        "proj_in": _dense(sd, prefix + ".proj_in"),
+        "block_0": block,
+        "proj_out": _dense(sd, prefix + ".proj_out"),
+    }
+
+
+def convert_sd_tower(sd: Dict[str, np.ndarray], cfg) -> dict:
+    """stabilityai/stable-diffusion-2-1 (diffusers naming: ``unet.*`` +
+    ``vae.*``, or bare per-component dicts) -> SDFeatureTower params
+    (reference diffusion_encoder.py:166-216 loads the UNet + VAE + DDIM
+    scheduler; the VAE decoder, text encoder and safety checker are unused).
+
+    ``empty_prompt_embeds`` ([77, cross_attention_dim], the cached empty-
+    string encoding, diffusion_encoder.py:237-243) may be supplied as a key
+    of the same name; it defaults to zeros otherwise.
+    """
+    n_blocks = len(cfg.block_out_channels)
+
+    vae = {k[len("vae.encoder."):]: v for k, v in sd.items()
+           if k.startswith("vae.encoder.")}
+    if not vae:
+        vae = {k[len("encoder."):]: v for k, v in sd.items()
+               if k.startswith("encoder.")}
+    quant_key = "vae.quant_conv" if "vae.quant_conv.weight" in sd else "quant_conv"
+    vp = {
+        "conv_in": _conv(vae, "conv_in"),
+        "conv_norm_out": _gn(vae, "conv_norm_out"),
+        "conv_out": _conv(vae, "conv_out"),
+        "quant_conv": _conv(sd, quant_key),
+        "mid_resnet_0": _sd_resnet(vae, "mid_block.resnets.0", False),
+        "mid_resnet_1": _sd_resnet(vae, "mid_block.resnets.1", False),
+        "mid_attn": {
+            "group_norm": _gn(vae, "mid_block.attentions.0.group_norm"),
+            "to_q": _dense(vae, "mid_block.attentions.0.to_q"),
+            "to_k": _dense(vae, "mid_block.attentions.0.to_k"),
+            "to_v": _dense(vae, "mid_block.attentions.0.to_v"),
+            "to_out": _dense(vae, "mid_block.attentions.0.to_out.0"),
+        },
+    }
+    for i in range(len(cfg.vae_channels)):
+        for j in range(cfg.vae_layers_per_block):
+            vp[f"down_{i}_resnet_{j}"] = _sd_resnet(
+                vae, f"down_blocks.{i}.resnets.{j}", False)
+        if i != len(cfg.vae_channels) - 1:
+            vp[f"down_{i}_downsample"] = _conv(
+                vae, f"down_blocks.{i}.downsamplers.0.conv")
+
+    unet = {k[len("unet."):]: v for k, v in sd.items() if k.startswith("unet.")}
+    if not unet:
+        unet = sd
+    up = {
+        "conv_in": _conv(unet, "conv_in"),
+        "time_linear_1": _dense(unet, "time_embedding.linear_1"),
+        "time_linear_2": _dense(unet, "time_embedding.linear_2"),
+        "mid_resnet_0": _sd_resnet(unet, "mid_block.resnets.0"),
+        "mid_resnet_1": _sd_resnet(unet, "mid_block.resnets.1"),
+        "mid_attn": _sd_transformer(unet, "mid_block.attentions.0"),
+    }
+    for i in range(n_blocks):
+        for j in range(cfg.layers_per_block):
+            up[f"down_{i}_resnet_{j}"] = _sd_resnet(
+                unet, f"down_blocks.{i}.resnets.{j}")
+            if i < n_blocks - 1:
+                up[f"down_{i}_attn_{j}"] = _sd_transformer(
+                    unet, f"down_blocks.{i}.attentions.{j}")
+        if i != n_blocks - 1:
+            up[f"down_{i}_downsample"] = _conv(
+                unet, f"down_blocks.{i}.downsamplers.0.conv")
+    for i in range(n_blocks):
+        for j in range(cfg.layers_per_block + 1):
+            up[f"up_{i}_resnet_{j}"] = _sd_resnet(
+                unet, f"up_blocks.{i}.resnets.{j}")
+            if i > 0:
+                up[f"up_{i}_attn_{j}"] = _sd_transformer(
+                    unet, f"up_blocks.{i}.attentions.{j}")
+        if i != n_blocks - 1:
+            up[f"up_{i}_upsample"] = _conv(
+                unet, f"up_blocks.{i}.upsamplers.0.conv")
+
+    empty = sd.get("empty_prompt_embeds")
+    if empty is None:
+        empty = np.zeros((77, cfg.cross_attention_dim), np.float32)
+    return {"vae": vp, "unet": up, "empty_prompt_embeds": empty}
 
 
 def convert_convnext(sd: Dict[str, np.ndarray], cfg: ConvNeXtConfig) -> dict:

@@ -104,7 +104,8 @@ def _tower_snapshot_dir(tower: VisionTower) -> Optional[str]:
 
 def convert_tower(tower: VisionTower, sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A tower snapshot's state dict -> the tower's (``module.*``, CPU
-    tensors, fp32 floats), by the JAX package's dispatch on the tower name:
+    tensors, fp32 floats), by the JAX package's dispatch on the tower name,
+    in its order (ConvNeXt, SigLIP, DINOv2, MiDaS, EVA, SD-2.1, else CLIP):
     SigLIP in timm/open_clip naming when its keys hold ``.attn.qkv.``."""
     name = tower.name.lower()
     if "convnext" in name:
@@ -115,6 +116,12 @@ def convert_tower(tower: VisionTower, sd: Dict[str, np.ndarray]) -> Dict[str, to
         tree = conv(sd, tower.config)
     elif "dinov2" in name:
         tree = hf_vision.convert_dinov2(sd, tower.config)
+    elif "midas" in name:
+        tree = hf_vision.convert_dpt_vit(sd, tower.config)
+    elif "eva" in name:
+        tree = hf_vision.convert_eva02(sd, tower.config)
+    elif "diffusion" in name or "pixart" in name:
+        tree = hf_vision.convert_sd_tower(sd, tower.config)
     else:
         tree = hf_vision.convert_clip_vision(sd, tower.config)
     return state_dict_from_jax(tree, prefix="module.")

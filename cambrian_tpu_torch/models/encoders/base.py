@@ -2,7 +2,10 @@
 
 Tower names encode configuration as ``<model>-res{R}-interp{T}``; builders
 dispatch on substring match; every ViT tower resamples its token grid to the
-requested count with the fp32 bilinear resize.
+requested count with the fp32 bilinear resize. The production towers
+register here; the encoder-study towers in ``extra.py`` and ``sam.py``,
+which the package's ``__init__`` imports, so that any import of this module
+registers them all.
 
 Unlike the JAX package, where a tower bundles a stateless flax module and
 its parameters live apart, a tower here is an ``nn.Module`` that owns its
@@ -68,11 +71,20 @@ class VisionTower(nn.Module):
         self.image_processor = image_processor
         self.hf_repo = hf_repo
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        feats = self.module(pixels)
+    def forward(self, pixels: torch.Tensor, **kwargs) -> torch.Tensor:
+        """``kwargs`` go to the module (the SD-2.1 tower's ``noise``)."""
+        feats = self.module(pixels, **kwargs)
         if self.interp_size is not None and feats.shape[1] != self.interp_size:
             feats = interpolate_tokens(feats, self.interp_size)
         return feats
+
+    @property
+    def num_patches(self) -> int:
+        if self.interp_size is not None:
+            return self.interp_size
+        if hasattr(self.config, "num_patches"):
+            return self.config.num_patches
+        return (self.image_size // self.config.reduction) ** 2
 
 
 TowerBuilder = Callable[..., VisionTower]

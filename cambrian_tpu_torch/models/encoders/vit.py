@@ -1,16 +1,24 @@
-"""Vision Transformer for the production ViT towers
+"""Vision Transformer for the ViT towers
 (cambrian_tpu/models/encoders/vit.py): CLIP-ViT-L/14-336 (class token,
 pre-LayerNorm, quick_gelu, tapped at layer -2), SigLIP-SO400M/384 (no class
-token, tanh GELU, final LayerNorm) and DINOv2-giant (class token, registers
-optional, SwiGLU FFN, LayerScale).
+token, tanh GELU, final LayerNorm), DINOv2-giant (class token, registers
+optional, SwiGLU FFN, LayerScale), and the encoder-study variants of
+``extra.py``: EVA-02 (2-D axial rotary embedding on the patch tokens, sub-LN
+SwiGLU FFN, key without bias) and BEiT (a learned relative-position bias in
+every block, no absolute position embedding).
 
 Module and parameter names mirror the flax tree (``blocks_3.attn.q_proj``),
 so ``checkpoint/from_jax.py`` maps the JAX parameters mechanically. Every
-block's attention goes through the flash-attention kernel on the card.
+block's attention goes through the flash-attention kernel on the card,
+rotary q and k included, except BEiT's: its bias is added to the logits of
+plain fp32-softmax attention, as in the JAX package.
 """
 
+import functools
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,12 +47,13 @@ class ViTConfig:
     patch_bias: bool = True              # CLIP patch conv has no bias
     select_layer: int = 0                # 0/None = full forward; -2 = CLIP tap
     select_feature: str = "patch"        # patch | cls_patch
-    k_bias: bool = True
-    abs_pos_embed: bool = True
-    rel_pos_bias: bool = False           # BEiT: not ported yet
-    rope: bool = False                   # EVA-02: not ported yet
-    rope_ref_side: int = 0
-    swiglu_ln: bool = False              # EVA-02 sub-LN SwiGLU: not ported yet
+    # ----- BEiT / EVA-02 variants ----------------------------------------
+    k_bias: bool = True                  # BEiT/EVA-02: key proj has no bias
+    abs_pos_embed: bool = True           # BEiT: no absolute position embed
+    rel_pos_bias: bool = False           # BEiT: per-block relative pos bias
+    rope: bool = False                   # EVA-02: 2-D axial rotary embedding
+    rope_ref_side: int = 0               # EVA-02 pretrain grid side (pt_seq_len)
+    swiglu_ln: bool = False              # EVA-02 sub-LN SwiGLU (LN before fc2)
 
     @property
     def grid_side(self) -> int:
@@ -79,6 +88,69 @@ def _activation(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_tables(side: int, head_dim: int, ref_side: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EVA-02 2-D axial rotary tables (sin, cos), fp32 [side^2, head_dim], for
+    a ``side`` x ``side`` patch grid: theta 10000 over ``head_dim // 2`` dims
+    an axis, positions rescaled to the pretrain grid ``ref_side``
+    (ft_seq_len / pt_seq_len), each angle repeated for its interleaved pair,
+    the row axis' half before the column axis'. Computed in float64 and
+    rounded once, as the JAX package computes them."""
+    axis_dim = head_dim // 2
+    freqs = 1.0 / (10000.0 ** (np.arange(0, axis_dim, 2, dtype=np.float64) / axis_dim))
+    t = np.arange(side, dtype=np.float64)
+    if ref_side and ref_side != side:
+        t = t / side * ref_side
+    ang = np.repeat(np.einsum("s,f->sf", t, freqs), 2, axis=-1)    # [side, axis_dim]
+    ang_h = np.broadcast_to(ang[:, None, :], (side, side, axis_dim))
+    ang_w = np.broadcast_to(ang[None, :, :], (side, side, axis_dim))
+    full = np.concatenate([ang_h, ang_w], axis=-1).reshape(side * side, head_dim)
+    return (torch.from_numpy(np.sin(full).astype(np.float32)),
+            torch.from_numpy(np.cos(full).astype(np.float32)))
+
+
+def _rotate_every_two(x: torch.Tensor) -> torch.Tensor:
+    """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...): EVA-02 rotates
+    interleaved pairs, not the two halves LLaMA's ``rotate_half`` takes."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+
+
+def _apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+                n_prefix: int) -> torch.Tensor:
+    """Rotate the patch tokens of x [B, N, H, D]; the ``n_prefix`` prefix
+    (class) tokens pass through, as EVA-02 splits them off first."""
+    prefix, patches = x[:, :n_prefix], x[:, n_prefix:]
+    sin = sin[None, :, None, :].to(x.dtype)
+    cos = cos[None, :, None, :].to(x.dtype)
+    patches = patches * cos + _rotate_every_two(patches) * sin
+    return torch.cat([prefix, patches], dim=1) if n_prefix else patches
+
+
+def beit_relative_position_index(side: int) -> np.ndarray:
+    """Static [1+g^2, 1+g^2] lookup into the (2g-1)^2+3 BEiT relative-distance
+    table; the 3 extra rows cover cls<->patch and cls<->cls (HF
+    BeitRelativePositionBias semantics)."""
+    coords = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                                  indexing="ij")).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0)
+    rel = rel + (side - 1)
+    rel[:, :, 0] *= 2 * side - 1
+    n = side * side
+    num_dist = (2 * side - 1) ** 2 + 3
+    index = np.zeros((n + 1, n + 1), dtype=np.int32)
+    index[1:, 1:] = rel.sum(-1)
+    index[0, 0:] = num_dist - 3
+    index[0:, 0] = num_dist - 2
+    index[0, 0] = num_dist - 1
+    return index
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_pos_index(side: int) -> torch.Tensor:
+    return torch.from_numpy(beit_relative_position_index(side).astype(np.int64))
+
+
 class ViTAttention(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -88,16 +160,33 @@ class ViTAttention(nn.Module):
         self.k_proj = nn.Linear(c.hidden_size, c.hidden_size, bias=c.k_bias, **kw)
         self.v_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
         self.out_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
+        if c.rel_pos_bias:
+            num_dist = (2 * c.grid_side - 1) ** 2 + 3
+            self.rel_pos_table = nn.Parameter(torch.zeros(num_dist, c.num_heads, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rel_pos_index: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         b, n, _ = x.shape
-        shape = (b, n, c.num_heads, c.hidden_size // c.num_heads)
+        head_dim = c.hidden_size // c.num_heads
+        shape = (b, n, c.num_heads, head_dim)
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
-        out = flash_attention(q, k, v).reshape(b, n, c.hidden_size)
-        return self.out_proj(out)
+        if rope is not None:
+            q = _apply_rope(q, *rope, c.num_prefix_tokens)
+            k = _apply_rope(k, *rope, c.num_prefix_tokens)
+        if rel_pos_index is None:
+            out = flash_attention(q, k, v)
+        else:
+            # BEiT: the learned bias added to fp32 logits; plain attention,
+            # as in the JAX package (the flash kernel takes no bias)
+            bias = self.rel_pos_table[rel_pos_index].permute(2, 0, 1)      # [H, N, N]
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            logits = logits * head_dim ** -0.5 + bias[None]
+            probs = torch.softmax(logits, dim=-1).to(v.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.out_proj(out.reshape(b, n, c.hidden_size))
 
 
 class ViTMlp(nn.Module):
@@ -105,7 +194,13 @@ class ViTMlp(nn.Module):
         super().__init__()
         c, kw = cfg, dict(dtype=dtype, device=device)
         self.cfg = cfg
-        if c.swiglu:
+        if c.swiglu_ln:
+            # EVA-02 sub-LN SwiGLU: silu(w1 x) * (w2 x) -> LayerNorm -> w3
+            self.w1 = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
+            self.w2 = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
+            self.ffn_ln = LayerNorm(c.intermediate_size, c.ln_eps, device=device)
+            self.w3 = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        elif c.swiglu:
             self.weights_in = nn.Linear(c.hidden_size, 2 * c.intermediate_size, **kw)
             self.weights_out = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
         else:
@@ -114,6 +209,8 @@ class ViTMlp(nn.Module):
             self.act = _activation(c.act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.swiglu_ln:
+            return self.w3(self.ffn_ln(F.silu(self.w1(x)) * self.w2(x)))
         if self.cfg.swiglu:
             x1, x2 = self.weights_in(x).chunk(2, dim=-1)
             return self.weights_out(F.silu(x1) * x2)
@@ -133,8 +230,8 @@ class ViTBlock(nn.Module):
             self.ls1_gamma = nn.Parameter(torch.ones(c.hidden_size, device=device))
             self.ls2_gamma = nn.Parameter(torch.ones(c.hidden_size, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor, rope=None, rel_pos_index=None) -> torch.Tensor:
+        h = self.attn(self.norm1(x), rope, rel_pos_index)
         if self.cfg.layer_scale:
             h = h * self.ls1_gamma.to(h.dtype)
         x = x + h
@@ -151,10 +248,6 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
         super().__init__()
         c = cfg
-        if c.rope or c.rel_pos_bias or c.swiglu_ln:
-            raise NotImplementedError(
-                "rope, relative-position-bias and EVA-02 sub-LN towers are not "
-                "ported yet")
         self.cfg = cfg
         self.dtype = dtype
         self.patch_embed = nn.Conv2d(3, c.hidden_size, c.patch_size, stride=c.patch_size,
@@ -196,8 +289,14 @@ class VisionTransformer(nn.Module):
             x = torch.cat(prefix + [x], dim=1)
         if c.pre_layernorm:
             x = self.pre_layernorm(x)
+        rope = rel_index = None
+        if c.rope:
+            rope = tuple(t.to(x.device) for t in _rope_tables(
+                c.grid_side, c.hidden_size // c.num_heads, c.rope_ref_side))
+        if c.rel_pos_bias:
+            rel_index = _rel_pos_index(c.grid_side).to(x.device)
         for i in range(c.num_blocks_to_run):
-            x = getattr(self, f"blocks_{i}")(x)
+            x = getattr(self, f"blocks_{i}")(x, rope, rel_index)
         if hasattr(self, "final_layernorm"):
             x = self.final_layernorm(x)
         if c.select_feature == "patch" and c.num_prefix_tokens:

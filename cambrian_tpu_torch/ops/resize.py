@@ -28,6 +28,33 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
 
 
+def scale_and_translate_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """[out, in] fp32 matrix of ``jax.image.resize`` along one axis with its
+    default antialiasing, for ``kernel`` (fp32 weights at distances >= 0),
+    computed step by step as its ``scale_and_translate`` computes it: half-
+    pixel sample centres; on a downsample the kernel is widened by in/out;
+    each output's weights are divided by their sum, with no clamping at the
+    edges."""
+    f32 = np.float32
+    inv_scale = 1.0 / (out_size / in_size)            # a Python float, as in JAX
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = kernel(dist)                                               # [in, out]
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """``jax.image.resize(..., "linear")``'s weights along one axis (SAM's
+    relative-position tables at another grid)."""
+    return scale_and_translate_matrix(
+        in_size, out_size, lambda x: np.maximum(np.float32(0.0), np.float32(1.0) - x))
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize the spatial dims of ``x`` [..., H, W, C] (the JAX package's
     NHWC layout) to [..., out_h, out_w, C], in fp32, returned in x.dtype."""

@@ -209,6 +209,22 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    each stream its whole budget; the server and the worker's stepper stop
    before the model is freed.
 
+13. the encoder-study towers: (a) a tiny tower of each new family (plain
+   ViT, DFN, EVA-02 with rope and sub-LN, DPT, BEiT with its rel-pos bias,
+   SAM, a hybrid, ``tiny_sd`` at 128 px) on the card against the same on
+   the CPU, fp32 with TF32 off, K1's launches by counter; (b) each registered
+   tower of ``ZOO_TOWERS`` at its published width, depth and resolution in
+   bf16, weights made on the card, one at a time: a forward at batch 1 and 8
+   (shape, finiteness, medians of ``ZOO_ITERS``, peak memory) whose K1
+   launches by counter must equal ZOO_TOWERS' a forward; every K1 call's
+   inputs at each new shape captured and held against the plain version,
+   then K1, plain and SDPA timed alone there (L2 flushed, a spin kernel,
+   medians of 30) beside the bound; (c) Cambrian-8B through ``generate``
+   with EVA-02-L/14-336 in CLIP-L's place and SD-2.1 in ConvNeXt-XXL's
+   (three requests of 32 greedy tokens, random bf16 weights made on the
+   card): tokens in range, K1 ``ZOO_8B_K1`` times a request, none of K5-K8;
+   encode ms by tower, prefill ms, decode tokens/s.
+
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
 """
@@ -295,6 +311,26 @@ CB_TEXT_TOKENS = 2 * CB_CHUNK
 # the HTTP phase: concurrent text-only streams through the port's worker
 HTTP_STREAMS = 4
 HTTP_TOKENS = 16
+# phase 13, the encoder-study towers at full width, depth and resolution:
+# (registry name, K1 launches a forward): a launch a block that runs (a tap
+# at layer -2 leaves the last out), none where the attention is plain (BEiT's
+# bias, SAM's decomposed rel-pos), SD-2.1's UNet self-attention over >= 128
+# queries (the down blocks' 2 + 2 + 2 at 64^2, 32^2, 16^2; the up blocks'
+# 3 + 3 + 3), a hybrid's towers' sum
+ZOO_TOWERS = [("mae-vit-h-14", 32), ("moco-vit-b-16", 12), ("ijepa-vit-h-14", 32),
+              ("ijepa-vit-g-16", 40), ("maws-vit-2b-14", 24), ("supervised-vit-h-14", 32),
+              ("dfn-clip-vit-h-14", 31), ("eva/CLIP-ViT-L-336", 23), ("large-midas", 24),
+              ("large-beit-midas-512", 0), ("sam_vit_h", 0), ("diffusion", 15),
+              ("hybridmodel-mae-vit-h-14-&&&-dfn-clip-vit-h-14", 63)]
+ZOO_BATCHES = (1, 8)
+ZOO_ITERS = 5            # timed forwards a batch, after one warm-up
+# Cambrian-8B with EVA-02-L/14-336 in CLIP-L's place (336 px, 24 x 24,
+# hidden 1024) and SD-2.1 in ConvNeXt-XXL's (1,024 tokens resized to 9,216,
+# hidden 3,520): K1 a request = SigLIP 27 + EVA-02 23 + DINOv2 40 + SD 15 +
+# the prefill's 32
+ZOO_8B_TOWERS = ("siglip/CLIP-ViT-SO400M-14-384", "eva/CLIP-ViT-L-336",
+                 "facebook/dinov2-giant-res378", "diffusion")
+ZOO_8B_K1 = 27 + 23 + 40 + 15 + 32
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
     "int4_matmul": ("cambrian_tpu/ops/quant.py:227", "int4"),
@@ -943,9 +979,10 @@ def tiny_continuous(torch, cpu, gpu, ids, kw, rng, label, sequential):
     return dict(tokens=out["gpu"], same_as_generate=same_as_generate)
 
 
-def serve_request(torch, model, counters, cfg, r, pr, stream=False):
+def serve_request(torch, model, counters, cfg, r, pr, stream=False, k1=LAUNCHES_PER_REQUEST):
     """One request through ``generate`` (or ``generate_stream``) with its
-    checks; returns its record and the kernel launches it made."""
+    checks (``k1``: K1's launches it must make); returns its record and the
+    kernel launches it made."""
     images = request_images(torch, model.towers, r)
     before = read_counts(counters)
     t0 = time.perf_counter()
@@ -969,8 +1006,8 @@ def serve_request(torch, model, counters, cfg, r, pr, stream=False):
     check(tuple(logits.shape) == (1, cfg.vocab_size) and logits.dtype == torch.float32,
           f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
     check(torch.isfinite(logits).all().item(), f"{label}: non-finite logits")
-    check(delta["flash_attention_fwd"] == LAUNCHES_PER_REQUEST,
-          f"{label}: K1 launched {delta['flash_attention_fwd']}x, not {LAUNCHES_PER_REQUEST}x")
+    check(delta["flash_attention_fwd"] == k1,
+          f"{label}: K1 launched {delta['flash_attention_fwd']}x, not {k1}x")
     tok_s = tm["decode_steps"] / tm["decode_ms"] * 1e3
     rec = dict(request=r, stream=stream, prompt_slots=len(pr["mask"]), image_size=pr["size"],
                encode_ms=tm["encode_ms"], prefill_ms=tm["prefill_ms"],
@@ -3108,6 +3145,328 @@ def vision_kernel_phase(torch, fa, quant, sites):
                        for kind, found in sites.items()})
 
 
+# -- phase 13: the encoder-study towers ---------------------------------------
+
+def zoo_tower(torch, name, seed, dtype, device):
+    """A tower of the registry with random weights made on ``device`` from
+    ``seed`` (N(0, 0.02) matrices, unit norm weights, zero biases), built on
+    the meta device first so that no second copy is made."""
+    from cambrian_tpu_torch.checkpoint.from_jax import load_state_dict_checked
+    from cambrian_tpu_torch.models.builder import _random_like
+    from cambrian_tpu_torch.models.encoders.base import build_vision_tower
+
+    with torch.device("meta"):
+        tower = build_vision_tower(name, dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    load_state_dict_checked(tower, _random_like(tower.state_dict(), g, 0.02, device),
+                            assign=True)
+    return tower.eval()
+
+
+class K1Recorder:
+    """Wraps the ``flash_attention`` the ViT and SD-2.1 modules call: while
+    ``keep`` is set, the first call of each (B, Sq, H, D) keeps copies of its
+    q, k, v; ``calls`` counts the calls of each shape. The real function runs
+    every call, so the launch counter counts them."""
+
+    def __init__(self):
+        from cambrian_tpu_torch.models.encoders import diffusion, vit
+
+        self.modules = (vit, diffusion)
+        self.real = vit.flash_attention
+        self.inputs, self.calls, self.keep = {}, {}, False
+
+    def __call__(self, q, k, v, *args, **kwargs):
+        key = (q.shape[0], q.shape[1], q.shape[2], q.shape[3])
+        if self.keep:
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if key not in self.inputs:
+                self.inputs[key] = tuple(t.detach().clone() for t in (q, k, v))
+        return self.real(q, k, v, *args, **kwargs)
+
+    def __enter__(self):
+        for m in self.modules:
+            m.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.flash_attention = self.real
+
+
+def zoo_tiny_phase(torch, fa, quant):
+    """(a) a tiny tower of each new family on the card against the same on
+    the CPU, fp32 with TF32 off, from the same weights and pixels (SD-2.1's
+    noise passed to both); K1's launches on the card by counter."""
+    from cambrian_tpu_torch.mm_utils import IMAGENET_MEAN, IMAGENET_STD
+    from cambrian_tpu_torch.models.builder import _random_like
+    from cambrian_tpu_torch.models.encoders import extra
+    from cambrian_tpu_torch.models.encoders.base import build_vision_tower
+    from cambrian_tpu_torch.models.encoders.sam import SamViT, SamViTConfig
+    from cambrian_tpu_torch.models.encoders.vit import ViTConfig
+
+    tiny = dict(hidden_size=32, num_layers=3, num_heads=4, intermediate_size=64, patch_size=8,
+                image_size=32, class_token=True, ln_eps=1e-6)
+    vits = {
+        "plain_vit": dict(tiny),
+        "dfn": dict(tiny, pre_layernorm=True, final_layernorm=False, act="quick_gelu",
+                    patch_bias=False, select_layer=-2, ln_eps=1e-5),
+        "eva02": dict(tiny, intermediate_size=43, final_layernorm=False, select_layer=-2,
+                      k_bias=False, rope=True, rope_ref_side=2, swiglu_ln=True),
+        "dpt": dict(tiny, final_layernorm=False, select_layer=-1, ln_eps=1e-12),
+        "beit": dict(tiny, final_layernorm=False, select_layer=-1, ln_eps=1e-12, k_bias=False,
+                     abs_pos_embed=False, rel_pos_bias=True, layer_scale=True),
+    }
+    # family: (builder on a device, pixels' side, K1 launches a forward: a
+    # block that runs, none with BEiT's bias)
+    families = {name: ((lambda dev, kw=kw, name=name: extra._vit_tower(
+        name, ViTConfig(**kw), None, 9, torch.float32, dev, IMAGENET_MEAN, IMAGENET_STD)),
+        32, 0 if kw.get("rel_pos_bias") else ViTConfig(**kw).num_blocks_to_run)
+        for name, kw in vits.items()}
+    families["sam"] = (lambda dev: SamViT(SamViTConfig(
+        hidden_size=32, num_layers=3, num_heads=4, mlp_ratio=2.0, patch_size=8, image_size=64,
+        window_size=3, global_attn_indexes=(1,), output_channels=16), device=dev), 64, 0)
+    families["hybrid"] = (lambda dev: build_vision_tower(
+        "hybridmodel-debug-tower-res32-interp4-&&&-debug-tower-res32-interp9", device=dev),
+        32, 4)
+    families["tiny_sd"] = (lambda dev: build_vision_tower("diffusion-tiny-res128", device=dev),
+                           128, 3)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = all_counters(fa, quant)
+    records = {}
+    try:
+        for i, (name, (make, size, k1)) in enumerate(families.items()):
+            cpu = make("cpu").eval()
+            sd = _random_like(cpu.state_dict(), torch.Generator().manual_seed(SEED + i), 0.05)
+            cpu.load_state_dict(sd)
+            gpu = make("cuda").eval()
+            gpu.load_state_dict({k: v.cuda() for k, v in sd.items()})
+            rng = np.random.default_rng(SEED + i)
+            px = torch.from_numpy(rng.standard_normal((2, 3, size, size), dtype=np.float32))
+            kw = {}
+            if name == "tiny_sd":
+                kw["noise"] = torch.from_numpy(
+                    rng.standard_normal((2, 4, size // 8, size // 8), dtype=np.float32))
+            with torch.no_grad():
+                want = cpu(px, **kw)
+                zero_counts(counters)
+                got = gpu(px.cuda(), **{k: v.cuda() for k, v in kw.items()})
+                torch.cuda.synchronize()
+                counts = read_counts(counters)
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            tol = 1e-4 * max(1.0, scale)
+            print(f"phase 13 (a) tiny {name}: out {tuple(got.shape)} max abs err {err:.3e} "
+                  f"(|ref| <= {scale:.3f}, tol {tol:.1e}) K1 launches "
+                  f"{counts['flash_attention_fwd']}", flush=True)
+            check(got.shape == want.shape and torch.isfinite(got).all().item(),
+                  f"tiny {name}: {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+            check(err <= tol, f"tiny {name}: card and CPU differ by {err} > {tol}")
+            want_counts = {k: 0 for k in counters}
+            want_counts["flash_attention_fwd"] = k1
+            check(counts == want_counts, f"tiny {name}: launches {counts}, not {want_counts}")
+            records[name] = dict(max_abs_err=err, ref_max=scale, tol=tol, launches=counts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return records
+
+
+def zoo_k1_case(torch, fa, q, k, v, flush):
+    """K1 against its plain version on a captured call's inputs (bf16; the
+    plain version in fp32 on the upcast inputs, the tolerance 2e-2 of the
+    output's scale, as phase 2's unit-scale cases), and K1, plain and SDPA
+    alone: L2 flushed, behind a spin kernel, medians of 30."""
+    import torch.nn.functional as F
+
+    b, s, h, d = q.shape
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = float((out.float() - ref).abs().max())
+    tol = 2e-2 * max(1.0, float(ref.abs().max()))
+    check(torch.isfinite(out).all().item(), f"K1 at {tuple(q.shape)}: non-finite output")
+    check(err <= tol, f"K1 at {tuple(q.shape)}: max abs error {err} > {tol}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    times = {key: cuda_ms(torch, fn, iters=30, flush=flush, spin=SITE_SPIN_CYCLES, median=True)
+             for key, fn in (("ms", lambda: fa.flash_attention(q, k, v)),
+                             ("plain_ms", lambda: fa.flash_attention_reference(q, k, v)),
+                             ("library_ms", lambda: F.scaled_dot_product_attention(qt, kt, vt)))}
+    n_bytes = 4 * q.numel() * q.element_size()        # q, k, v read, out written
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 4 * b * h * d * s * s, "bfloat16")
+    return dict(b=b, s=s, h=h, d=d, max_abs_err=err, tol=tol, bound_ms=bound_ms,
+                bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                tflops=4 * b * h * d * s * s / times["ms"] / 1e9, **times)
+
+
+def zoo_full_phase(torch, fa, quant):
+    """(b) each registered tower at its published width, depth and resolution
+    in bf16, weights made on the card, one at a time: a forward at batch 1
+    and at 8 (shape, finiteness, medians of ZOO_ITERS, peak memory), K1's
+    launches by counter against ZOO_TOWERS; then K1 at each new shape the
+    towers gave it, on the captured inputs, against its plain version, and
+    timed beside it and SDPA. Returns (records, K1 cases by "BxSxHxD", the
+    path's launches)."""
+    dev = torch.device("cuda")
+    counters = all_counters(fa, quant)
+    path = {name: 0 for name in counters}
+    l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
+    records, cases = [], {}
+    for i, (name, k1) in enumerate(ZOO_TOWERS):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tower = zoo_tower(torch, name, SEED + 13 + i, torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tower.parameters())
+        rec = dict(tower=name, params=n_params, build_s=build_s, image_size=tower.image_size,
+                   hidden_size=tower.hidden_size, batches={})
+        g = torch.Generator(device=dev).manual_seed(SEED + 13)
+        with K1Recorder() as k1_calls, torch.inference_mode():
+            zero_counts(counters)                 # this tower's path starts here
+            for b in ZOO_BATCHES:
+                px = torch.randn((b, 3, tower.image_size, tower.image_size), generator=g,
+                                 device=dev)
+                k1_calls.keep = True
+                out = tower(px)
+                k1_calls.keep = False
+                torch.cuda.synchronize()
+                want = (b, tower.num_patches, tower.hidden_size)
+                check(tuple(out.shape) == want, f"{name} batch {b}: {tuple(out.shape)}, "
+                      f"not {want}")
+                finite = bool(torch.isfinite(out).all().item())
+                check(finite, f"{name} batch {b}: non-finite features")
+                times = []
+                for _ in range(ZOO_ITERS):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    tower(px)
+                    end.record()
+                    times.append((start, end))
+                torch.cuda.synchronize()
+                ms = float(np.median([s_.elapsed_time(e) for s_, e in times]))
+                rec["batches"][b] = dict(shape=list(out.shape), finite=finite, ms=ms,
+                                         images_per_s=b / ms * 1e3)
+            counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        forwards = len(ZOO_BATCHES) * (1 + ZOO_ITERS)
+        want_counts = {k: 0 for k in counters}
+        want_counts["flash_attention_fwd"] = k1 * forwards
+        check(counts == want_counts, f"{name}: launches {counts}, not {want_counts} "
+              f"({k1} K1 a forward)")
+        per_forward = {key: n for key, n in k1_calls.calls.items() if key[0] == ZOO_BATCHES[0]}
+        check(sum(per_forward.values()) == k1, f"{name}: K1 calls at batch 1 "
+              f"{per_forward}, not {k1}")
+        for key, n in counts.items():
+            path[key] += n
+        rec.update(k1_per_forward=k1, launches=counts, peak_bytes=peak,
+                   k1_shapes={"x".join(map(str, key)): n for key, n in k1_calls.calls.items()})
+        print(f"phase 13 (b) {name}: {n_params / 1e9:.3f}B parameters built in {build_s:.1f} s; "
+              + "; ".join(f"batch {b}: {tuple(r['shape'])} finite, {r['ms']:.2f} ms "
+                          f"({r['images_per_s']:.1f} images/s)"
+                          for b, r in rec["batches"].items())
+              + f"; peak {peak / 2**30:.2f} GiB; K1 {counts['flash_attention_fwd']} launches "
+              f"({k1} a forward x {forwards})", flush=True)
+        # K1 at each new shape: on the captured inputs, outside the path's count
+        for key, (q, k, v) in k1_calls.inputs.items():
+            with torch.inference_mode():
+                case = zoo_k1_case(torch, fa, q, k, v, l2.sum)
+            case.update(tower=name, calls_per_forward=k1_calls.calls[key])
+            cases.setdefault("x".join(map(str, key)), case)
+            print(f"phase 13 K1 {name} B={key[0]} S={key[1]} H={key[2]} D={key[3]}: err "
+                  f"{case['max_abs_err']:.3e} (tol {case['tol']:.2e}) kernel {case['ms']:.4f} ms "
+                  f"({case['tflops']:.1f} TFLOP/s) plain {case['plain_ms']:.4f} sdpa "
+                  f"{case['library_ms']:.4f} bound {case['bound_ms'] * 1e3:.2f} us "
+                  f"({case['bound_by']})", flush=True)
+        records.append(rec)
+        del tower, k1_calls, out, px
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records, cases, path
+
+
+def tower_encode_times(torch, towers):
+    """Forward hooks that put CUDA events around each tower's forward;
+    returns (the hooks' handles, {tower index: [(start, end), ...]})."""
+    events, handles = {}, []
+    for i, t in enumerate(towers):
+        def pre(mod, args, i=i):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            events.setdefault(i, []).append([start, None])
+
+        def post(mod, args, out, i=i):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events[i][-1][1] = end
+        handles += [t.register_forward_pre_hook(pre), t.register_forward_hook(post)]
+    return handles, events
+
+
+def zoo_cambrian_phase(torch, fa, quant, prompts):
+    """(c) Cambrian-8B through ``generate`` with EVA-02-L/14-336 in CLIP-L's
+    place and SD-2.1 in ConvNeXt-XXL's, bf16 weights made on the card:
+    three requests of 32 greedy tokens, each launching K1 ZOO_8B_K1 times and
+    none of K5-K8; encode ms by tower, prefill ms, decode tokens/s."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    dev = torch.device("cuda")
+    cfg = cambrian_8b().replace(mm_vision_tower_aux_list=ZOO_8B_TOWERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = random_state_dict(cfg, torch.Generator(device=dev).manual_seed(SEED), 0.02,
+                           dtype=torch.bfloat16, device=dev)
+    model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+    del sd
+    torch.cuda.synchronize()
+    print(f"phase 13 (c) 8B with towers {ZOO_8B_TOWERS}: built in "
+          f"{time.perf_counter() - t0:.1f} s; hidden sizes "
+          f"{[t.hidden_size for t in model.towers]}, tokens "
+          f"{[t.num_patches for t in model.towers]}", flush=True)
+    counters = all_counters(fa, quant)
+    handles, events = tower_encode_times(torch, model.towers)
+    requests = []
+    try:
+        zero_counts(counters)                     # the main path's count starts here
+        for r, pr in enumerate(prompts):
+            rec = serve_request(torch, model, counters, cfg, r, pr, k1=ZOO_8B_K1)
+            torch.cuda.synchronize()
+            rec["encode_ms_by_tower"] = {
+                name: events[i][-1][0].elapsed_time(events[i][-1][1])
+                for i, name in enumerate(ZOO_8B_TOWERS)}
+            print(f"phase 13 (c) request {r}: encode by tower "
+                  + ", ".join(f"{n} {ms:.1f} ms" for n, ms in rec["encode_ms_by_tower"].items()),
+                  flush=True)
+            requests.append(rec)
+        launches = read_counts(counters)
+    finally:
+        for h in handles:
+            h.remove()
+    unused = {k: launches[k] for k in VISION_KERNELS if launches[k]}
+    check(not unused, f"phase 13 (c): the main path launched K5-K8 {unused}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 13 (c) peak memory allocated: {peak / 2**30:.2f} GiB", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(towers=list(ZOO_8B_TOWERS), requests=requests, launches=launches,
+                peak_bytes=peak)
+
+
+def zoo_phase(torch, fa, quant, prompts):
+    """Phase 13: (a) tiny parity, (b) the full-width towers, (c) the
+    swapped-tower Cambrian-8B."""
+    t0 = time.perf_counter()
+    tiny = zoo_tiny_phase(torch, fa, quant)
+    towers, cases, path = zoo_full_phase(torch, fa, quant)
+    cambrian = zoo_cambrian_phase(torch, fa, quant, prompts)
+    print(f"phase 13 (encoder-study towers): {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(tiny=tiny, towers=towers, k1_cases=cases, launches=path, cambrian=cambrian)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3328,12 +3687,14 @@ def main(argv=None):
     t11 = time.perf_counter()
     phi3 = phi3_phase(torch, fa, quant)
     print(f"phase 11 (Cambrian-Phi-3): {time.perf_counter() - t11:.1f} s", flush=True)
+    zoo = zoo_phase(torch, fa, quant, prompts)
 
     # launches: each path's counts (8B serving and training, Phi-3 serving
     # and loading), read just after it, summed over paths
     paths = [f["launches"] for f in full.values()] + [train["launches"], phi3["launches"]]
     paths += [f["continuous"]["launches"] for f in full.values()]
     paths += [f["http"]["launches"] for f in full.values() if f["http"]]
+    paths += [zoo["launches"], zoo["cambrian"]["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -3414,6 +3775,32 @@ def main(argv=None):
         })
         check(rows[-1]["launches"] > 0, f"{name}: no gemv_m8_kernel launch at M = {CB_SLOTS} "
               f"in phase 12")
+    # K1 at the encoder-study towers' shapes (phase 13): one image through
+    # every tower of ZOO_TOWERS, each call at its captured shape (bf16)
+    zoo_k1 = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                                   "ops_ms")}
+    for rec in zoo["towers"]:
+        for shape, n in rec["k1_shapes"].items():
+            if shape.startswith(f"{ZOO_BATCHES[0]}x"):
+                for key in zoo_k1:
+                    zoo_k1[key] += n * zoo["k1_cases"][shape][key]
+    rows.append({
+        "name": "flash_attention_fwd_towers",
+        "route": "cuda",
+        "source": "cambrian_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "cambrian_tpu/ops/flash_attention.py:36",
+        "launches": zoo["launches"]["flash_attention_fwd"]
+        + zoo["cambrian"]["launches"]["flash_attention_fwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in zoo["k1_cases"].values()),
+        "ms": zoo_k1["ms"],
+        "plain_ms": zoo_k1["plain_ms"],
+        "bound_ms": zoo_k1["bound_ms"],
+        "bound_by": "bytes" if zoo_k1["bytes_ms"] >= zoo_k1["ops_ms"] else "operations",
+        "library_ms": zoo_k1["library_ms"],
+    })
+    print(f"flash_attention_fwd_towers: an image through the {len(ZOO_TOWERS)} towers: kernel "
+          f"{zoo_k1['ms']:.3f} ms, plain {zoo_k1['plain_ms']:.3f} ms, sdpa "
+          f"{zoo_k1['library_ms']:.3f} ms, bound {zoo_k1['bound_ms']:.4f} ms", flush=True)
     # K2: per training step, 32 calls at the decoder's shape (bf16)
     rows.append({
         "name": "flash_attention_bwd",
@@ -3468,7 +3855,7 @@ def main(argv=None):
             json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()}, sass=sass,
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
-                           vision=vision, phi3=phi3, summary=summary), f, indent=1)
+                           vision=vision, phi3=phi3, zoo=zoo, summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

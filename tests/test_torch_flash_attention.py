@@ -179,6 +179,14 @@ KERNEL_CASES = {
     "d72_window": (2, 150, 150, 4, 2, 72, True, 40, 0, "hole"),
     "d96": (2, 130, 130, 4, 2, 96, True, None, 0, None),
     "d24_offset": (2, 40, 100, 2, 1, 24, True, None, 60, "pad"),
+    # the encoder-study towers: ViT-H/14 at 224 (D = 80 fills fwd_bf16_kernel<80>),
+    # ViT-g/16 (D = 88, padded inside <96>), SD-2.1's first down block
+    # (4,096 queries, 5 heads), and D = 80 / 88 under masks and a batch
+    "vit_h_d80": (8, 257, 257, 16, 16, 80, False, None, 0, None),
+    "vit_g_d88": (8, 196, 196, 16, 16, 88, False, None, 0, None),
+    "sd21_4096": (1, 4096, 4096, 5, 5, 64, False, None, 0, None),
+    "d80_window": (2, 150, 150, 4, 2, 80, True, 40, 0, "pad"),
+    "d88_hole": (2, 300, 300, 4, 2, 88, True, None, 0, "hole"),
 }
 
 
