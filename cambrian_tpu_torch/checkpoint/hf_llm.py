@@ -286,9 +286,16 @@ def export_cambrian(params: dict, cfg: CambrianConfig) -> Dict[str, np.ndarray]:
         layer = params[f"layers_{i}"]
         out[lp + "input_layernorm.weight"] = np.asarray(
             layer["input_layernorm"]["weight"])
-        out[lp + "post_attention_layernorm.weight"] = np.asarray(
-            layer["post_attention_layernorm"]["weight"])
         attn, mlp = layer["self_attn"], layer["mlp"]
+        if cfg.model_type == "cohere":
+            # one shared norm a layer; the qk norms where the config has them,
+            # as convert_cohere_decoder reads them
+            for name in ("q_norm", "k_norm"):
+                if name in attn:
+                    out[lp + f"self_attn.{name}.weight"] = np.asarray(attn[name]["weight"])
+        else:
+            out[lp + "post_attention_layernorm.weight"] = np.asarray(
+                layer["post_attention_layernorm"]["weight"])
         if cfg.model_type == "phi3":
             # Phi-3's fused projections, as convert_phi3_decoder splits them
             out[lp + "self_attn.qkv_proj.weight"] = np.concatenate(

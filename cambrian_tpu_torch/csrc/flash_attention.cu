@@ -44,8 +44,16 @@
 // exponentials; at the serving shapes (~2.5 GFLOP a call) there are only
 // 160-352 blocks for 132 SMs to hide that.
 //
+// Head dimensions up to 256 (Gemma-7B's). The bf16 kernel is instantiated
+// for every padded width DP = 16 .. 256 in steps of 16; at DP = 256 a q tile,
+// two K and two V tiles take 160 KB of shared memory (one block an SM), and
+// one consumer thread holds O's 64 x 256 fp32 tile as 128 registers beside
+// S's 32. P V is one m64n256k16 a k16 step at DP = 256 and, between 128 and
+// 256, an m64n128k16 and a narrower one (pv_step).
+//
 // fp32: SIMT FMAs on tiles converted to fp32 in shared memory, exact to fp32
-// rounding; it carries the card-vs-CPU parity of the fp32 paths.
+// rounding; it carries the card-vs-CPU parity of the fp32 paths. At D = 256
+// its tiles take 214,272 bytes of shared memory.
 
 #include <math.h>
 
@@ -56,8 +64,7 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;  // fp32 kernel: a 16 x 16 grid, each thread owns 4 q rows
-constexpr int kMaxD = 128;
-constexpr int kMaxCols = kMaxD / 16;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;  // NEG_INF of the JAX package
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStages = 2;                            // bf16 kernel: K/V ring
@@ -115,7 +122,9 @@ size_t smem_bytes(int d) {
                                   + 3 * kBlockQ);         // max, sum, rescale
 }
 
-template <typename T>
+// kCols: output columns a thread holds (16 kCols >= D): 8 up to D = 128, 16
+// above, so that the head dimensions up to 128 keep their registers.
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -154,11 +163,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   int k_begin, k_end;
   key_range(p, q0, &k_begin, &k_end);
 
-  float acc[4][kMaxCols];
+  float acc[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
 
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -249,14 +258,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     for (int r = 0; r < 4; ++r) {
       const float alpha = sA[ty * 4 + r];
 #pragma unroll
-      for (int j = 0; j < kMaxCols; ++j) acc[r][j] *= alpha;
+      for (int j = 0; j < kCols; ++j) acc[r][j] *= alpha;
     }
     for (int kk = 0; kk < kBlockK; ++kk) {
       float pv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) pv[r] = sP[(ty * 4 + r) * ldp + kk];
 #pragma unroll
-      for (int j = 0; j < kMaxCols; ++j) {
+      for (int j = 0; j < kCols; ++j) {
         const int c = tx + 16 * j;
         if (c < D) {
           const float vv = sV[kk * D + c];
@@ -277,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     const bool alive = sM[row] > 0.5f * kNegInf;
     const float inv = 1.f / fmaxf(sL[row], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
       if (c < D) store_as(O + qi * p.o_ss + c, alive ? acc[r][j] * inv : 0.f);
     }
@@ -297,6 +306,24 @@ struct FwdSmem {
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
+
+// O += P V for k16 step kk of the V tile: one wgmma over all DP columns of O
+// (m64n{DP}k16) up to DP = 128 and at DP = 256; between them, O's first 128
+// columns, then the rest (the register forms of wgmma_rs_mn stop at N = 128
+// below 256). The columns from 128 on start 128 / kChunkCols chunks into V.
+template <int DP>
+__device__ __forceinline__ void pv_step(float (&o)[DP / 2], const uint32_t (&a)[4],
+                                        const __nv_bfloat16* v, int kk) {
+  using namespace hopper;
+  if constexpr (DP <= 128 || DP == 256) {
+    wgmma_rs_mn(o, a, desc_mn_major<DP>(v, kk));
+  } else {
+    using T = Tile<DP>;
+    wgmma_rs_mn(*reinterpret_cast<float(*)[64]>(&o[0]), a, desc_mn_major<DP>(v, kk));
+    wgmma_rs_mn(*reinterpret_cast<float(*)[DP / 2 - 64]>(&o[64]), a,
+                desc_mn_major<DP>(v + (128 / T::kChunkCols) * T::kChunkBytes / 2, kk));
+  }
+}
 
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads) fwd_bf16_kernel(
@@ -434,7 +461,7 @@ __global__ void __launch_bounds__(kTcThreads) fwd_bf16_kernel(
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(o, a[kk], desc_mn_major<DP>(s.v[stage], kk));
+    for (int kk = 0; kk < 4; ++kk) pv_step<DP>(o, a[kk], s.v[stage], kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -493,18 +520,31 @@ int launch_bf16_any(const Params& p, int batch, cudaStream_t stream) {
     case 6: return launch_bf16<96>(p, batch, stream);
     case 7: return launch_bf16<112>(p, batch, stream);
     case 8: return launch_bf16<128>(p, batch, stream);
+    case 9: return launch_bf16<144>(p, batch, stream);
+    case 10: return launch_bf16<160>(p, batch, stream);
+    case 11: return launch_bf16<176>(p, batch, stream);
+    case 12: return launch_bf16<192>(p, batch, stream);
+    case 13: return launch_bf16<208>(p, batch, stream);
+    case 14: return launch_bf16<224>(p, batch, stream);
+    case 15: return launch_bf16<240>(p, batch, stream);
+    case 16: return launch_bf16<256>(p, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_f32(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D);
+template <int kCols>
+int launch_f32_cols(const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.D);  // 214,272 bytes at D = 256
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<float, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
-  flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<float, kCols><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+int launch_f32(const Params& p, int batch, cudaStream_t stream) {
+  return p.D <= 128 ? launch_f32_cols<8>(p, batch, stream) : launch_f32_cols<16>(p, batch, stream);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 """The Cambrian multimodal model (cambrian_tpu/models/cambrian.py):
-multi-tower features -> SVA connector -> LLaMA decoder with periodic in-LLM
-SVA re-injection -> fp32 logits.
+multi-tower features -> SVA connector -> LLaMA-family decoder (LLaMA, Phi-3,
+Mistral, Gemma, Cohere) with periodic in-LLM SVA re-injection -> fp32 logits
+(times Cohere's ``logit_scale``, under Gemma-2's final cap).
 
 ``CambrianLM`` holds the token embeddings, the connector, the decoder and
 the LM head; the vision towers are separate modules. Module names mirror the
@@ -27,10 +28,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..ops.activations import gelu_exact
-from ..ops.norms import LayerNorm, RMSNorm
+from ..ops.norms import LayerNorm
 from ..ops.resize import resize_bilinear
 from .config import CambrianConfig
-from .language.llama import LlamaDecoderLayer, make_causal_mask, make_decode_mask
+from .language.llama import (
+    LlamaDecoderLayer,
+    decoder_norm,
+    make_causal_mask,
+    make_decode_mask,
+)
 from .projectors import SvaProjector
 from .sva import VisionTokenSampler
 
@@ -126,7 +132,7 @@ class CambrianLM(nn.Module):
         self.image_newline = nn.Parameter(torch.zeros(c.hidden_size, device=device))
         for i in range(c.num_hidden_layers):
             self.add_module(f"layers_{i}", LlamaDecoderLayer(c, **kw))
-        self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, device=device)
+        self.norm = decoder_norm(c, device)
         if not c.tie_word_embeddings:
             # fp32, or bf16 under the serving option lm_head_dtype="bf16"
             # (half the bytes of the largest read of a decode step)
@@ -232,13 +238,16 @@ class CambrianLM(nn.Module):
 
     def _splice_image(self, input_ids, image_embeds, im_start=None):
         """Embed text tokens (ids < 0 clamped to 0) and overwrite each
-        sample's image block."""
+        sample's image block; Gemma then scales the whole sequence, image
+        block included, by sqrt(hidden_size) in the embeddings' dtype."""
         embeds = self.embed_tokens(input_ids.clamp(min=0))
         if image_embeds is not None:
             b, s, width = embeds.shape
             idx = _block_index(im_start, image_embeds.shape[1], s)
             embeds = embeds.scatter(1, idx[..., None].expand(-1, -1, width),
                                     image_embeds.to(embeds.dtype))
+        if self.cfg.model_type.startswith("gemma"):
+            embeds = embeds * torch.tensor(self.cfg.hidden_size ** 0.5, dtype=embeds.dtype)
         return embeds
 
     def _vision(self, aux_features_list, aux_masks_list):
@@ -286,7 +295,11 @@ class CambrianLM(nn.Module):
                     cache_index: Union[int, torch.Tensor]):
         """One decode step over the cache, writing slot ``cache_index``: an
         int shared by every row, or a [B] tensor of one index a row (an index
-        past the cache writes nothing). Returns (logits [B, V], cache)."""
+        past the cache writes nothing). Returns (logits [B, V], cache).
+
+        The new token's embedding is not scaled by Gemma's normaliser: the
+        JAX package's ``decode_step`` applies it only in the prefill's
+        splice, and the port keeps that (ROADMAP queue 3)."""
         hidden = self.embed_tokens(token_ids)
         hidden = self._decoder(hidden, make_decode_mask(cache_valid), position_ids,
                                cache, cache_index, None, None, None, inject=False)

@@ -1,9 +1,21 @@
-"""LLaMA-family decoder (cambrian_tpu/models/language/llama.py), LLaMA and
-Phi-3: fp32 RMSNorm, GQA with rotary embeddings (HF rotate-half convention),
-a KV cache written at a shared offset or at one index a row, and fp32
-attention softmax. Phi-3 is the LLaMA block with a sliding window and, where
-the config has it, scaled rotary frequencies (LongRoPE/"su" or linear,
-``rope_scaling_factors``).
+"""LLaMA-family decoder (cambrian_tpu/models/language/llama.py): LLaMA,
+Phi-3, Mistral, Gemma and Cohere. fp32 RMSNorm, GQA with rotary embeddings
+(HF rotate-half convention), a KV cache written at a shared offset or at one
+index a row, and fp32 attention softmax. Phi-3 and Mistral are the LLaMA
+block with a sliding window and, where the config has it, scaled rotary
+frequencies (LongRoPE/"su" or linear, ``rope_scaling_factors``).
+
+The other families' switches, as in the JAX package:
+
+- Gemma (``model_type`` starting "gemma"): RMSNorm scaled by ``1 + w``,
+  tanh GELU (``hidden_act``), head_dim 256 at 7B; with
+  ``attn_logit_softcapping`` (Gemma-2's) every attention call is the plain
+  one with logits squashed to cap * tanh(logits / cap), prefill included.
+  The embedding normaliser and the final-logit cap live in
+  ``models/cambrian.py``.
+- Cohere: a bias-free LayerNorm, rotary embeddings on interleaved pairs in
+  fp32, optional per-head qk RMSNorm (``use_qk_norm``) and the parallel
+  residual x + attn(ln(x)) + mlp(ln(x)) with one shared norm.
 
 Prefill follows the JAX package's branch rule exactly: the flash-attention
 kernel when ``s >= 128`` (no softcap), plain attention over a dense mask
@@ -34,18 +46,49 @@ from ..config import CambrianConfig
 
 
 def check_supported(cfg: CambrianConfig) -> None:
-    """Raise for the decoder switches this port does not cover yet."""
-    if cfg.model_type not in ("llama", "phi3"):
-        raise NotImplementedError(
-            f"decoder family {cfg.model_type!r} is not ported yet (LLaMA and Phi-3)")
+    """Raise for a rope scaling type the JAX package refuses, and for a
+    quantization mode other than int8 and int4."""
     if cfg.rope_scaling:
         rope_scaling_factors(cfg, 0)        # raises for a type the JAX package refuses
     if cfg.quantize not in (None, "int8", "int4"):
         raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported")
-    if cfg.use_qk_norm or cfg.attn_logit_softcapping is not None:
-        raise NotImplementedError("qk-norm and logit softcapping are not ported yet")
-    if cfg.hidden_act != "silu":
-        raise NotImplementedError(f"activation {cfg.hidden_act!r} is not ported yet")
+
+
+class BiaslessLayerNorm(nn.Module):
+    """Cohere's LayerNorm: mean-centred, no bias, fp32 statistics and an fp32
+    ``weight``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        xc = x32 - x32.mean(-1, keepdim=True)
+        y = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + self.eps) * self.weight
+        return y.to(x.dtype)
+
+
+def decoder_norm(cfg: CambrianConfig, device=None) -> nn.Module:
+    """The family's norm over ``hidden_size``: the bias-free LayerNorm for
+    Cohere, RMSNorm otherwise (scaled by 1 + w for Gemma)."""
+    if cfg.model_type == "cohere":
+        return BiaslessLayerNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+    offset = 1.0 if cfg.model_type.startswith("gemma") else 0.0
+    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, weight_offset=offset)
+
+
+def activation(cfg: CambrianConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's activation by ``hidden_act``, in x's dtype: SiLU; tanh GELU
+    (flax's ``nn.gelu(approximate=True)``) for "gelu_pytorch_tanh" and
+    "gelu_tanh"; exact (erf) GELU for any other name, as in the JAX
+    package."""
+    if cfg.hidden_act == "silu":
+        return F.silu(x)
+    if cfg.hidden_act in ("gelu_pytorch_tanh", "gelu_tanh"):
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
 
 
 def decoder_linear(cfg: CambrianConfig, in_features: int, out_features: int, bias: bool,
@@ -115,6 +158,30 @@ def apply_rope(q, k, cos, sin):
     return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
+def rope_cos_sin_interleaved(position_ids: torch.Tensor, head_dim: int, theta: float,
+                             dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cohere's cos/sin tables [B, S, head_dim]: each frequency repeated over
+    an adjacent pair of columns; computed in fp32, cast to ``dtype``."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=position_ids.device) / head_dim))
+    emb = (position_ids.float()[..., None] * inv_freq).repeat_interleave(2, dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def _rotate_interleaved(x):
+    """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...)."""
+    return torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
+
+
+def apply_rope_interleaved(q, k, cos, sin):
+    """Cohere's rotation of adjacent pairs, in fp32 whatever the inputs'
+    dtype (as the JAX package runs it), cast back to q's and k's dtypes."""
+    cos, sin = cos[:, :, None, :].float(), sin[:, :, None, :].float()
+    q32, k32 = q.float(), k.float()
+    return ((q32 * cos + _rotate_interleaved(q32) * sin).to(q.dtype),
+            (k32 * cos + _rotate_interleaved(k32) * sin).to(k.dtype))
+
+
 @dataclass
 class AttentionMask:
     """Structural mask: per-key validity [B, K] plus a causal flag — never a
@@ -181,6 +248,9 @@ class LlamaAttention(nn.Module):
         self.k_proj = decoder_linear(c, c.hidden_size, kvh * d, name="k_proj", **kw)
         self.v_proj = decoder_linear(c, c.hidden_size, kvh * d, name="v_proj", **kw)
         self.o_proj = decoder_linear(c, h * d, c.hidden_size, name="o_proj", **kw)
+        if c.use_qk_norm:       # Cohere (Command-R+): per-head RMSNorm of q and k
+            self.q_norm = RMSNorm(d, c.rms_norm_eps, device=device)
+            self.k_norm = RMSNorm(d, c.rms_norm_eps, device=device)
 
     def forward(self, x, mask: AttentionMask, position_ids, cache=None, cache_index=None):
         c = self.cfg
@@ -189,10 +259,16 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).view(b, s, h, d)
         k = self.k_proj(x).view(b, s, kvh, d)
         v = self.v_proj(x).view(b, s, kvh, d)
-        # the cache's length when decoding or prefilling, else this call's span
-        ext, mscale = rope_scaling_factors(c, cache[0].shape[1] if cache is not None else s)
-        cos, sin = rope_cos_sin(position_ids, d, c.rope_theta, x.dtype, ext, mscale)
-        q, k = apply_rope(q, k, cos, sin)
+        if c.use_qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if c.model_type == "cohere":
+            cos, sin = rope_cos_sin_interleaved(position_ids, d, c.rope_theta, x.dtype)
+            q, k = apply_rope_interleaved(q, k, cos, sin)
+        else:
+            # the cache's length when decoding or prefilling, else this call's span
+            ext, mscale = rope_scaling_factors(c, cache[0].shape[1] if cache is not None else s)
+            cos, sin = rope_cos_sin(position_ids, d, c.rope_theta, x.dtype, ext, mscale)
+            q, k = apply_rope(q, k, cos, sin)
 
         if cache is not None:
             cache_k, cache_v = cache
@@ -216,10 +292,13 @@ class LlamaAttention(nn.Module):
             out = flash_attention(q, k, v, key_valid=mask.key_valid, causal=mask.causal,
                                   sliding_window=c.sliding_window, q_offset=mask.q_offset)
         else:
+            # decode steps, and Gemma-2's softcapped logits at any length (the
+            # kernel has no tanh cap, as the TPU kernel has none)
             if kvh != h:
                 k = k.repeat_interleave(h // kvh, dim=2)
                 v = v.repeat_interleave(h // kvh, dim=2)
-            out = dot_product_attention(q, k, v, mask.dense(s, k.shape[1], c.sliding_window))
+            out = dot_product_attention(q, k, v, mask.dense(s, k.shape[1], c.sliding_window),
+                                        logit_cap=c.attn_logit_softcapping)
         return self.o_proj(out.reshape(b, s, h * d)), cache
 
 
@@ -233,21 +312,31 @@ class LlamaMlp(nn.Module):
         self.down_proj = decoder_linear(c, c.intermediate_size, c.hidden_size, name="down_proj",
                                         **kw)
 
+        self.cfg = cfg
+
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(activation(self.cfg, self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
+    """Pre-norm residual block; Cohere's is parallel, with one shared norm
+    and no ``post_attention_layernorm``."""
+
     def __init__(self, cfg: CambrianConfig, dtype=torch.float32, device=None):
         super().__init__()
         check_supported(cfg)
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=device)
+        self.parallel = cfg.model_type == "cohere"
+        self.input_layernorm = decoder_norm(cfg, device)
         self.self_attn = LlamaAttention(cfg, dtype, device)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                                device=device)
+        if not self.parallel:
+            self.post_attention_layernorm = decoder_norm(cfg, device)
         self.mlp = LlamaMlp(cfg, dtype, device)
 
     def forward(self, x, mask, position_ids, cache=None, cache_index=None):
+        if self.parallel:
+            normed = self.input_layernorm(x)
+            h, cache = self.self_attn(normed, mask, position_ids, cache, cache_index)
+            return x + h + self.mlp(normed), cache
         h, cache = self.self_attn(self.input_layernorm(x), mask, position_ids, cache,
                                   cache_index)
         x = x + h

@@ -60,15 +60,20 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with an fp32 ``weight`` (cambrian_tpu/models/language/llama.py:45)."""
+    """RMSNorm with an fp32 ``weight`` (cambrian_tpu/models/language/llama.py:45).
+    ``weight_offset`` is added to the stored weight before it scales: Gemma
+    stores ``w`` and scales by ``1 + w`` (the weight then starts at 0)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+    def __init__(self, dim: int, eps: float = 1e-5, device=None, weight_offset: float = 0.0):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.weight_offset = weight_offset
+        init = torch.zeros if weight_offset else torch.ones
+        self.weight = nn.Parameter(init(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps)
+        w = self.weight + self.weight_offset if self.weight_offset else self.weight
+        return rms_norm(x, w, self.eps)
 
 
 # -- K6: the fused LayerNorm ----------------------------------------------------

@@ -225,6 +225,31 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    card): tokens in range, K1 ``ZOO_8B_K1`` times a request, none of K5-K8;
    encode ms by tower, prefill ms, decode tokens/s.
 
+14. the decoder families: (a) a tiny Cambrian of each (Mistral with a
+   window, Gemma at head_dim 256, Gemma with both Gemma-2 softcaps, Cohere,
+   Cohere with qk-norm) on the card against the same on the CPU, fp32 with
+   TF32 off, from the same weights and a 159-slot prompt: identical greedy
+   tokens, K1 launched once a tower block and once a decoder layer, or at
+   the towers alone under the attention softcap; (b) K1 at head_dim 256
+   (and 192) against its plain version in bf16 and fp32 at Gemma-7B's
+   prefill (1 x 645 x 16 x 256, causal, the cache's padding), the same with
+   a hole in the keys and a q_offset, under a window, and at D = 192: max
+   abs error (bf16 within 2e-2 of the output's scale), K1, plain and SDPA
+   alone (L2 flushed, a spin kernel, medians of 30) beside the bound; (c)
+   Cambrian-Gemma-7B (``GEMMA_7B`` with ``CAMBRIAN_SVA``: 28 layers, hidden
+   3072, 16 heads of 256, tied 256,000-row embeddings) at full width and
+   depth in bf16: three requests of 32 greedy tokens through ``generate``,
+   each launching K1 90 + 28 = 118 times; then quantized on the card to
+   int8 and to int4, one request each (7 x 28 x 32 launches of its kernel,
+   the prefill on the GEMM and 31 decode steps on ``gemv_m1_kernel`` by the
+   route counter); and ``ContinuousBatchingEngine`` on the bf16 model, 4
+   slots, 4 image requests of 16 tokens, K1 118 times an admission; (d)
+   Cambrian-Command-R (``COMMAND_R_35B`` with ``CAMBRIAN_SVA``, hidden 8192,
+   64 heads of 128) at full width with 8 of its 40 layers (the SVA
+   re-injected at layers 0, 3 and 6): two requests through ``generate``,
+   K1 98 times each. Encode, prefill and decode times and peak memory are
+   printed.
+
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
 """
@@ -331,6 +356,28 @@ ZOO_ITERS = 5            # timed forwards a batch, after one warm-up
 ZOO_8B_TOWERS = ("siglip/CLIP-ViT-SO400M-14-384", "eva/CLIP-ViT-L-336",
                  "facebook/dinov2-giant-res378", "diffusion")
 ZOO_8B_K1 = 27 + 23 + 40 + 15 + 32
+# phase 14, the decoder families: the tiny models' switches (a), the K1
+# cases at head_dim 256 and 192 (b), Cambrian-Gemma-7B's 28 layers and its
+# K1 a request (towers + prefill), its quantized projections a forward,
+# continuous batching's slots and budget, and Command-R's cut depth (d)
+FAMILY_TINY = {
+    "mistral_window": dict(model_type="mistral", sliding_window=24),
+    "gemma_d256": dict(model_type="gemma", hidden_act="gelu_pytorch_tanh", head_dim=256,
+                       tie_word_embeddings=True, rms_norm_eps=1e-6),
+    "gemma_softcap": dict(model_type="gemma", hidden_act="gelu_pytorch_tanh", head_dim=48,
+                          tie_word_embeddings=True, rms_norm_eps=1e-6,
+                          attn_logit_softcapping=0.5, final_logit_softcapping=1.0),
+    "cohere": dict(model_type="cohere", tie_word_embeddings=True, logit_scale=0.0625),
+    "cohere_qk_norm": dict(model_type="cohere", tie_word_embeddings=True, logit_scale=0.0625,
+                           use_qk_norm=True),
+}
+GEMMA_LAYERS = 28
+GEMMA_K1 = TOWER_K1_CALLS + GEMMA_LAYERS                # 118
+GEMMA_QUANT_PER_STEP = 7 * GEMMA_LAYERS
+FAMILY_CB_SLOTS = 4
+FAMILY_CB_TOKENS = 16
+COMMAND_R_LAYERS = 8
+COMMAND_R_K1 = TOWER_K1_CALLS + COMMAND_R_LAYERS        # 98
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
     "int4_matmul": ("cambrian_tpu/ops/quant.py:227", "int4"),
@@ -3467,6 +3514,305 @@ def zoo_phase(torch, fa, quant, prompts):
     return dict(tiny=tiny, towers=towers, k1_cases=cases, launches=path, cambrian=cambrian)
 
 
+# -- phase 14: the decoder families --------------------------------------------
+
+def family_tiny_phase(torch, fa, quant, rng):
+    """(a) a tiny Cambrian of each of FAMILY_TINY on the card against the
+    same on the CPU (fp32, TF32 off, the same weights and a 159-slot prompt,
+    so that the prefill takes the flash route where the family allows it):
+    identical greedy tokens; K1 a tower block and a decoder layer, none in
+    the decoder under the attention softcap."""
+    from cambrian_tpu_torch import IMAGE_TOKEN_INDEX, tiny_debug
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = all_counters(fa, quant)
+    records = {}
+    try:
+        for i, (name, switches) in enumerate(FAMILY_TINY.items()):
+            cfg = tiny_debug(num_towers=2).replace(tokenizer_model_max_length=192, **switches)
+            sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED + i), 0.05,
+                                   dtype=torch.float32, device="cpu")
+            cpu = CambrianForInference.from_state_dict(cfg, sd, torch.float32,
+                                                       cache_dtype=torch.float32)
+            gpu = CambrianForInference.from_state_dict(
+                cfg, {k: v.cuda() for k, v in sd.items()}, torch.float32,
+                cache_dtype=torch.float32)
+            ids = rng.integers(5, cfg.vocab_size, 140)
+            ids[cfg.image_position] = IMAGE_TOKEN_INDEX
+            images = [rng.standard_normal((1, 3, t.image_size, t.image_size)).astype(np.float32)
+                      for t in cpu.towers]
+            kw = dict(images=images, image_sizes=[(640, 360)], max_new_tokens=8,
+                      eos_token_id=None)
+            want = cpu.generate(ids, **kw)
+            zero_counts(counters)
+            got = gpu.generate(ids, **kw)
+            counts = read_counts(counters)
+            err = float((gpu.engine.last_next_logits.cpu() - cpu.engine.last_next_logits)
+                        .abs().max())
+            decoder_k1 = 0 if cfg.attn_logit_softcapping else cfg.num_hidden_layers
+            expected = {k: 0 for k in counters}
+            expected["flash_attention_fwd"] = (sum(t.config.num_blocks_to_run
+                                                   for t in gpu.towers) + decoder_k1)
+            print(f"phase 14 (a) tiny {name}: cpu tokens {want.tolist()} gpu tokens "
+                  f"{got.tolist()}; first-token logits max abs diff {err:.3e}; K1 launches "
+                  f"{counts['flash_attention_fwd']} ({decoder_k1} in the decoder)", flush=True)
+            check(got.shape == (1, 8) and (got == want).all(), f"tiny {name}: tokens differ")
+            check(counts == expected, f"tiny {name}: launches {counts}, not {expected}")
+            check(err < 1e-3, f"tiny {name}: logits differ by {err}")
+            records[name] = dict(tokens=got.tolist(), logit_err=err, launches=counts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return records
+
+
+def family_k1_phase(torch, fa, prompt):
+    """(b) K1 at head_dim 256 and 192 against its plain version (fp32, on
+    the upcast inputs), bf16 and fp32: Gemma-7B's prefill of ``prompt`` (its
+    queries, a cache of NEW_TOKENS more slots), the same with a hole in the
+    keys and a q_offset, under a window, and D = 192; K1, plain and SDPA
+    (a dense mask, the same work) alone: L2 flushed, a spin kernel, medians
+    of 30; the bound from the bytes moved and the live pairs' operations."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    s = len(prompt["mask"])
+    valid = torch.zeros((1, s + NEW_TOKENS), dtype=torch.bool)
+    valid[0, :s] = torch.from_numpy(prompt["mask"])
+    holed = valid.clone()
+    holed[0, 128:192] = False
+    cases = [
+        # name, s_q, s_k, heads, d, key validity, window, q_offset, per request
+        ("gemma_prefill", s, s + NEW_TOKENS, 16, 256, valid, None, 0, GEMMA_LAYERS),
+        ("gemma_hole_offset", s, s + NEW_TOKENS, 16, 256, holed, None, NEW_TOKENS // 2, 0),
+        ("gemma_window", s, s + NEW_TOKENS, 16, 256, valid, 256, 0, 0),
+        ("d192", s, s + NEW_TOKENS, 16, 192, valid, None, 0, 0),
+    ]
+    l2 = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    records = []
+    for name, s_q, s_k, h, d, kv, window, q_off, per_req in cases:
+        kv = kv.to(dev)
+        keep = kv[:, None, :].expand(1, s_q, s_k).clone()
+        q_pos = q_off + torch.arange(s_q, device=dev)[:, None]
+        k_pos = torch.arange(s_k, device=dev)[None, :]
+        keep &= k_pos <= q_pos
+        if window is not None:
+            keep &= (q_pos - k_pos) < window
+        pairs = int(keep.sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((1, s_q, h, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((1, s_k, h, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((1, s_k, h, d), generator=g, device=dev).to(dtype)
+
+            def kernel():
+                return fa.flash_attention(q, k, v, kv, True, window, q_off)
+
+            def plain():
+                return fa.flash_attention_reference(q, k, v, kv, True, window, q_off)
+
+            out = kernel()
+            ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), kv, True,
+                                               window, q_off)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+            check(torch.isfinite(out).all().item(), f"K1 {name} {dtype}: non-finite output")
+            check(err <= tol, f"K1 {name} {dtype}: max abs error {err} > {tol}")
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            dense = keep[:, None]
+            times = {key: cuda_ms(torch, fn, iters=30, flush=l2.sum, spin=SITE_SPIN_CYCLES,
+                                  median=True)
+                     for key, fn in (("ms", kernel), ("plain_ms", plain),
+                                     ("library_ms", lambda: F.scaled_dot_product_attention(
+                                         qt, kt, vt, attn_mask=dense)))}
+            dtype_name = str(dtype).replace("torch.", "")
+            n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() + (
+                kv.numel())
+            bound_ms, bound_by, bytes_ms, ops_ms = bound(n_bytes, 4 * h * d * pairs, dtype_name)
+            rec = dict(case=name, dtype=dtype_name, s_q=s_q, s_k=s_k, h=h, d=d, window=window,
+                       q_offset=q_off, pairs=pairs, max_abs_err=err, tol=tol,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       per_request=per_req, tflops=4 * h * d * pairs / times["ms"] / 1e9,
+                       **times)
+            records.append(rec)
+            print(f"phase 14 (b) K1 {name:18s} {dtype_name:8s} Sq={s_q} Sk={s_k} H={h} D={d}"
+                  + ("" if window is None else f" window={window}")
+                  + ("" if not q_off else f" q_offset={q_off}")
+                  + f": err {err:.3e} (tol {tol:.2e}) kernel {times['ms']:.4f} ms "
+                  f"({rec['tflops']:.1f} TFLOP/s) plain {times['plain_ms']:.4f} sdpa "
+                  f"{times['library_ms']:.4f} bound {bound_ms * 1e3:.2f} us ({bound_by})",
+                  flush=True)
+    return records
+
+
+def family_model(torch, cfg, quantize=None):
+    """A Cambrian of ``cfg`` with random bf16 weights made on the card from
+    the seed (quantized layer by layer with ``quantize``); its build time."""
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    t0 = time.perf_counter()
+    qcfg = cfg.replace(quantize=quantize)
+    sd = random_state_dict(qcfg, torch.Generator(device="cuda").manual_seed(SEED), 0.02,
+                           dtype=torch.bfloat16, device="cuda")
+    model = CambrianForInference.from_state_dict(qcfg, sd, torch.bfloat16)
+    del sd
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def family_continuous(torch, model, counters, cfg, prompts, sequential):
+    """``ContinuousBatchingEngine`` on the live model: FAMILY_CB_SLOTS slots
+    (max_len = context_len + 1024, bf16 cache, chunks of CB_CHUNK), as many
+    image requests of FAMILY_CB_TOKENS tokens cycling ``prompts`` and their
+    images, submitted at once; K1 GEMMA_K1 times an admission."""
+    from cambrian_tpu_torch.infer.continuous import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(model.lm, num_slots=FAMILY_CB_SLOTS,
+                                      max_len=cfg.tokenizer_model_max_length + CB_EXTRA_LEN)
+    reqs = []
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    for r in range(FAMILY_CB_SLOTS):
+        pr = prompts[r % len(prompts)]
+        pids, pmask, ppos, feats, aux_masks, gcfg, _ = model._prepare_generate(
+            pr["ids"], images=request_images(torch, model.towers, r % len(prompts)),
+            image_sizes=[pr["size"]], max_new_tokens=FAMILY_CB_TOKENS, eos_token_id=None)
+        reqs.append(engine.submit(pids[0], pmask[0], ppos[0], feats, aux_masks, gcfg))
+    out = engine.run_until_complete(reqs, chunk=CB_CHUNK)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(counters)
+    n_tokens = sum(len(t) for t in out)
+    agree = [float(np.mean(np.equal(t, sequential[r % len(prompts)][:len(t)])))
+             for r, t in enumerate(out)]
+    print(f"phase 14 (c) Gemma continuous batching: {len(out)} requests on {FAMILY_CB_SLOTS} "
+          f"slots, {n_tokens} tokens in {wall_ms:.1f} ms ({n_tokens / wall_ms * 1e3:.2f} "
+          f"tokens/s, encodes included); tokens agreeing with sequential generate's "
+          f"{[f'{a:.0%}' for a in agree]}; K1 {launches['flash_attention_fwd']}", flush=True)
+    for r, t in enumerate(out):
+        check(len(t) == FAMILY_CB_TOKENS and ((t >= 0) & (t < cfg.vocab_size)).all(),
+              f"Gemma continuous request {r}: {len(t)} tokens or a token out of range")
+    want = FAMILY_CB_SLOTS * GEMMA_K1
+    check(launches["flash_attention_fwd"] == want,
+          f"Gemma continuous: K1 launched {launches['flash_attention_fwd']}x, not {want}x")
+    return dict(tokens=[t.tolist() for t in out], wall_ms=wall_ms, agreement=agree,
+                launches=launches)
+
+
+def gemma_phase(torch, fa, quant, cfg, prompts):
+    """(c) Cambrian-Gemma-7B at full width and depth: bf16 requests, the
+    continuous engine, then int8 and int4 quantized on the card."""
+    counters = all_counters(fa, quant)
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = family_model(torch, cfg)
+    n_params = sum(p.numel() for p in model.lm.parameters()) + sum(
+        p.numel() for t in model.towers for p in t.parameters())
+    print(f"phase 14 (c) Cambrian-Gemma-7B bf16: {n_params / 1e9:.3f}B parameters built in "
+          f"{build_s:.1f} s; head_dim {cfg.head_dim}, tied head "
+          f"{tuple(model.lm.head().shape)} {model.lm.head().dtype}", flush=True)
+    requests = []
+    zero_counts(counters)                    # the main path's count starts here
+    for r, pr in enumerate(prompts):
+        requests.append(serve_request(torch, model, counters, cfg, r, pr, k1=GEMMA_K1))
+    launches = read_counts(counters)
+    unused = {k: launches[k] for k in VISION_KERNELS if launches[k]}
+    check(not unused, f"Gemma bf16: the main path launched K5-K8 {unused}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 14 (c) Gemma bf16 peak memory allocated: {peak / 2**30:.2f} GiB", flush=True)
+    continuous = family_continuous(torch, model, counters, cfg, prompts,
+                                   [rec["tokens"] for rec in requests])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantized = {}
+    zero_counts(counters)
+    for q in ("int8", "int4"):
+        torch.cuda.reset_peak_memory_stats()
+        model, build_s = family_model(torch, cfg, q)
+        fn = getattr(quant, f"{q}_matmul")
+        fn.function_launches.clear()
+        rec = serve_request(torch, model, counters, cfg, 0, prompts[0], k1=GEMMA_K1)
+        routes = dict(fn.function_launches)
+        want = {"gemm": GEMMA_QUANT_PER_STEP,
+                "gemv_m1_kernel": GEMMA_QUANT_PER_STEP * (NEW_TOKENS - 1)}
+        check(rec["launches"][f"{q}_matmul"] == GEMMA_QUANT_PER_STEP * NEW_TOKENS,
+              f"Gemma {q}: {q}_matmul launched {rec['launches'][f'{q}_matmul']}x")
+        check(routes == want, f"Gemma {q}: routes {routes}, not {want}")
+        rec.update(functions=routes, build_s=build_s, peak_bytes=torch.cuda.max_memory_allocated())
+        quantized[q] = rec
+        print(f"phase 14 (c) Gemma {q} (built in {build_s:.1f} s) request 0: prefill "
+              f"{rec['prefill_ms']:.1f} ms (bf16 {requests[0]['prefill_ms']:.1f}), decode "
+              f"{rec['decode_tokens_per_s']:.2f} tok/s (bf16 "
+              f"{requests[0]['decode_tokens_per_s']:.2f}); routes {routes}; peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    quant_launches = read_counts(counters)
+    return dict(requests=requests, continuous=continuous, quantized=quantized,
+                n_params=n_params, peak_bytes=peak,
+                launches=[launches, continuous["launches"], quant_launches])
+
+
+def command_r_phase(torch, fa, quant, cfg, prompts):
+    """(d) Cambrian-Command-R at full width, COMMAND_R_LAYERS of its 40
+    layers: two requests through ``generate``."""
+    counters = all_counters(fa, quant)
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = family_model(torch, cfg)
+    n_params = sum(p.numel() for p in model.lm.parameters()) + sum(
+        p.numel() for t in model.towers for p in t.parameters())
+    print(f"phase 14 (d) Cambrian-Command-R bf16, {cfg.num_hidden_layers} layers: "
+          f"{n_params / 1e9:.3f}B parameters built in {build_s:.1f} s", flush=True)
+    zero_counts(counters)                    # the main path's count starts here
+    requests = [serve_request(torch, model, counters, cfg, r, pr, k1=COMMAND_R_K1)
+                for r, pr in enumerate(prompts[:2])]
+    launches = read_counts(counters)
+    unused = {k: launches[k] for k in VISION_KERNELS if launches[k]}
+    check(not unused, f"Command-R: the main path launched K5-K8 {unused}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 14 (d) Command-R peak memory allocated: {peak / 2**30:.2f} GiB", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(requests=requests, n_params=n_params, peak_bytes=peak, launches=[launches])
+
+
+def family_phase(torch, fa, quant):
+    """Phase 14: (a) tiny parity, (b) K1 at head_dim 256, (c)
+    Cambrian-Gemma-7B, (d) Cambrian-Command-R at its cut depth."""
+    from cambrian_tpu_torch.models.config import (
+        CAMBRIAN_SVA,
+        COMMAND_R_35B,
+        GEMMA_7B,
+        CambrianConfig,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    tiny = family_tiny_phase(torch, fa, quant, rng)
+    gemma_cfg = CambrianConfig(**{**GEMMA_7B, **CAMBRIAN_SVA})
+    check(gemma_cfg.num_hidden_layers == GEMMA_LAYERS and gemma_cfg.head_dim == 256,
+          f"Gemma-7B: {gemma_cfg.num_hidden_layers} layers, head_dim {gemma_cfg.head_dim}")
+    prompts = build_prompts(gemma_cfg, rng)
+    k1_cases = family_k1_phase(torch, fa, prompts[0])
+    gemma = gemma_phase(torch, fa, quant, gemma_cfg, prompts)
+    # the cut: COMMAND_R_LAYERS decoder layers, with the SVA re-injected at
+    # every third of them (0, 3, 6), as the 40-layer recipe does
+    command_r_cfg = CambrianConfig(**{**COMMAND_R_35B, **CAMBRIAN_SVA}).replace(
+        num_hidden_layers=COMMAND_R_LAYERS,
+        num_of_vision_sampler_layers=len(range(0, COMMAND_R_LAYERS, 3)))
+    command_r = command_r_phase(torch, fa, quant, command_r_cfg, build_prompts(
+        command_r_cfg, rng))
+    print(f"phase 14 (decoder families): {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(tiny=tiny, k1_cases=k1_cases, gemma=gemma, command_r=command_r,
+                launches=gemma["launches"] + command_r["launches"])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3502,9 +3848,9 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(line.strip(), flush=True)
     # K1 and K2 on the tensor cores: every bf16 kernel function (one per
-    # padded head dimension 16 .. 128) must contain wgmma (HGMMA); so must
-    # the quant matmuls' bf16 prefill functions and K8's bf16 GEMMs, without
-    # mma.sync (HMMA)
+    # padded head dimension, 16 .. 256 for K1, 16 .. 128 for K2) must contain
+    # wgmma (HGMMA); so must the quant matmuls' bf16 prefill functions and
+    # K8's bf16 GEMMs, without mma.sync (HMMA)
     sass = {}
     for lib in ("flash_attention", "flash_attention_bwd", "quant_matmul", "fused_mlp"):
         regs = register_use(built[lib]["log"])
@@ -3515,7 +3861,23 @@ def main(argv=None):
             print(f"sass {lib}: {fn}: {hgmma} HGMMA, {hmma} HMMA, {i2f} I2F, {n_regs} registers, "
                   f"{spills} bytes spilled", flush=True)
     bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
-    check(len(bf16_fns) == 24, f"expected 3 x 8 bf16 kernel functions of K1/K2, found {bf16_fns}")
+    check(len(bf16_fns) == 32, f"expected 16 bf16 kernel functions of K1 and 2 x 8 of K2, "
+          f"found {bf16_fns}")
+    # K1 up to head_dim 256: every function there, none spilling (no stack,
+    # no local memory), the widest's registers printed
+    k1_usage = resource_usage(built["flash_attention"]["path"])
+    want_k1 = {f"fwd_bf16_kernel<{dp}>" for dp in range(16, 257, 16)}
+    want_k1 |= {"flash_fwd_kernel<float,8>", "flash_fwd_kernel<float,16>"}
+    check(set(k1_usage) == want_k1, f"flash_attention: {sorted(k1_usage)}, not {sorted(want_k1)}")
+    for fn in sorted(want_k1):
+        regs, stack, local = k1_usage[fn]
+        sass[fn].update(registers=regs, stack_bytes=stack, local_bytes=local)
+    spilled = {fn: u for fn, u in k1_usage.items() if u[1] or u[2]}
+    check(not spilled, f"K1 functions spill (registers, stack, local): {spilled}")
+    print("K1 registers (none spills): " + ", ".join(
+        f"{fn} {k1_usage[fn][0]}" for fn in ("fwd_bf16_kernel<128>", "fwd_bf16_kernel<192>",
+                                             "fwd_bf16_kernel<256>", "flash_fwd_kernel<float,8>",
+                                             "flash_fwd_kernel<float,16>")), flush=True)
     check(all(sass[fn]["hgmma"] > 0 for fn in bf16_fns),
           f"bf16 K1/K2 functions without HGMMA: "
           f"{[fn for fn in bf16_fns if not sass[fn]['hgmma']]}")
@@ -3688,13 +4050,14 @@ def main(argv=None):
     phi3 = phi3_phase(torch, fa, quant)
     print(f"phase 11 (Cambrian-Phi-3): {time.perf_counter() - t11:.1f} s", flush=True)
     zoo = zoo_phase(torch, fa, quant, prompts)
+    families = family_phase(torch, fa, quant)
 
     # launches: each path's counts (8B serving and training, Phi-3 serving
     # and loading), read just after it, summed over paths
     paths = [f["launches"] for f in full.values()] + [train["launches"], phi3["launches"]]
     paths += [f["continuous"]["launches"] for f in full.values()]
     paths += [f["http"]["launches"] for f in full.values() if f["http"]]
-    paths += [zoo["launches"], zoo["cambrian"]["launches"]]
+    paths += [zoo["launches"], zoo["cambrian"]["launches"]] + families["launches"]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -3801,6 +4164,37 @@ def main(argv=None):
     print(f"flash_attention_fwd_towers: an image through the {len(ZOO_TOWERS)} towers: kernel "
           f"{zoo_k1['ms']:.3f} ms, plain {zoo_k1['plain_ms']:.3f} ms, sdpa "
           f"{zoo_k1['library_ms']:.3f} ms, bound {zoo_k1['bound_ms']:.4f} ms", flush=True)
+    # K1 at Gemma-7B's prefill (phase 14): a request's 28 decoder calls at
+    # head_dim 256 (bf16); launches: phase 14's main paths' decoder calls
+    gemma_k1 = [c for c in families["k1_cases"] if c["per_request"] and c["dtype"] == "bfloat16"]
+    gemma_paths = families["launches"][:3]
+    gemma_launches = sum(p["flash_attention_fwd"] for p in gemma_paths) - TOWER_K1_CALLS * (
+        len(families["gemma"]["requests"]) + len(families["gemma"]["quantized"])
+        + FAMILY_CB_SLOTS)
+    check(gemma_launches == GEMMA_LAYERS * (len(families["gemma"]["requests"])
+                                            + len(families["gemma"]["quantized"])
+                                            + FAMILY_CB_SLOTS),
+          f"Gemma's decoder K1 launches {gemma_launches}")
+    per_req = {key: sum(c[key] * c["per_request"] for c in gemma_k1)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    rows.append({
+        "name": "flash_attention_fwd_gemma",
+        "route": "cuda",
+        "source": "cambrian_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "cambrian_tpu/ops/flash_attention.py:36",
+        "launches": gemma_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in families["k1_cases"]
+                           if c["dtype"] == "bfloat16"),
+        "ms": per_req["ms"],
+        "plain_ms": per_req["plain_ms"],
+        "bound_ms": per_req["bound_ms"],
+        "bound_by": "bytes" if per_req["bytes_ms"] >= per_req["ops_ms"] else "operations",
+        "library_ms": per_req["library_ms"],
+    })
+    print(f"flash_attention_fwd_gemma: a Gemma-7B request's {GEMMA_LAYERS} prefill calls at "
+          f"head_dim 256: kernel {per_req['ms']:.3f} ms, plain {per_req['plain_ms']:.3f} ms, "
+          f"sdpa {per_req['library_ms']:.3f} ms, bound {per_req['bound_ms']:.4f} ms "
+          f"({rows[-1]['bound_by']})", flush=True)
     # K2: per training step, 32 calls at the decoder's shape (bf16)
     rows.append({
         "name": "flash_attention_bwd",
@@ -3855,7 +4249,8 @@ def main(argv=None):
             json.dump(dict(card=smi, build={k: v["seconds"] for k, v in built.items()}, sass=sass,
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
-                           vision=vision, phi3=phi3, zoo=zoo, summary=summary), f, indent=1)
+                           vision=vision, phi3=phi3, zoo=zoo, families=families,
+                           summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

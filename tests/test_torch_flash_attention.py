@@ -14,8 +14,12 @@ import pytest
 import torch
 
 from cambrian_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM_BWD,
+    MAX_HEAD_DIM_FWD,
+    _check_inputs,
     _flash_fwd,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_lse_reference,
     flash_attention_reference,
 )
@@ -67,6 +71,12 @@ CASES = {
     "sq_ne_sk_prefill": (2, 100, 132, 2, 2, 32, [90, 100], True, None, 0),
     "gqa": (2, 70, 70, 4, 2, 32, [70, 50], True, None, 0),
     "head_dim_72": (1, 80, 80, 2, 2, 72, None, False, None, 0),
+    # Gemma-7B's head_dim (the JAX kernel pads D to a multiple of 128), and
+    # 192 (one and a half of its 128-lane blocks)
+    "d256_causal": (1, 130, 130, 2, 2, 256, None, True, None, 0),
+    "d256_window_padded": (2, 100, 140, 2, 1, 256, [140, 97], True, 24, 40),
+    "d192_padded": (2, 70, 96, 2, 2, 192, [96, 60], False, None, 0),
+    "d192_window": (1, 96, 96, 2, 2, 192, None, True, 16, 0),
 }
 
 
@@ -148,6 +158,24 @@ def test_plain_row_statistic_matches_numpy(name):
         assert np.isfinite(got[0, :, 10:].numpy()).all()
 
 
+def test_head_dim_limits():
+    """The card's limits, checked before any launch: the forward (K1) takes
+    head_dim up to 256, the backward (K2) up to 128, and above that raises
+    naming the ROADMAP item; on the CPU the plain versions take any D."""
+    assert (MAX_HEAD_DIM_FWD, MAX_HEAD_DIM_BWD) == (256, 128)
+    for d in (136, 192, 256):
+        q, k, v, valid = (torch.from_numpy(x) for x in _inputs(1, 3, 3, 2, 1, d, seed=d))
+        _check_inputs("flash_attention", q, k, v, valid, MAX_HEAD_DIM_FWD)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            _check_inputs("flash_attention_bwd", q, k, v, valid, MAX_HEAD_DIM_BWD)
+    q, k, v, valid = (torch.from_numpy(x) for x in _inputs(1, 3, 3, 2, 1, 264, seed=1))
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        _check_inputs("flash_attention", q, k, v, valid, MAX_HEAD_DIM_FWD)
+    got = flash_attention(q, k, v, valid, causal=True)
+    torch.testing.assert_close(got, flash_attention_reference(q, k, v, valid, True),
+                               atol=0, rtol=0)
+
+
 def test_wrapper_routes_cpu_tensors_to_plain():
     q, k, v, valid = _inputs(1, 20, 24, 4, 2, 8, seed=3, valid_len=[21])
     args = [torch.from_numpy(x) for x in (q, k, v, valid)]
@@ -187,6 +215,15 @@ KERNEL_CASES = {
     "sd21_4096": (1, 4096, 4096, 5, 5, 64, False, None, 0, None),
     "d80_window": (2, 150, 150, 4, 2, 80, True, 40, 0, "pad"),
     "d88_hole": (2, 300, 300, 4, 2, 88, True, None, 0, "hole"),
+    # Gemma-7B's prefill (D = 256, 16 heads, a 645-slot prompt in a cache of
+    # 32 more), D = 256 under a window, a hole and q_offset, and the widths
+    # between 128 and 256 (m64n128k16 and a narrower product for P V)
+    "gemma_prefill": (1, 645, 677, 16, 16, 256, True, None, 0, "pad"),
+    "d256_window_hole": (2, 150, 150, 4, 2, 256, True, 40, 0, "hole"),
+    "d256_offset": (2, 40, 100, 2, 1, 256, True, None, 60, "pad"),
+    "d192": (2, 130, 130, 4, 2, 192, True, None, 0, None),
+    "d136_pad": (2, 70, 200, 4, 4, 136, False, None, 0, "pad"),
+    "d200_window": (1, 200, 200, 4, 2, 200, True, 64, 0, None),
 }
 
 
@@ -266,3 +303,19 @@ def test_bf16_tma_layout_rules_raise(cuda_device, rule):
     with pytest.raises(ValueError, match="TMA"):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_head_dim_256_forward_launches_and_backward_raises_on_card(cuda_device):
+    """K1 launches at D = 256 in both dtypes; K2 on a CUDA tensor above 128
+    raises before any launch, named by the ROADMAP item (no fallback)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, valid = _card_inputs(cuda_device, dtype, 1, 130, 130, 2, 2, 256, "pad")
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, valid, True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1 and torch.isfinite(out).all()
+        before = flash_attention_bwd.launches
+        with pytest.raises(ValueError, match="ROADMAP"):
+            flash_attention_bwd(q, k, v, valid, out, torch.ones_like(out), True)
+        assert flash_attention_bwd.launches == before

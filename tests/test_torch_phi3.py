@@ -191,13 +191,18 @@ def test_rope_scaling_factors_match_jax(variant, capacity):
 
 
 def test_unsupported_rope_scaling_and_families_raise():
+    """A rope scaling type the JAX package refuses raises, and so does a
+    quantization mode other than int8 / int4; every decoder family the JAX
+    package serves (Mistral, Gemma, Cohere, ported since) passes."""
     with pytest.raises(ValueError, match="unsupported rope_scaling"):
         tllama.check_supported(CambrianConfig.from_dict(
             _phi3(rope_scaling={"type": "yarn", "factor": 2.0}).to_dict()))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tllama.check_supported(CambrianConfig.from_dict(
+            tiny_debug().replace(quantize="int2").to_dict()))
     for family in ("mistral", "gemma", "cohere"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tllama.check_supported(CambrianConfig.from_dict(
-                tiny_debug().replace(model_type=family).to_dict()))
+        tllama.check_supported(CambrianConfig.from_dict(
+            tiny_debug().replace(model_type=family).to_dict()))
 
 
 # -- the bf16 LM head -------------------------------------------------------------
