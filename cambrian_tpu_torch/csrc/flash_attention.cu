@@ -49,7 +49,7 @@
 // two K and two V tiles take 160 KB of shared memory (one block an SM), and
 // one consumer thread holds O's 64 x 256 fp32 tile as 128 registers beside
 // S's 32. P V is one m64n256k16 a k16 step at DP = 256 and, between 128 and
-// 256, an m64n128k16 and a narrower one (pv_step).
+// 256, an m64n128k16 and a narrower one (hopper.cuh, wgmma_rs_tile).
 //
 // fp32: SIMT FMAs on tiles converted to fp32 in shared memory, exact to fp32
 // rounding; it carries the card-vs-CPU parity of the fp32 paths. At D = 256
@@ -307,24 +307,6 @@ struct FwdSmem {
   uint64_t empty[kStages];
 };
 
-// O += P V for k16 step kk of the V tile: one wgmma over all DP columns of O
-// (m64n{DP}k16) up to DP = 128 and at DP = 256; between them, O's first 128
-// columns, then the rest (the register forms of wgmma_rs_mn stop at N = 128
-// below 256). The columns from 128 on start 128 / kChunkCols chunks into V.
-template <int DP>
-__device__ __forceinline__ void pv_step(float (&o)[DP / 2], const uint32_t (&a)[4],
-                                        const __nv_bfloat16* v, int kk) {
-  using namespace hopper;
-  if constexpr (DP <= 128 || DP == 256) {
-    wgmma_rs_mn(o, a, desc_mn_major<DP>(v, kk));
-  } else {
-    using T = Tile<DP>;
-    wgmma_rs_mn(*reinterpret_cast<float(*)[64]>(&o[0]), a, desc_mn_major<DP>(v, kk));
-    wgmma_rs_mn(*reinterpret_cast<float(*)[DP / 2 - 64]>(&o[64]), a,
-                desc_mn_major<DP>(v + (128 / T::kChunkCols) * T::kChunkBytes / 2, kk));
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads) fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -461,7 +443,7 @@ __global__ void __launch_bounds__(kTcThreads) fwd_bf16_kernel(
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pv_step<DP>(o, a[kk], s.v[stage], kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<DP>(o, a[kk], s.v[stage], kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);

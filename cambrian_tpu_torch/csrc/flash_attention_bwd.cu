@@ -46,8 +46,26 @@
 // accumulators, S^T, dP^T and their bf16 copies: 255 registers at D = 128,
 // so one block an SM.
 //
+// Head dimensions up to 256 (Gemma-7B's). Above D = 128 the two fp32
+// [64, D] accumulators of dK and dV would take 256 registers a thread, more
+// than a thread has, so the dk/dv step is two launches of the same kernel
+// function: one accumulates dV alone (S^T -> P^T, dV += P^T dO), the other
+// dK alone (S^T and dP^T -> dS^T, dK += dS^T Q). Each holds one [64, D]
+// accumulator (128 registers at D = 256) beside S^T and dP^T, as the dq
+// kernel does. That is 8 products a live pair instead of 7 (S^T twice) and
+// one more launch behind the call, still without atomics; the other form, two
+// consumer warpgroups each holding half of dK's and dV's columns and
+// exchanging P^T and dS^T through shared memory, keeps 7 but needs named
+// barriers between the warpgroups. At DP = 256 a block's resident K and V
+// (or Q and dO) tiles and two stages of the walked pair take 192 KB of shared
+// memory. Products into a [64, DP] accumulator take one m64n{DP}k16 up to 128
+// and at 256, and an m64n128k16 and a narrower one between (wgmma_rs_tile).
+//
 // fp32: SIMT FMAs on tiles staged as fp32 in shared memory (rows of K/V padded
-// by one float against bank conflicts), exact to fp32 rounding.
+// by one float against bank conflicts), exact to fp32 rounding. Up to D = 128
+// a block takes 64-row q tiles, each thread 8 columns; above, 32-row q tiles
+// and 16 columns a thread, so that the tiles fit in shared memory (214,016
+// bytes for dk/dv and 205,696 for dq at D = 256).
 
 #include <math.h>
 
@@ -57,9 +75,8 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // fp32 kernels: a 16 x 16 grid, 4 rows x 4 (or 8) columns each
-constexpr int kMaxD = 128;
-constexpr int kMaxCols = kMaxD / 16;
+constexpr int kThreads = 256;  // fp32 kernels: a 16 x 16 grid of threads
+constexpr int kMaxD = 256;
 constexpr int kLdp = kBlockK + 1;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStages = 2;                          // bf16 kernels: the walked tiles' ring
@@ -112,12 +129,13 @@ __device__ __forceinline__ bool live(const Params& p, const uint8_t* valid, int 
   return valid == nullptr || valid[kj] != 0;
 }
 
-// The key range [begin, end) a q tile [q0, q0 + 64) can see, as in K1.
-__device__ __forceinline__ void key_range(const Params& p, int q0, int* begin, int* end) {
+// The key range [begin, end) a q tile [q0, q0 + rows) can see, as in K1.
+__device__ __forceinline__ void key_range(const Params& p, int q0, int* begin, int* end,
+                                          int rows = kBlockQ) {
   *begin = 0;
   *end = p.Sk;
   if (p.causal) {
-    const int last_q = min(q0 + kBlockQ, p.Sq) - 1 + p.q_offset;
+    const int last_q = min(q0 + rows, p.Sq) - 1 + p.q_offset;
     *end = min(*end, last_q + 1);
   }
   if (p.window > 0) *begin = max(0, q0 + p.q_offset - p.window + 1) / kBlockK * kBlockK;
@@ -150,34 +168,41 @@ __global__ void __launch_bounds__(kThreads) bwd_delta_kernel(Params p) {
 }
 
 // -- fp32: SIMT ---------------------------------------------------------------
+//
+// A block's threads form a 16 x 16 grid (ty, tx). kRows: the rows of a q tile
+// (64, or 32 above D = 128), R = kRows / 16 of them a thread (ty * R + r);
+// each thread takes 4 keys of the 64-key tile (tx + 16 j) in the products,
+// and kCols head-dimension columns (tx + 16 j) of its accumulators: 8 up to
+// D = 128, 16 above.
 
-// Stage rows [r0, r0 + rows_cap) of a [S, D] slice (stride ld_g between rows)
+// Stage rows [r0, r0 + rows) of a [S, D] slice (stride ld_g between rows)
 // into shared memory as fp32 with row stride ld_s; rows past S are 0.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, int ld_s, const T* src, int64_t ld_g,
-                                      int r0, int S, int D) {
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
+                                      int r0, int rows, int S, int D) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D, g = r0 + r;
     dst[r * ld_s + c] = g < S ? load_f32(src + g * ld_g + c) : 0.f;
   }
 }
 
-// s = A B^T and t = C E^T on 4 x 4 (row, key) pairs of a thread: rows ty*4 + r
+// s = A B^T and t = C E^T on R x 4 (row, key) pairs of a thread: rows ty*R + r
 // of A/C (row stride D), keys tx + 16 j of B/E (row stride D + 1).
+template <int R>
 __device__ __forceinline__ void two_products(const float* A, const float* B, const float* C,
                                              const float* E, int D, int ty, int tx,
-                                             float s[4][4], float t[4][4]) {
+                                             float s[R][4], float t[R][4]) {
   const int ldk = D + 1;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[r][j] = t[r][j] = 0.f;
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4], c[4], e[4];
+    float a[R], b[4], c[R], e[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = A[(ty * 4 + r) * D + d];
-      c[r] = C[(ty * 4 + r) * D + d];
+    for (int r = 0; r < R; ++r) {
+      a[r] = A[(ty * R + r) * D + d];
+      c[r] = C[(ty * R + r) * D + d];
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -185,7 +210,7 @@ __device__ __forceinline__ void two_products(const float* A, const float* B, con
       e[j] = E[(tx + 16 * j) * ldk + d];
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[r][j] = fmaf(a[r], b[j], s[r][j]);
@@ -194,15 +219,16 @@ __device__ __forceinline__ void two_products(const float* A, const float* B, con
   }
 }
 
-// p and ds of a thread's 4 x 4 (row, key) pairs, from the logits s and
-// dp = do . v, written to sP / sdS ([64][65]) when given.
+// p and ds of a thread's R x 4 (row, key) pairs, from the logits s and
+// dp = do . v, written to sP / sdS ([rows][65]) when given.
+template <int R>
 __device__ __forceinline__ void probs_and_ds(const Params& p, const uint8_t* valid, int q0,
-                                             int k0, int ty, int tx, const float s[4][4],
-                                             const float dp[4][4], const float* sLse,
+                                             int k0, int ty, int tx, const float s[R][4],
+                                             const float dp[R][4], const float* sLse,
                                              const float* sDelta, float* sP, float* sdS) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
+  for (int r = 0; r < R; ++r) {
+    const int row = ty * R + r;
     const float lse = sLse[row];
     const float delta = sDelta[row];
 #pragma unroll
@@ -216,9 +242,9 @@ __device__ __forceinline__ void probs_and_ds(const Params& p, const uint8_t* val
   }
 }
 
-__device__ __forceinline__ void load_stats(const Params& p, int b, int h, int q0, float* sLse,
-                                           float* sDelta) {
-  if (threadIdx.x < kBlockQ) {
+__device__ __forceinline__ void load_stats(const Params& p, int b, int h, int q0, int rows,
+                                           float* sLse, float* sDelta) {
+  if (threadIdx.x < rows) {
     const int qi = q0 + threadIdx.x;
     const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + qi;
     sLse[threadIdx.x] = qi < p.Sq ? p.lse[idx] : INFINITY;
@@ -228,19 +254,20 @@ __device__ __forceinline__ void load_stats(const Params& p, int b, int h, int q0
 
 // 2. dk, dv of one 64-row K tile of one (batch, kv head), over its group of
 // query heads.
-template <typename T>
+template <typename T, int kRows, int kCols>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
+  constexpr int R = kRows / 16;
   extern __shared__ float smem[];
   const int D = p.D;
   const int ldk = D + 1;
   float* sK = smem;
   float* sV = sK + kBlockK * ldk;
   float* sQ = sV + kBlockK * ldk;
-  float* sdO = sQ + kBlockQ * D;
-  float* sP = sdO + kBlockQ * D;
-  float* sdS = sP + kBlockQ * kLdp;
-  float* sLse = sdS + kBlockQ * kLdp;
-  float* sDelta = sLse + kBlockQ;
+  float* sdO = sQ + kRows * D;
+  float* sP = sdO + kRows * D;
+  float* sdS = sP + kRows * kLdp;
+  float* sLse = sdS + kRows * kLdp;
+  float* sDelta = sLse + kRows;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.y / p.KVH;
@@ -251,14 +278,15 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
 
-  stage(sK, ldk, K, p.k_ss, k0, p.Sk, D);
-  stage(sV, ldk, V, p.v_ss, k0, p.Sk, D);
+  stage(sK, ldk, K, p.k_ss, k0, kBlockK, p.Sk, D);
+  stage(sV, ldk, V, p.v_ss, k0, kBlockK, p.Sk, D);
 
-  float acc_dk[4][kMaxCols], acc_dv[4][kMaxCols];
+  // this thread's keys ty * 4 + r of the tile, columns tx + 16 j
+  float acc_dk[4][kCols], acc_dv[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) acc_dk[r][j] = acc_dv[r][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc_dk[r][j] = acc_dv[r][j] = 0.f;
 
   int q_begin, q_end;
   query_range(p, k0, &q_begin, &q_end);
@@ -266,18 +294,18 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
     const int h = kvh * group + hh;
     const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* dO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int q0 = q_begin; q0 < q_end; q0 += kBlockQ) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kRows) {
       __syncthreads();  // the previous tile's readers are done
-      stage(sQ, D, Q, p.q_ss, q0, p.Sq, D);
-      stage(sdO, D, dO, p.do_ss, q0, p.Sq, D);
-      load_stats(p, b, h, q0, sLse, sDelta);
+      stage(sQ, D, Q, p.q_ss, q0, kRows, p.Sq, D);
+      stage(sdO, D, dO, p.do_ss, q0, kRows, p.Sq, D);
+      load_stats(p, b, h, q0, kRows, sLse, sDelta);
       __syncthreads();
-      float s[4][4], dp[4][4];
-      two_products(sQ, sK, sdO, sV, D, ty, tx, s, dp);
-      probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, sP, sdS);
+      float s[R][4], dp[R][4];
+      two_products<R>(sQ, sK, sdO, sV, D, ty, tx, s, dp);
+      probs_and_ds<R>(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, sP, sdS);
       __syncthreads();
       // dv[k][c] += sum_q p[q][k] do[q][c];  dk[k][c] += sum_q ds[q][k] q[q][c]
-      for (int qq = 0; qq < kBlockQ; ++qq) {
+      for (int qq = 0; qq < kRows; ++qq) {
         float pv[4], dsv[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -285,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
           dsv[r] = sdS[qq * kLdp + ty * 4 + r];
         }
 #pragma unroll
-        for (int j = 0; j < kMaxCols; ++j) {
+        for (int j = 0; j < kCols; ++j) {
           const int c = tx + 16 * j;
           if (c < D) {
             const float dov = sdO[qq * D + c];
@@ -308,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
     const int kj = k0 + ty * 4 + r;
     if (kj >= p.Sk) continue;
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
       if (c < D) {
         store_as(dK + kj * p.dk_ss + c, acc_dk[r][j]);
@@ -318,64 +346,65 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
   }
 }
 
-// 3. dq of one 64-row q tile of one (batch, head).
-template <typename T>
+// 3. dq of one kRows-row q tile of one (batch, head).
+template <typename T, int kRows, int kCols>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
+  constexpr int R = kRows / 16;
   extern __shared__ float smem[];
   const int D = p.D;
   const int ldk = D + 1;
   float* sQ = smem;
-  float* sdO = sQ + kBlockQ * D;
-  float* sK = sdO + kBlockQ * D;
+  float* sdO = sQ + kRows * D;
+  float* sK = sdO + kRows * D;
   float* sV = sK + kBlockK * ldk;
   float* sdS = sV + kBlockK * ldk;
-  float* sLse = sdS + kBlockQ * kLdp;
-  float* sDelta = sLse + kBlockQ;
+  float* sLse = sdS + kRows * kLdp;
+  float* sDelta = sLse + kRows;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kRows;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* dO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const uint8_t* valid = p.key_valid ? p.key_valid + (int64_t)b * p.Sk : nullptr;
 
-  stage(sQ, D, Q, p.q_ss, q0, p.Sq, D);
-  stage(sdO, D, dO, p.do_ss, q0, p.Sq, D);
-  load_stats(p, b, h, q0, sLse, sDelta);
+  stage(sQ, D, Q, p.q_ss, q0, kRows, p.Sq, D);
+  stage(sdO, D, dO, p.do_ss, q0, kRows, p.Sq, D);
+  load_stats(p, b, h, q0, kRows, sLse, sDelta);
 
-  float acc[4][kMaxCols];
+  float acc[R][kCols];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
 
   int k_begin, k_end;
-  key_range(p, q0, &k_begin, &k_end);
+  key_range(p, q0, &k_begin, &k_end, kRows);
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's readers are done
-    stage(sK, ldk, K, p.k_ss, k0, p.Sk, D);
-    stage(sV, ldk, V, p.v_ss, k0, p.Sk, D);
+    stage(sK, ldk, K, p.k_ss, k0, kBlockK, p.Sk, D);
+    stage(sV, ldk, V, p.v_ss, k0, kBlockK, p.Sk, D);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    two_products(sQ, sK, sdO, sV, D, ty, tx, s, dp);
-    probs_and_ds(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, nullptr, sdS);
+    float s[R][4], dp[R][4];
+    two_products<R>(sQ, sK, sdO, sV, D, ty, tx, s, dp);
+    probs_and_ds<R>(p, valid, q0, k0, ty, tx, s, dp, sLse, sDelta, nullptr, sdS);
     __syncthreads();
     // dq[q][c] += sum_k ds[q][k] k[k][c]
     for (int kk = 0; kk < kBlockK; ++kk) {
-      float dsv[4];
+      float dsv[R];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) dsv[r] = sdS[(ty * 4 + r) * kLdp + kk];
+      for (int r = 0; r < R; ++r) dsv[r] = sdS[(ty * R + r) * kLdp + kk];
 #pragma unroll
-      for (int j = 0; j < kMaxCols; ++j) {
+      for (int j = 0; j < kCols; ++j) {
         const int c = tx + 16 * j;
         if (c < D) {
           const float kv = sK[kk * ldk + c];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(dsv[r], kv, acc[r][j]);
+          for (int r = 0; r < R; ++r) acc[r][j] = fmaf(dsv[r], kv, acc[r][j]);
         }
       }
     }
@@ -383,24 +412,25 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
 
   T* dQ = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + ty * 4 + r;
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + ty * R + r;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
       if (c < D) store_as(dQ + qi * p.dq_ss + c, acc[r][j]);
     }
   }
 }
 
-size_t dkdv_smem(int d) {
-  return sizeof(float) * (size_t)(2 * kBlockK * (d + 1) + 2 * kBlockQ * d + 2 * kBlockQ * kLdp +
-                                  2 * kBlockQ);
+// Shared memory of the fp32 kernels at head_dim d with q tiles of `rows`.
+size_t dkdv_smem(int d, int rows) {
+  return sizeof(float) * (size_t)(2 * kBlockK * (d + 1) + 2 * rows * d + 2 * rows * kLdp +
+                                  2 * rows);
 }
-size_t dq_smem(int d) {
-  return sizeof(float) * (size_t)(2 * kBlockQ * d + 2 * kBlockK * (d + 1) + kBlockQ * kLdp +
-                                  2 * kBlockQ);
+size_t dq_smem(int d, int rows) {
+  return sizeof(float) * (size_t)(2 * rows * d + 2 * kBlockK * (d + 1) + rows * kLdp +
+                                  2 * rows);
 }
 
 // -- bf16: tensor cores -------------------------------------------------------
@@ -423,12 +453,20 @@ struct DkdvSmem {
   uint64_t empty[kStages];
 };
 
-template <int DP>
+// What a dk/dv kernel function accumulates: dK and dV (DP <= 128), or, above
+// DP = 128, dV alone or dK alone (two launches; see the top of the file).
+constexpr int kDkDv = 0;
+constexpr int kDvOnly = 1;
+constexpr int kDkOnly = 2;
+
+template <int DP, int kOut>
 __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     Params p) {
   using namespace hopper;
+  constexpr bool kDv = kOut != kDkOnly;  // accumulates dV: needs P^T
+  constexpr bool kDk = kOut != kDvOnly;  // accumulates dK: needs dS^T, so dP^T and V
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   DkdvSmem<DP>& sm = *reinterpret_cast<DkdvSmem<DP>*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -444,8 +482,8 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
     for (int i = tid; i < kBlockK * pairs; i += kTcThreads) {
       const int kj = k0 + i / pairs, c = 2 * (i % pairs);
       if (kj < p.Sk) {
-        store_pair(dK + kj * p.dk_ss + c, 0.f, 0.f);
-        store_pair(dV + kj * p.dv_ss + c, 0.f, 0.f);
+        if (kDk) store_pair(dK + kj * p.dk_ss + c, 0.f, 0.f);
+        if (kDv) store_pair(dV + kj * p.dv_ss + c, 0.f, 0.f);
       }
     }
     return;
@@ -465,12 +503,12 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
   query_range(p, k0, &q_begin, &q_end);
 
   if (warp == kConsumerThreads / 32) {
-    // producer: K and V once, then Q and dO of each head of the group and
-    // each q tile that can see the key tile
+    // producer: K (and V, for dK) once, then Q and dO of each head of the
+    // group and each q tile that can see the key tile
     if (lane == 0) {
-      mbar_expect_tx(&sm.kv_full, 2 * Tile<DP>::kBytes);
+      mbar_expect_tx(&sm.kv_full, (kDk ? 2 : 1) * Tile<DP>::kBytes);
       tma_load_tile<DP>(sm.k, &tm_k, &sm.kv_full, k0, kvh, b);
-      tma_load_tile<DP>(sm.v, &tm_v, &sm.kv_full, k0, kvh, b);
+      if (kDk) tma_load_tile<DP>(sm.v, &tm_v, &sm.kv_full, k0, kvh, b);
       int stage = 0, phase = 0;
       for (int hh = 0; hh < group; ++hh) {
         const int h = kvh * group + hh;
@@ -500,9 +538,12 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
     kj[r] = k0 + row0 + 8 * r;
     key_ok[r] = kj[r] < p.Sk && (valid == nullptr || valid[kj[r]] != 0);
   }
-  float dk[DP / 2], dv[DP / 2];
+  // the accumulators this function keeps (one float stands in for the other)
+  float dk[kDk ? DP / 2 : 1], dv[kDv ? DP / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < (kDk ? DP / 2 : 1); ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kDv ? DP / 2 : 1); ++i) dv[i] = 0.f;
 
   mbar_wait(&sm.kv_full, 0);
   int stage = 0, phase = 0;
@@ -513,7 +554,7 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
     for (int q0 = q_begin; q0 < q_end; q0 += kBlockQ) {
       mbar_wait(&sm.full[stage], phase);
 
-      // S^T = K Q^T and dP^T = V dO^T
+      // S^T = K Q^T and, for dK, dP^T = V dO^T
       float st[32], dpt[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
@@ -523,9 +564,11 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
         wgmma_ss_n64(st, desc_k_major<DP>(sm.k, kk), desc_k_major<DP>(sm.q[stage], kk), 1);
+      if constexpr (kDk) {
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss_n64(dpt, desc_k_major<DP>(sm.v, kk), desc_k_major<DP>(sm.dout[stage], kk), 1);
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss_n64(dpt, desc_k_major<DP>(sm.v, kk), desc_k_major<DP>(sm.dout[stage], kk), 1);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
@@ -539,7 +582,7 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
           const int qi = q0 + 8 * j + col0 + e;
           const bool in = qi < p.Sq;
           const float lse = lse_h[min(qi, p.Sq - 1)];  // unused past Sq
-          const float delta = delta_h[min(qi, p.Sq - 1)];
+          const float delta = kDk ? delta_h[min(qi, p.Sq - 1)] : 0.f;
           const int q_pos = qi + p.q_offset;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
@@ -554,15 +597,19 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
 
       // dV += P^T dO and dK += dS^T Q, P^T and dS^T in bf16 from registers
       uint32_t a_p[4][4], a_ds[4][4];
-      acc_to_a(st, a_p);
-      acc_to_a(dpt, a_ds);
+      if constexpr (kDv) acc_to_a(st, a_p);
+      if constexpr (kDk) acc_to_a(dpt, a_ds);
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
+      if constexpr (kDv) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dv, a_p[kk], desc_mn_major<DP>(sm.dout[stage], kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<DP>(dv, a_p[kk], sm.dout[stage], kk);
+      }
+      if constexpr (kDk) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dk, a_ds[kk], desc_mn_major<DP>(sm.q[stage], kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<DP>(dk, a_ds[kk], sm.q[stage], kk);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv);
@@ -582,8 +629,10 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dkdv_bf16_kernel(
     for (int j = 0; j < DP / 8; ++j) {
       const int c = 8 * j + col0;
       if (c < p.D) {
-        store_pair(dK + kj[r] * p.dk_ss + c, dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-        store_pair(dV + kj[r] * p.dv_ss + c, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        if constexpr (kDk)
+          store_pair(dK + kj[r] * p.dk_ss + c, dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        if constexpr (kDv)
+          store_pair(dV + kj[r] * p.dv_ss + c, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -717,7 +766,7 @@ __global__ void __launch_bounds__(kTcThreads) bwd_dq_bf16_kernel(
     fence_regs(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dq, a_ds[kk], desc_mn_major<DP>(sm.k[stage], kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<DP>(dq, a_ds[kk], sm.k[stage], kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dq);
@@ -759,16 +808,22 @@ cudaError_t launch_delta(const Params& p, int batch, cudaStream_t stream) {
                     0, stream, p);
 }
 
-int launch_f32(const Params& p, int batch, cudaStream_t stream) {
-  const int q_tiles = (p.Sq + kBlockQ - 1) / kBlockQ;
+template <int kRows, int kCols>
+int launch_f32_tiles(const Params& p, int batch, cudaStream_t stream) {
+  const int q_tiles = (p.Sq + kRows - 1) / kRows;
   const int k_tiles = (p.Sk + kBlockK - 1) / kBlockK;
   cudaError_t err = launch_delta<float>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_one(bwd_dkdv_kernel<float>, dim3(k_tiles, batch * p.KVH), kThreads,
-                   dkdv_smem(p.D), stream, p);
+  err = launch_one(bwd_dkdv_kernel<float, kRows, kCols>, dim3(k_tiles, batch * p.KVH), kThreads,
+                   dkdv_smem(p.D, kRows), stream, p);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_one(bwd_dq_kernel<float>, dim3(q_tiles, batch * p.H), kThreads,
-                         dq_smem(p.D), stream, p);
+  return (int)launch_one(bwd_dq_kernel<float, kRows, kCols>, dim3(q_tiles, batch * p.H),
+                         kThreads, dq_smem(p.D, kRows), stream, p);
+}
+
+int launch_f32(const Params& p, int batch, cudaStream_t stream) {
+  return p.D <= 128 ? launch_f32_tiles<64, 8>(p, batch, stream)
+                    : launch_f32_tiles<32, 16>(p, batch, stream);
 }
 
 template <int DP>
@@ -782,10 +837,20 @@ int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const int q_tiles = (p.Sq + kBlockQ - 1) / kBlockQ;
   const int k_tiles = (p.Sk + kBlockK - 1) / kBlockK;
+  const dim3 kv_grid(k_tiles, batch * p.KVH);
+  const size_t kv_smem = sizeof(DkdvSmem<DP>);
   cudaError_t err = launch_delta<bf16>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_one(bwd_dkdv_bf16_kernel<DP>, dim3(k_tiles, batch * p.KVH), kTcThreads,
-                   sizeof(DkdvSmem<DP>), stream, tm_q, tm_k, tm_v, tm_do, p);
+  if constexpr (DP <= 128) {
+    err = launch_one(bwd_dkdv_bf16_kernel<DP, kDkDv>, kv_grid, kTcThreads, kv_smem, stream, tm_q,
+                     tm_k, tm_v, tm_do, p);
+  } else {
+    err = launch_one(bwd_dkdv_bf16_kernel<DP, kDvOnly>, kv_grid, kTcThreads, kv_smem, stream,
+                     tm_q, tm_k, tm_v, tm_do, p);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_one(bwd_dkdv_bf16_kernel<DP, kDkOnly>, kv_grid, kTcThreads, kv_smem, stream,
+                     tm_q, tm_k, tm_v, tm_do, p);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)launch_one(bwd_dq_bf16_kernel<DP>, dim3(q_tiles, batch * p.H), kTcThreads,
                          sizeof(DqSmem<DP>), stream, tm_q, tm_k, tm_v, tm_do, p);
@@ -801,6 +866,14 @@ int launch_bf16_any(const Params& p, int batch, cudaStream_t stream) {
     case 6: return launch_bf16<96>(p, batch, stream);
     case 7: return launch_bf16<112>(p, batch, stream);
     case 8: return launch_bf16<128>(p, batch, stream);
+    case 9: return launch_bf16<144>(p, batch, stream);
+    case 10: return launch_bf16<160>(p, batch, stream);
+    case 11: return launch_bf16<176>(p, batch, stream);
+    case 12: return launch_bf16<192>(p, batch, stream);
+    case 13: return launch_bf16<208>(p, batch, stream);
+    case 14: return launch_bf16<224>(p, batch, stream);
+    case 15: return launch_bf16<240>(p, batch, stream);
+    case 16: return launch_bf16<256>(p, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

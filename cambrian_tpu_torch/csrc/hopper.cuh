@@ -486,8 +486,8 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The same product at N = 256 (128 registers of D): the P V step of the
-// bf16 K1 forward at head_dim 256 (flash_attention.cu, pv_step).
+// The same product at N = 256 (128 registers of D): K1's P V and K2's
+// products into [64, 256] accumulators at head_dim 256 (wgmma_rs_tile).
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[128], const uint32_t (&a)[4],
                                             uint64_t desc_b) {
   asm volatile(
@@ -518,6 +518,25 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[128], const uint32_t (&a)
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x DP] += A[64 x 16] B[16 x DP] for k16 step kk of the tile b, read
+// MN-major (rows are K): one wgmma over all DP columns up to DP = 128 and at
+// DP = 256; between them, D's first 128 columns, then the rest (the register
+// forms above stop at N = 128 below 256). The columns from 128 on start
+// 128 / kChunkCols chunks into the tile. K1's O += P V (flash_attention.cu)
+// and K2's dV += P^T dO, dK += dS^T Q and dQ += dS K (flash_attention_bwd.cu).
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[DP / 2], const uint32_t (&a)[4],
+                                              const __nv_bfloat16* b, int kk) {
+  if constexpr (DP <= 128 || DP == 256) {
+    wgmma_rs_mn(d, a, desc_mn_major<DP>(b, kk));
+  } else {
+    using T = Tile<DP>;
+    wgmma_rs_mn(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_mn_major<DP>(b, kk));
+    wgmma_rs_mn(*reinterpret_cast<float(*)[DP / 2 - 64]>(&d[64]), a,
+                desc_mn_major<DP>(b + (128 / T::kChunkCols) * T::kChunkBytes / 2, kk));
+  }
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], N = 2 * (registers of D): A in shared

@@ -32,10 +32,8 @@ import torch
 from . import cuda_build
 from .attention import NEG_INF
 
-# K1 takes head dimensions up to Gemma-7B's 256; K2 up to 128 (its D = 256
-# kernels are ROADMAP queue 1's next bring_up item)
-MAX_HEAD_DIM_FWD = 256
-MAX_HEAD_DIM_BWD = 128
+# K1 and K2 take head dimensions up to Gemma-7B's 256 on the card
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_reference(q, k, v, key_valid=None, causal=False,
@@ -155,7 +153,7 @@ def _strides(*tensors):
     return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _check_inputs(what, q, k, v, key_valid, max_d):
+def _check_inputs(what, q, k, v, key_valid):
     b, s_q, h, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v must be [B, Sk, KVH, D] matching q {tuple(q.shape)}, "
@@ -165,10 +163,8 @@ def _check_inputs(what, q, k, v, key_valid, max_d):
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d > max_d:
-        raise ValueError(f"{what} takes head_dim <= {max_d} on the card, got {d}"
-                         + ("" if max_d == MAX_HEAD_DIM_FWD else
-                            " (K2 at head_dim 256 is ROADMAP queue 1's next item)"))
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} on the card, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -197,13 +193,12 @@ def _check_tma(what, d, **tensors):
                                  f"bytes) for TMA")
 
 
-def _card_args(what, q, k, v, key_valid, sliding_window, scale, max_d):
-    """Check the inputs of a kernel call on the card (``max_d`` its widest
-    head dimension); returns the key validity as contiguous bool (or None)
-    and the scale as a float."""
+def _card_args(what, q, k, v, key_valid, sliding_window, scale):
+    """Check the inputs of a kernel call on the card; returns the key
+    validity as contiguous bool (or None) and the scale as a float."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
-    _check_inputs(what, q, k, v, key_valid, max_d)
+    _check_inputs(what, q, k, v, key_valid)
     if q.dtype == torch.bfloat16:
         _check_tma(what, q.shape[-1], q=q, k=k, v=v)
     if sliding_window is not None and sliding_window < 1:
@@ -227,7 +222,7 @@ def flash_attention(
     """Masked attention in BQHD layout with GQA read in place.
 
     CPU tensors go to ``flash_attention_reference``, at any head_dim. CUDA
-    tensors of head_dim <= ``MAX_HEAD_DIM_FWD`` (256) launch K1
+    tensors of head_dim <= ``MAX_HEAD_DIM`` (256) launch K1
     through ``FlashAttentionFunction`` (``flash_attention.launches`` counts
     the launches; its backward launches K2) or raise; there is no fallback to
     the plain version on the card.
@@ -235,8 +230,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_valid, causal,
                                          sliding_window, q_offset, scale)
-    valid, scale = _card_args("flash_attention", q, k, v, key_valid, sliding_window, scale,
-                              MAX_HEAD_DIM_FWD)
+    valid, scale = _card_args("flash_attention", q, k, v, key_valid, sliding_window, scale)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         # no backward will run (serving): no autograd node, no row statistic
         return _flash_fwd(q, k, v, valid, causal, sliding_window, q_offset, scale)[0]
@@ -302,15 +296,15 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) of ``flash_attention``. CPU tensors go to
     ``flash_attention_bwd_reference``; CUDA tensors of head_dim <=
-    ``MAX_HEAD_DIM_BWD`` (128) launch K2 (three kernels behind one call,
-    counted once in ``flash_attention_bwd.launches``); others raise. ``lse`` is the row statistic the forward wrote (what
+    ``MAX_HEAD_DIM`` (256) launch K2 (three kernels behind one call, four
+    above head_dim 128, counted once in ``flash_attention_bwd.launches``);
+    others raise. ``lse`` is the row statistic the forward wrote (what
     ``FlashAttentionFunction`` saves); without it, one K1 launch (counted in
     ``flash_attention.launches``) writes it first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal,
                                              sliding_window, q_offset, scale, lse)
-    valid, scale = _card_args("flash_attention_bwd", q, k, v, key_valid, sliding_window, scale,
-                              MAX_HEAD_DIM_BWD)
+    valid, scale = _card_args("flash_attention_bwd", q, k, v, key_valid, sliding_window, scale)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} {t.device}")

@@ -26,6 +26,15 @@ the count before the step. ``torch.optim.AdamW`` has no bf16-moment option. With
 ``accumulate = k`` it is ``optax.MultiSteps``: the running mean of k
 micro-batch gradients, one update per k.
 
+LoRA (train/lora.py) trains an adapter tree, labelled by the same rules under
+the JAX package's paths of its leaves (``params/layers_0/mlp/up_proj/kernel/a``):
+no path holds a connector key but the SVA samplers', so under
+``tune_mm_mlp_adapter`` the decoder's adapters are "frozen" and never move.
+The JAX LoRA step differentiates every adapter and clips by the norm of all
+their gradients, frozen ones included (its ``set_to_zero`` comes after the
+clip); ``frozen_in_norm`` gives that: frozen entries keep requiring grad, their
+gradients count in the clip's norm, and they are never updated.
+
 Trainable parameters stored in a lower precision than fp32 (a model built in
 bf16) keep an fp32 master copy here, updated in fp32 and rounded into the
 parameter after each step: the JAX package keeps fp32 parameters and casts
@@ -162,11 +171,11 @@ def global_norm(tensors) -> torch.Tensor:
 class GroupedAdamW:
     """The JAX package's optimizer over named torch parameters (see the
     module docstring). ``step(grads)`` takes {name: gradient} of the
-    trainable parameters and returns whether it updated them (always, unless
-    accumulating)."""
+    trainable parameters (and, with ``frozen_in_norm``, of the frozen ones)
+    and returns whether it updated them (always, unless accumulating)."""
 
     def __init__(self, named_params: Mapping[str, nn.Parameter], labels: Mapping[str, str],
-                 config: TrainConfig, accumulate: int = 1):
+                 config: TrainConfig, accumulate: int = 1, frozen_in_norm: bool = False):
         self.config = config
         self.labels = dict(labels)
         self.accumulate = max(1, accumulate)
@@ -174,9 +183,19 @@ class GroupedAdamW:
         self.mu_dtype = getattr(torch, config.adam_mu_dtype) if config.adam_mu_dtype else None
         self.params: Dict[str, nn.Parameter] = {}
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        # frozen entries whose gradients count in the clip's norm, and their
+        # running means under accumulation
+        self.norm_only: Dict[str, torch.Tensor] = {}
+        self.norm_acc: Dict[str, torch.Tensor] = {}
         for name, p in named_params.items():
             if self.labels[name] == "frozen":
-                p.requires_grad_(False)
+                if frozen_in_norm:
+                    p.requires_grad_(True)
+                    self.norm_only[name] = p
+                    if self.accumulate > 1:
+                        self.norm_acc[name] = torch.zeros_like(p, dtype=torch.float32)
+                else:
+                    p.requires_grad_(False)
                 continue
             p.requires_grad_(True)
             self.params[name] = p
@@ -192,27 +211,30 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor]) -> bool:
-        if set(grads) != set(self.params):
-            raise KeyError(f"gradients for {sorted(set(grads) ^ set(self.params))[:5]} "
+        want = set(self.params) | set(self.norm_only)
+        if set(grads) != want:
+            raise KeyError(f"gradients for {sorted(set(grads) ^ want)[:5]} "
                            "do not match the trainable parameters")
         if self.accumulate > 1:
             n = self.mini_step
             for name, g in grads.items():
-                acc = self.state[name]["acc"]
+                acc = self.norm_acc[name] if name in self.norm_acc else self.state[name]["acc"]
                 acc += (g.float() - acc) / (n + 1)
             self.mini_step = (n + 1) % self.accumulate
             if self.mini_step:
                 return False
             grads = {name: st["acc"] for name, st in self.state.items()}
+            grads.update(self.norm_acc)
         self._update(grads)
         if self.accumulate > 1:
-            for st in self.state.values():
-                st["acc"].zero_()
+            for acc in [st["acc"] for st in self.state.values()] + list(self.norm_acc.values()):
+                acc.zero_()
         return True
 
     def _update(self, grads):
         c = self.config
         g_norm = global_norm(grads.values())
+        grads = {name: g for name, g in grads.items() if name in self.params}
         clip = not bool(g_norm < c.max_grad_norm)
         count_inc = self.count + 1
         # bias corrections 1 - b^t computed in fp32, as optax does
@@ -242,12 +264,15 @@ class GroupedAdamW:
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mini_step": self.mini_step,
-                "state": {n: dict(st) for n, st in self.state.items()}}
+                "state": {n: dict(st) for n, st in self.state.items()},
+                "norm_acc": dict(self.norm_acc)}
 
     def load_state_dict(self, sd: Mapping) -> None:
         if set(sd["state"]) != set(self.state):
             raise KeyError("optimizer state does not match the trainable parameters")
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        for name, acc in self.norm_acc.items():
+            acc.copy_(sd["norm_acc"][name])
         for name, saved in sd["state"].items():
             for key, t in self.state[name].items():
                 t.copy_(saved[key])
@@ -257,7 +282,8 @@ class GroupedAdamW:
 
 
 def build_optimizer(named_params: Mapping[str, nn.Parameter], config: TrainConfig,
-                    accumulate: int = 1):
-    """(GroupedAdamW, {name: label}); frozen parameters stop requiring grad."""
+                    accumulate: int = 1, frozen_in_norm: bool = False):
+    """(GroupedAdamW, {name: label}); frozen parameters stop requiring grad
+    (unless ``frozen_in_norm``)."""
     labels = label_params(named_params, config)
-    return GroupedAdamW(named_params, labels, config, accumulate), labels
+    return GroupedAdamW(named_params, labels, config, accumulate, frozen_in_norm), labels

@@ -8,8 +8,9 @@ parameters only (the freeze policy is ``requires_grad``; frozen weights
 collect no ``.grad``), and the optimizer steps, or accumulates under
 gradient accumulation (``optax.MultiSteps`` semantics, train/optimizer.py).
 
-LoRA (``make_lora_train_step``, train/lora.py) is not ported yet: ROADMAP
-item 10.
+``make_lora_train_step`` trains LoRA adapters (train/lora.py) instead: the
+base model is frozen and merged with the adapters inside the loss, the tower
+features are detached, and only the adapters get gradients.
 """
 
 from dataclasses import dataclass
@@ -25,6 +26,7 @@ from ..models.cambrian import (
     extract_head,
     head_logits,
 )
+from .lora import Adapters, flat_adapters, lora_merged
 from .optimizer import GroupedAdamW, TrainConfig, build_optimizer, global_norm, label_params
 
 
@@ -111,6 +113,47 @@ def make_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]] = N
         state.optimizer.step(grads)
         for p in params.values():
             p.grad = None
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
+
+    return step
+
+
+def init_lora_train_state(adapters: Adapters, config: TrainConfig,
+                          accumulate: int = 1) -> TrainState:
+    """The optimizer over the adapter tree, its leaves labelled by the
+    JAX package's paths (train/optimizer.py): frozen adapters never move, and
+    their gradients count in the clip's norm, as in the JAX LoRA step."""
+    optimizer, _ = build_optimizer(flat_adapters(adapters), config, accumulate,
+                                   frozen_in_norm=True)
+    return TrainState(step=0, optimizer=optimizer)
+
+
+def make_lora_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]],
+                         adapters: Adapters, alpha: float, rank: int):
+    """Returns ``step(state, batch) -> (state, metrics)`` over the adapters
+    of ``state`` (``init_lora_train_state``), as ``make_train_step`` does.
+    The base model and the towers are frozen (no parameter of theirs
+    requires grad); each targeted linear merges its weight with its adapters
+    inside its forward (``lora_merged``), so under remat the merged weights
+    stay transient. ``grad_norm`` is over every adapter's gradient."""
+    model.requires_grad_(False)
+    for t in towers or ():
+        t.requires_grad_(False)
+    leaves = flat_adapters(adapters)
+
+    def step(state: TrainState, batch: Mapping):
+        names = list(state.optimizer.params) + list(state.optimizer.norm_only)
+        feats = None
+        if towers is not None and batch.get("images") is not None:
+            with torch.no_grad():
+                feats = [t(px) for t, px in zip(towers, batch["images"])]
+        # the backward too runs merged: remat recomputes each layer's forward
+        with lora_merged(model, adapters, alpha, rank):
+            loss = _supervised_loss(model, batch, feats)
+            grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
+        grad_norm = global_norm(grads.values())
+        state.optimizer.step(grads)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
 

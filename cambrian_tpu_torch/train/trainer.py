@@ -10,11 +10,15 @@
   the optimizer state, the RNG and the step, with ``torch.save`` (the JAX
   package uses Orbax), and resume from the newest;
 - ``NanInfAlert`` halts the run on a non-finite loss;
-- ``save_model`` writes the HF-layout export (checkpoint/save.py).
+- ``save_model`` writes the HF-layout export (checkpoint/save.py);
+- LoRA (``lora_enable``, train/lora.py): adapters made at init from the seed
+  or read from ``lora_weight_path``, the base left in its dtype, the adapters
+  and their optimizer state in the checkpoints; at the end
+  ``lora_adapters.safetensors`` in ``output_dir`` and the adapters merged
+  into the model, so ``save_model`` exports it as a full finetune.
 
 One device: the mesh arguments are accepted, and anything but one device
-raises until multi-GPU training is ported (ROADMAP item 11). LoRA raises
-until it is ported (ROADMAP item 10).
+raises until multi-GPU training is ported (ROADMAP item 11).
 """
 
 import concurrent.futures
@@ -31,9 +35,18 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import safetensors_io
 from ..data.dataset import LengthGroupedSampler
+from .lora import init_lora_params, lora_from_state_dict, lora_state_dict, merge_lora
 from .optimizer import TrainConfig, _schedule, cast_frozen_params
-from .train_step import TrainState, init_train_state, make_train_step, named_parameters
+from .train_step import (
+    TrainState,
+    init_lora_train_state,
+    init_train_state,
+    make_lora_train_step,
+    make_train_step,
+    named_parameters,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -67,7 +80,7 @@ class TrainingArguments(TrainConfig):
     resume_from_checkpoint: Optional[str] = None
     report_to: str = "none"
     run_name: Optional[str] = None
-    # LoRA (not ported yet)
+    # LoRA (train/lora.py)
     lora_enable: bool = False
     lora_r: int = 16
     lora_alpha: int = 32
@@ -158,6 +171,7 @@ class CambrianTrainer:
         self.global_batch_size = args.per_device_train_batch_size * self.dp_size
         self.step_seconds: List[float] = []    # wall time of each optimizer step
         self._final_state: Optional[TrainState] = None
+        self.adapters = None                   # the LoRA adapters, under lora_enable
 
     # -- checkpointing ------------------------------------------------------
 
@@ -174,8 +188,11 @@ class CambrianTrainer:
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         path = os.path.join(self.checkpoint_dir, f"step_{step:09d}.pt")
-        torch.save({"step": step, "micro_step": state.step,
-                    "optimizer": state.optimizer.state_dict(), "rng": rng}, path + ".tmp")
+        ckpt = {"step": step, "micro_step": state.step,
+                "optimizer": state.optimizer.state_dict(), "rng": rng}
+        if self.adapters is not None:   # the frozen adapters too, which no optimizer holds
+            ckpt["lora"] = lora_state_dict(self.adapters)
+        torch.save(ckpt, path + ".tmp")
         os.replace(path + ".tmp", path)
         for old in self._checkpoints()[:-max(1, self.args.save_total_limit)]:
             os.remove(old)
@@ -185,6 +202,12 @@ class CambrianTrainer:
         if not found:
             return 0
         ckpt = torch.load(found[-1], map_location=self.device, weights_only=True)
+        if self.adapters is not None:
+            saved = lora_from_state_dict(ckpt["lora"], self.device)
+            with torch.no_grad():
+                for key, adapter in self.adapters.items():
+                    for part, t in adapter.items():
+                        t.copy_(saved[key][part])
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["micro_step"])
         torch.set_rng_state(ckpt["rng"]["cpu"].cpu())
@@ -220,8 +243,6 @@ class CambrianTrainer:
 
     def train(self, resume_from_checkpoint: Optional[bool] = None):
         args = self.args
-        if args.lora_enable:
-            raise NotImplementedError("LoRA training is not ported yet (ROADMAP item 10)")
         # total_steps counts OPTIMIZER steps: the schedule advances once per
         # k micro-batches, and one epoch holds dataset // (batch * k) of them
         accum = max(1, args.gradient_accumulation_steps)
@@ -230,13 +251,25 @@ class CambrianTrainer:
                        else int(steps_per_epoch * args.num_train_epochs))
         args.total_steps = total_steps
 
-        if args.bf16:
-            # frozen groups never update: store them in bf16 (norms exempt)
-            frozen = named_parameters(self.model, self.towers, args.unfreeze_mm_vision_tower)
-            cast_frozen_params(frozen, args)
-        state = init_train_state(self.model, self.towers, args, accumulate=accum)
-        step_fn = make_train_step(self.model, self.towers,
-                                  train_towers=args.unfreeze_mm_vision_tower)
+        if args.lora_enable:
+            # the adapters train; the base stays in its dtype, frozen
+            if args.lora_weight_path:
+                self.adapters = lora_from_state_dict(
+                    safetensors_io.load_file(args.lora_weight_path), self.device)
+            else:
+                g = torch.Generator(device=self.device).manual_seed(args.seed)
+                self.adapters = init_lora_params(self.model, args.lora_r, g)
+            state = init_lora_train_state(self.adapters, args, accumulate=accum)
+            step_fn = make_lora_train_step(self.model, self.towers, self.adapters,
+                                           args.lora_alpha, args.lora_r)
+        else:
+            if args.bf16:
+                # frozen groups never update: store them in bf16 (norms exempt)
+                frozen = named_parameters(self.model, self.towers, args.unfreeze_mm_vision_tower)
+                cast_frozen_params(frozen, args)
+            state = init_train_state(self.model, self.towers, args, accumulate=accum)
+            step_fn = make_train_step(self.model, self.towers,
+                                      train_towers=args.unfreeze_mm_vision_tower)
         torch.manual_seed(args.seed)
         start_step = 0
         if resume_from_checkpoint or args.train_continue:
@@ -325,5 +358,11 @@ class CambrianTrainer:
                 fetch_pool.shutdown(wait=False, cancel_futures=True)
 
         self._save_checkpoint(state, total_steps)
+        if self.adapters is not None:
+            # the adapters' file, and the merged weights for save_model
+            os.makedirs(args.output_dir, exist_ok=True)
+            safetensors_io.save_file(lora_state_dict(self.adapters),
+                                     os.path.join(args.output_dir, "lora_adapters.safetensors"))
+            merge_lora(self.model, self.adapters, args.lora_alpha, args.lora_r)
         self._final_state = state
         return history

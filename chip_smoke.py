@@ -12,7 +12,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    together, sm_90a), ptxas' registers and spills of each kernel, and the
    tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA) of each
    kernel function of K1, K2, the quant matmuls and K8; every bf16 K1/K2 one
-   must have HGMMA, and each of the six bf16 prefill functions of K3, K4 and
+   must have HGMMA (16 of K1, 40 of K2: its dk/dv function for DP <= 128,
+   the dV-alone and dK-alone ones for DP = 144..256, dq at every DP), K2's
+   functions must be exactly those and its fp32 ones (64-row q tiles up to
+   D = 128, 32-row above), with the registers and spills of those above 128
+   printed, and each of the six bf16 prefill functions of K3, K4 and
    K4b (``gemm_wgmma_kernel``, modes 0-2, tiles of 64 and 128 columns) and
    the eight bf16 GEMM functions of K8 (``mlp_up_kernel`` and
    ``mlp_down_kernel``, tiles of 64, 128, 192 and 256 columns) must be
@@ -96,14 +100,17 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    each quantized request's prefill ms is printed beside the bf16 model's
    on the same prompt;
 7. K2, the flash-attention backward, against its plain PyTorch version on
-   the card (serving models freed): the stage-1 decoder shape (batch 8 x
-   2048, 32/8 heads, D 128, causal, right padding), a causal case with a
-   sliding window and dead rows, and the three tower shapes, in bf16 and
-   fp32, given the forward's row statistic as the training step gives it;
-   max abs error of dq/dk/dv, CUDA-event times of the kernel, the plain
-   version and the backward of ``F.scaled_dot_product_attention``
-   (forward+backward less forward; the library yardstick), the bound, and
-   the statistic's own cost (K1 with it less K1 without);
+   the card (serving models freed): the stage-1 decoder shapes of
+   Cambrian-8B (batch 8 x 2048, 32/8 heads, D 128, causal, right padding)
+   and Cambrian-Gemma-7B (the same with 16/16 heads of D 256), causal cases
+   with a sliding window and dead rows at D = 128 and 256, D = 192, and the
+   three tower shapes, in bf16 and fp32, given the forward's row statistic
+   as the training step gives it; max abs error of dq/dk/dv, CUDA-event
+   times of the kernel, the plain version and the backward of
+   ``F.scaled_dot_product_attention`` (forward+backward less forward; the
+   library yardstick; at the two training shapes the backend it picked,
+   named from one profiled call's kernels), the bound, and the statistic's
+   own cost (K1 with it less K1 without);
 8. a tiny Cambrian through ``make_train_step``, 3 optimizer steps of stage 1
    and 3 of stage 2 with remat, on the card (K1/K2, fp32, TF32 off) against
    the plain path on the CPU from the same weights and batches: losses and
@@ -249,6 +256,26 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    re-injected at layers 0, 3 and 6): two requests through ``generate``,
    K1 98 times each. Encode, prefill and decode times and peak memory are
    printed.
+
+15. Cambrian-Gemma-7B stage 1 (``GEMMA_7B`` with ``CAMBRIAN_SVA`` at full
+   width and depth, random bf16 weights made on the card): phase 9's run
+   through ``CambrianTrainer.train()``, 3 optimizer steps at batch 8 x 2048;
+   exactly 3 x (90 + 2 x 28) = 438 K1 and 3 x 28 = 84 K2 launches (K2 at
+   head_dim 256), finite losses, a moved connector, the frozen weights (the
+   tied 256,000 x 3,072 embedding among them) bitwise unchanged; step times,
+   throughput, peak memory and one profiled step's idle share.
+
+16. Cambrian-8B LoRA (``lora_enable``, r 16, alpha 32, the seven default
+   targets in the decoder and the SVA samplers' projections, as the JAX
+   package targets them) with ``scripts/cambrian/finetune_cambrian_8b.sh``'s
+   flags, 3 optimizer steps at batch 8 x 2048 through
+   ``CambrianTrainer.train()``: 3 x 154 K1 and 3 x 32 K2 launches; every b
+   moved off 0; when the run ends every targeted weight is its base plus
+   its adapters' delta and every other tensor (connector, norms, towers)
+   bitwise unchanged; ``lora_adapters.safetensors`` holds two tensors a
+   target under the JAX package's key names, equal to the run's adapters;
+   a second trainer given it through ``lora_weight_path`` (0 steps) merges
+   the same weights into the restored base; step times and peak memory.
 
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
@@ -1930,9 +1957,24 @@ def phi3_load_phase(torch, counters, prompt):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def sdpa_backend(torch, fn):
+    """The backend SDPA picked for ``fn`` (a forward and backward), named
+    from the kernels one profiled call ran: "flash", "efficient", "cudnn" or
+    "math"."""
+    prof, _ = profiled(torch, fn)
+    names = " ".join(key.lower() for _, _, key in kernel_events(prof))
+    for backend, marks in (("cudnn", ("cudnn", "sm90_flash", "cudnn_generated")),
+                           ("flash", ("flash_fwd", "flash_bwd", "pytorch_flash")),
+                           ("efficient", ("fmha", "efficient_attention", "mem_eff"))):
+        if any(mark in names for mark in marks):
+            return backend
+    return "math"
+
+
 def backward_kernel_phase(torch, fa):
-    """K2 vs plain at the training path's decoder shape, a windowed causal
-    case with dead rows, and the tower shapes; returns per-case records."""
+    """K2 vs plain at the training paths' decoder shapes (Cambrian-8B's and
+    Cambrian-Gemma-7B's), windowed causal cases with dead rows (D = 128 and
+    256), D = 192 and the tower shapes; returns per-case records."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1950,7 +1992,12 @@ def backward_kernel_phase(torch, fa):
         # name, b, s_q, s_k, h, kvh, d, causal, window, key_valid, launches per step
         ("decoder_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, True, None,
          train_valid, TRAIN_K2_LAUNCHES),
+        # Gemma-7B's stage-1 shape (phase 15): 16 heads of 256, the same H x D
+        ("gemma_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 256, True, None,
+         train_valid, GEMMA_LAYERS),
         ("window_dead_rows", 2, 300, 340, 8, 2, 128, True, 64, dead, 0),
+        ("d256_window_dead_rows", 2, 300, 340, 4, 2, 256, True, 64, dead, 0),
+        ("d192", 2, 300, 300, 8, 2, 192, True, None, None, 0),
         ("siglip", 1, 729, 729, 16, 16, 72, False, None, None, 0),
         ("clip", 1, 577, 577, 16, 16, 64, False, None, None, 0),
         ("dinov2", 1, 730, 730, 24, 24, 64, False, None, None, 0),
@@ -1987,7 +2034,7 @@ def backward_kernel_phase(torch, fa):
                 tols[what] = rel * max(1.0, float(ref.abs().max()))
                 check(errs[what] <= tols[what], f"K2 {name} {dtype_name} {what}: max abs error "
                       f"{errs[what]} > {tols[what]}")
-            if name == "window_dead_rows":
+            if name.endswith("window_dead_rows"):
                 dq, dk, dv = got
                 check((dq[1] == 0).all().item() and (dq[0, :50] == 0).all().item(),
                       "K2: dq of dead rows is not exactly 0")
@@ -2028,10 +2075,13 @@ def backward_kernel_phase(torch, fa):
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense,
                                                       scale=d ** -0.5)
 
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
             sdpa_fwd_ms = cuda_ms(torch, sdpa, **alone)
-            sdpa_fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
-                                                                         dot), **alone)
+            sdpa_fwd_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, **alone)
             library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+            backend = sdpa_backend(torch, sdpa_fwd_bwd) if per_step else None
             del qt, kt, vt, dot, dense, keep
             # each input read once (q, k, v, o, do) and each output written
             # once (dq, dk, dv); five products of 2 * d operations per head
@@ -2044,13 +2094,16 @@ def backward_kernel_phase(torch, fa):
                        tols=tols, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bytes_ms=bytes_ms, ops_ms=ops_ms, per_step=per_step,
+                       sdpa_backend=backend,
                        tflops=10 * h * d * pairs / ms / 1e9, k1_ms=fwd_ms, stat_ms=stat_ms)
             print(f"kernel flash_attention_bwd {name:16s} {dtype_name:8s} B={b} Sq={s_q} "
                   f"Sk={s_k} H={h}/{kvh} D={d} err dq/dk/dv="
                   f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} (tol "
                   f"{tols['dq']:.2e}/{tols['dk']:.2e}/{tols['dv']:.2e}) kernel={ms:.4f} ms "
                   f"({rec['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
-                  f"sdpa_bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}); K1 "
+                  f"sdpa_bwd={library_ms:.4f} ms"
+                  + ("" if backend is None else f" ({backend})")
+                  + f" bound={bound_ms:.4f} ms ({bound_by}); K1 "
                   f"{fwd_ms:.4f} ms, its row statistic {stat_ms:+.4f} ms", flush=True)
             records.append(rec)
             del q, k, v, o, do, lse
@@ -2357,9 +2410,10 @@ def device_time_by_kind(prof):
     return kinds
 
 
-def train_8b_phase(torch, fa, quant, k2_record):
-    """Cambrian-8B stage-1 pretraining through ``CambrianTrainer.train()``."""
-    from cambrian_tpu_torch import cambrian_8b
+def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
+    """Stage-1 pretraining of the Cambrian ``cfg`` (``layers`` decoder
+    layers) through ``CambrianTrainer.train()``: phase 9 (Cambrian-8B) and
+    phase 15 (Cambrian-Gemma-7B)."""
     from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
     from cambrian_tpu_torch.train.optimizer import cast_frozen_params, label_params
@@ -2369,7 +2423,7 @@ def train_8b_phase(torch, fa, quant, k2_record):
     dev = torch.device("cuda")
     # the training entry point's default: fp32 products (the loss's head) in fp32
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = cambrian_8b()
+    k1_per_batch, k2_per_batch = TOWER_K1_CALLS + 2 * layers, layers
     out_dir = os.path.join(REPO, "build", "chip_smoke_train")
     shutil.rmtree(out_dir, ignore_errors=True)
     # scripts/cambrian/pretrain_cambrian_8b.sh, but 3 optimizer steps
@@ -2401,13 +2455,14 @@ def train_8b_phase(torch, fa, quant, k2_record):
     frozen.update({f"towers.{i}.{n}": p for i, t in enumerate(towers)
                    for n, p in t.named_parameters()})
     trainable = {n: p for n, p in named.items() if labels[n] != "frozen"}
+    check("embed_tokens.weight" in frozen, f"{label} train: the embedding is not frozen")
     n_frozen = sum(p.numel() for p in frozen.values())
     n_trainable = sum(p.numel() for p in trainable.values())
     frozen_before = {n: p.detach().cpu() for n, p in frozen.items()}
     trainable_before = {n: p.detach().cpu() for n, p in trainable.items()}
     valid_tokens = sum(int(collator([it])["attention_mask"].sum()) for it in dataset.items)
     torch.cuda.synchronize()
-    print(f"8B train build: {n_trainable / 1e9:.4f}B trainable, {n_frozen / 1e9:.3f}B frozen "
+    print(f"{label} train build: {n_trainable / 1e9:.4f}B trainable, {n_frozen / 1e9:.3f}B frozen "
           f"parameters ({len(trainable)} / {len(frozen)} tensors) in "
           f"{time.perf_counter() - t0:.1f} s; {len(dataset)} samples, {valid_tokens} valid "
           f"tokens in {len(dataset) * TRAIN_SEQ} slots", flush=True)
@@ -2425,27 +2480,27 @@ def train_8b_phase(torch, fa, quant, k2_record):
     step_ms = [s * 1e3 for s in trainer.step_seconds]
     warm_ms = float(np.mean(step_ms[1:]))
     for h in history:
-        print(f"8B train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
+        print(f"{label} train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
               f"lr {h['lr']:.3e}", flush=True)
     check([h["step"] for h in history] == list(range(1, TRAIN_STEPS + 1)),
-          f"8B train: history steps {[h['step'] for h in history]}")
+          f"{label} train: history steps {[h['step'] for h in history]}")
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
-              for h in history), "8B train: non-finite loss or grad_norm, or grad_norm 0")
+              for h in history), f"{label} train: non-finite loss or grad_norm, or grad_norm 0")
     want = {name: 0 for name in counters}
-    want["flash_attention_fwd"] = TRAIN_STEPS * TRAIN_K1_LAUNCHES
-    want["flash_attention_bwd"] = TRAIN_STEPS * TRAIN_K2_LAUNCHES
-    check(launches == want, f"8B train: launched {launches}, not {want}")
+    want["flash_attention_fwd"] = TRAIN_STEPS * k1_per_batch
+    want["flash_attention_bwd"] = TRAIN_STEPS * k2_per_batch
+    check(launches == want, f"{label} train: launched {launches}, not {want}")
     moved = [n for n, p in trainable.items() if not torch.equal(p.detach().cpu(),
                                                                  trainable_before[n])]
     check(any("vision_sampler" in n for n in moved) and any("mm_projector" in n for n in moved),
-          f"8B train: the connector did not move ({len(moved)} tensors changed)")
+          f"{label} train: the connector did not move ({len(moved)} tensors changed)")
     changed = [n for n, p in frozen.items() if not torch.equal(p.detach().cpu(),
                                                                frozen_before[n])]
-    check(not changed, f"8B train: frozen weights changed: {changed[:5]}")
-    check(all(p.grad is None for p in named.values()), "8B train: a parameter kept a .grad")
+    check(not changed, f"{label} train: frozen weights changed: {changed[:5]}")
+    check(all(p.grad is None for p in named.values()), f"{label} train: a parameter kept a .grad")
     del frozen_before, trainable_before
 
-    k2_step_ms = TRAIN_K2_LAUNCHES * k2_record["ms"]
+    k2_step_ms = k2_per_batch * k2_record["ms"]
     warm_s = warm_ms / 1e3
     rec = dict(step_ms=step_ms, warm_step_ms=warm_ms, samples_per_s=TRAIN_BATCH / warm_s,
                slot_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s,
@@ -2453,13 +2508,13 @@ def train_8b_phase(torch, fa, quant, k2_record):
                n_trainable=n_trainable, n_frozen=n_frozen, launches=launches,
                history=history, moved=len(moved), trainable_tensors=len(trainable),
                k2_step_ms=k2_step_ms, k2_share=k2_step_ms / warm_ms)
-    print(f"8B train: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); "
+    print(f"{label} train: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); "
           f"warm {warm_ms:.1f} ms, {rec['samples_per_s']:.3f} samples/s, "
           f"{rec['slot_tokens_per_s']:.1f} slot tokens/s, {rec['valid_tokens_per_s']:.1f} valid "
           f"tokens/s; peak memory allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); "
           f"{len(moved)}/{len(trainable)} connector tensors moved; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    print(f"8B train: K2 per step {TRAIN_K2_LAUNCHES} x {k2_record['ms']:.3f} ms = "
+    print(f"{label} train: K2 per step {k2_per_batch} x {k2_record['ms']:.3f} ms = "
           f"{k2_step_ms:.1f} ms, {100 * rec['k2_share']:.1f}% of a warm step", flush=True)
 
     # one more step under the profiler: where a step's device time goes
@@ -2473,19 +2528,20 @@ def train_8b_phase(torch, fa, quant, k2_record):
     def step():
         t1 = time.perf_counter()
         new_state, metrics = step_fn(state, batch)
-        check(np.isfinite(float(metrics["loss"])), "8B profiled step: non-finite loss")
+        check(np.isfinite(float(metrics["loss"])), f"{label} profiled step: non-finite loss")
         torch.cuda.synchronize()
         return new_state, (time.perf_counter() - t1) * 1e3
 
     prof, (state, prof_wall_ms) = profiled(torch, step, host=True)
     kinds = device_time_by_kind(prof)
     busy = sum(kinds.values())
-    check(kinds["K1"] > 0 and kinds["K2"] > 0, f"8B profiled step: no K1/K2 device time {kinds}")
+    check(kinds["K1"] > 0 and kinds["K2"] > 0,
+          f"{label} profiled step: no K1/K2 device time {kinds}")
     check(not any("stats" in key for _, _, key in kernel_events(prof)),
-          "8B profiled step: a kernel recomputed the row statistics")
+          f"{label} profiled step: a kernel recomputed the row statistics")
     rec.update(profiled_wall_ms=prof_wall_ms, device_ms=kinds, device_busy_ms=busy,
                idle_share=1 - busy / prof_wall_ms)
-    print(f"8B train profiled step: wall {prof_wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    print(f"{label} train profiled step: wall {prof_wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"(idle {100 * rec['idle_share']:.1f}%): K1 {kinds['K1']:.1f} ms, K2 "
           f"{kinds['K2']:.1f} ms, GEMMs {kinds['gemm']:.1f} ms, other {kinds['other']:.1f} ms",
           flush=True)
@@ -3813,6 +3869,171 @@ def family_phase(torch, fa, quant):
                 launches=gemma["launches"] + command_r["launches"])
 
 
+# -- phases 15 and 16: training Cambrian-Gemma-7B and LoRA on one card -----------
+
+def gemma_train_phase(torch, fa, quant, k2_record):
+    """Phase 15: Cambrian-Gemma-7B (``GEMMA_7B`` with the four towers and
+    the SVA, 28 layers, head_dim 256, tied 256,000-row embeddings) at full
+    width and depth, stage 1 through ``CambrianTrainer.train()`` with phase
+    9's flags and batch: K2 at head_dim 256 on the training path."""
+    from cambrian_tpu_torch.models.config import CAMBRIAN_SVA, GEMMA_7B, CambrianConfig
+
+    cfg = CambrianConfig(**{**GEMMA_7B, **CAMBRIAN_SVA})
+    check(cfg.num_hidden_layers == GEMMA_LAYERS and cfg.head_dim == 256
+          and cfg.tie_word_embeddings, f"Gemma-7B: {cfg.num_hidden_layers} layers, head_dim "
+          f"{cfg.head_dim}, tied {cfg.tie_word_embeddings}")
+    return train_stage1_phase(torch, fa, quant, k2_record, cfg, "Gemma-7B", GEMMA_LAYERS)
+
+
+def lora_train_phase(torch, fa, quant):
+    """Phase 16: Cambrian-8B LoRA at full width and depth through
+    ``CambrianTrainer.train()``: ``scripts/cambrian/finetune_cambrian_8b.sh``'s
+    flags with ``lora_enable`` (r 16, alpha 32, the seven default targets),
+    3 optimizer steps at phase 9's batch 8 x 2048. Only the adapters may
+    change while it trains; the run ends by writing
+    ``lora_adapters.safetensors`` and merging the adapters into the model,
+    and a second trainer given that file through ``lora_weight_path`` (0
+    steps) must merge the same weights into the restored base."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.checkpoint import safetensors_io
+    from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.train import lora
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cambrian_8b()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_lora")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def arguments(**kw):
+        return TrainingArguments(**{**dict(
+            output_dir=out_dir, lora_enable=True, lora_r=16, lora_alpha=32,
+            tune_mm_mlp_adapter=False, bf16=True, num_train_epochs=1,
+            per_device_train_batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
+            adam_mu_dtype="bfloat16", learning_rate=4e-5, mm_vision_sampler_lr=1e-5,
+            warmup_ratio=0.03, lr_scheduler_type="cosine", logging_steps=1, save_steps=500,
+            save_total_limit=1, group_by_modality_length=True, seed=SEED, device="cuda"), **kw})
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sd = random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+    model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+    del sd
+    lm, towers = model.lm, model.towers
+    dataset = PretokenizedDataset(cfg, towers, TRAIN_STEPS * TRAIN_BATCH,
+                                  np.random.default_rng(SEED))
+    collator = DataCollatorForSupervisedDataset(
+        tokenizer=PretokenizedTokenizer(), image_token_len=cfg.image_token_len,
+        image_aux_token_len_list=list(cfg.mm_vision_tower_aux_token_len_list),
+        image_position=cfg.image_position)
+    targets = lora.lora_targets(lm)
+    base = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    base.update({f"towers.{i}.{n}": p.detach().cpu() for i, t in enumerate(towers)
+                 for n, p in t.named_parameters()})
+    n_adapter = 16 * sum(lin.in_features + lin.out_features for lin in targets.values())
+    torch.cuda.synchronize()
+    print(f"8B LoRA build: {len(targets)} targeted projections "
+          f"({sum(k.startswith('params/layers_') for k in targets)} in the decoder), "
+          f"{n_adapter / 1e6:.2f}M adapter parameters over a "
+          f"{sum(p.numel() for p in base.values()) / 1e9:.3f}B frozen model, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    trainer = CambrianTrainer(model=lm, towers=towers, args=arguments(), train_dataset=dataset,
+                              data_collator=collator)
+    counters = all_counters(fa, quant)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)                    # the LoRA path's count starts here
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s * 1e3 for s in trainer.step_seconds]
+    warm_ms = float(np.mean(step_ms[1:]))
+    for h in history:
+        print(f"8B LoRA step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
+              f"lr {h['lr']:.3e}", flush=True)
+    check([h["step"] for h in history] == list(range(1, TRAIN_STEPS + 1)),
+          f"8B LoRA: history steps {[h['step'] for h in history]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+              for h in history), "8B LoRA: non-finite loss or grad_norm, or grad_norm 0")
+    want = {name: 0 for name in counters}
+    want["flash_attention_fwd"] = TRAIN_STEPS * TRAIN_K1_LAUNCHES
+    want["flash_attention_bwd"] = TRAIN_STEPS * TRAIN_K2_LAUNCHES
+    check(launches == want, f"8B LoRA: launched {launches}, not {want}")
+    adapters = trainer.adapters
+    check(sorted(adapters) == sorted(targets), "8B LoRA: the adapters are not the targets")
+    unmoved = [k for k, ad in adapters.items() if not ad["b"].any()]
+    check(not unmoved, f"8B LoRA: b still 0 in {unmoved[:5]}")
+
+    # the run ended by merging: every targeted weight is its base plus its
+    # adapters' delta, every other tensor (connector, norms, towers) as it was
+    merged = {n: p.detach() for n, p in lm.named_parameters()}
+    merged.update({f"towers.{i}.{n}": p.detach() for i, t in enumerate(towers)
+                   for n, p in t.named_parameters()})
+    targeted = {lora.weight_name(k) for k in targets}
+    changed = []
+    for n, p in merged.items():
+        if n in targeted:
+            continue
+        if not torch.equal(p.cpu(), base[n]):
+            changed.append(n)
+    check(not changed, f"8B LoRA: tensors other than the adapters changed: {changed[:5]}")
+    wrong = []
+    with torch.no_grad():
+        for k, ad in adapters.items():
+            n = lora.weight_name(k)
+            w = lora.apply_lora({n: base[n].to(dev)}, {k: ad}, 32, 16)[n]
+            if not torch.equal(merged[n], w):
+                wrong.append(n)
+    check(not wrong, f"8B LoRA: merged weights are not base + delta: {wrong[:5]}")
+    check(all(p.grad is None for p in merged.values()), "8B LoRA: a parameter kept a .grad")
+
+    # the adapters' file: JAX's key names, the run's adapters bit for bit
+    path = os.path.join(out_dir, "lora_adapters.safetensors")
+    saved = safetensors_io.load_file(path)
+    check(sorted(saved) == sorted(f"{k}.lora_{p}" for k in targets for p in "ab"),
+          f"8B LoRA: {len(saved)} tensors in the adapters' file, not {2 * len(targets)}")
+    for k, ad in adapters.items():
+        for part in "ab":
+            check(np.array_equal(saved[f"{k}.lora_{part}"], ad[part].detach().cpu().numpy()),
+                  f"8B LoRA: the file's {k}.lora_{part} is not the run's")
+
+    # lora_weight_path: restore the base, train 0 steps from the file; the
+    # merge must give the first run's final weights
+    final = {n: merged[n].clone() for n in targeted}
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            if n in targeted:
+                p.copy_(base[n])
+    reload = CambrianTrainer(model=lm, towers=towers,
+                             args=arguments(output_dir=out_dir + "_reload", lora_weight_path=path,
+                                            num_train_epochs=0),
+                             train_dataset=dataset, data_collator=collator)
+    reload.train()
+    torch.cuda.synchronize()
+    params = dict(lm.named_parameters())
+    wrong = [n for n in targeted if not torch.equal(params[n].detach(), final[n])]
+    check(not wrong, f"8B LoRA: lora_weight_path merged other weights: {wrong[:5]}")
+    del final, base
+
+    rec = dict(step_ms=step_ms, warm_step_ms=warm_ms, peak_bytes=peak, launches=launches,
+               history=history, targets=len(targets), adapter_params=n_adapter,
+               file_tensors=len(saved), slot_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_ms * 1e3)
+    print(f"8B LoRA: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); warm "
+          f"{warm_ms:.1f} ms, {rec['slot_tokens_per_s']:.1f} slot tokens/s; peak memory "
+          f"allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {len(saved)} tensors in "
+          f"lora_adapters.safetensors; the reload merged the same weights; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del model, lm, towers, trainer, reload, adapters, merged, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(out_dir + "_reload", ignore_errors=True)
+    return rec
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3861,8 +4082,35 @@ def main(argv=None):
             print(f"sass {lib}: {fn}: {hgmma} HGMMA, {hmma} HMMA, {i2f} I2F, {n_regs} registers, "
                   f"{spills} bytes spilled", flush=True)
     bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
-    check(len(bf16_fns) == 32, f"expected 16 bf16 kernel functions of K1 and 2 x 8 of K2, "
+    check(len(bf16_fns) == 56, f"expected 16 bf16 kernel functions of K1 and 40 of K2, "
           f"found {bf16_fns}")
+    # K2 up to head_dim 256: its dk/dv function accumulating dK and dV up to
+    # DP = 128 (<DP,0>), dV alone (<DP,1>) and dK alone (<DP,2>) above; dq at
+    # every DP; the fp32 functions with 64-row q tiles and 8 columns a thread
+    # (D <= 128) and 32-row tiles with 16 (above); the registers and spills
+    # of those above 128 printed
+    k2_usage = resource_usage(built["flash_attention_bwd"]["path"])
+    k2_regs = register_use(built["flash_attention_bwd"]["log"])
+    want_k2 = {f"bwd_dkdv_bf16_kernel<{dp},0>" for dp in range(16, 129, 16)}
+    want_k2 |= {f"bwd_dkdv_bf16_kernel<{dp},{part}>" for dp in range(144, 257, 16)
+                for part in (1, 2)}
+    want_k2 |= {f"bwd_dq_bf16_kernel<{dp}>" for dp in range(16, 257, 16)}
+    want_k2 |= {f"{fn}<float,{rows},{cols}>" for fn in ("bwd_dkdv_kernel", "bwd_dq_kernel")
+                for rows, cols in ((64, 8), (32, 16))}
+    want_k2 |= {"bwd_delta_kernel<float>", "bwd_delta_kernel<bf16>"}
+    check(set(k2_usage) == want_k2, f"flash_attention_bwd: {sorted(k2_usage)}, not "
+          f"{sorted(want_k2)}")
+    for fn in sorted(want_k2):
+        regs, stack, local = k2_usage[fn]
+        sass.setdefault(fn, dict(library="flash_attention_bwd")).update(
+            registers=regs, stack_bytes=stack, local_bytes=local,
+            spill_bytes=k2_regs.get(fn, (None, None))[1])
+    wide = [fn for fn in sorted(want_k2) if fn.endswith("<float,32,16>")
+            or int((re.match(r"\w+<(\d+)", fn) or [0, 0])[1]) >= 144]
+    wide = [f"{fn} {sass[fn]['registers']} registers, {sass[fn]['stack_bytes']} B stack, "
+            f"{sass[fn]['local_bytes']} B local, {sass[fn]['spill_bytes']} B spilled"
+            for fn in wide]
+    print("K2 above head_dim 128: " + "; ".join(wide), flush=True)
     # K1 up to head_dim 256: every function there, none spilling (no stack,
     # no local memory), the widest's registers printed
     k1_usage = resource_usage(built["flash_attention"]["path"])
@@ -4038,10 +4286,10 @@ def main(argv=None):
                   f"bf16 {ref['prefill_ms']:.1f} ms", flush=True)
     bwd_kernels = backward_kernel_phase(torch, fa)
     tiny_train = tiny_training_phase(torch, fa, quant)
-    k2_path = [k for k in bwd_kernels if k["per_step"] and k["dtype"] == "bfloat16"]
-    check(len(k2_path) == 1, "one K2 case at the training path's shape")
-    k2 = k2_path[0]
-    train = train_8b_phase(torch, fa, quant, k2)
+    k2 = next(k for k in bwd_kernels if k["case"] == "decoder_train" and k["dtype"] == "bfloat16")
+    k2_gemma = next(k for k in bwd_kernels
+                    if k["case"] == "gemma_train" and k["dtype"] == "bfloat16")
+    train = train_stage1_phase(torch, fa, quant, k2, cambrian_8b(), "8B", LAYERS)
     t10 = time.perf_counter()
     vision = vision_kernel_phase(torch, fa, quant, sites)
     del sites
@@ -4051,6 +4299,12 @@ def main(argv=None):
     print(f"phase 11 (Cambrian-Phi-3): {time.perf_counter() - t11:.1f} s", flush=True)
     zoo = zoo_phase(torch, fa, quant, prompts)
     families = family_phase(torch, fa, quant)
+    t15 = time.perf_counter()
+    gemma_train = gemma_train_phase(torch, fa, quant, k2_gemma)
+    print(f"phase 15 (Cambrian-Gemma-7B stage 1): {time.perf_counter() - t15:.1f} s", flush=True)
+    t16 = time.perf_counter()
+    lora_train = lora_train_phase(torch, fa, quant)
+    print(f"phase 16 (Cambrian-8B LoRA): {time.perf_counter() - t16:.1f} s", flush=True)
 
     # launches: each path's counts (8B serving and training, Phi-3 serving
     # and loading), read just after it, summed over paths
@@ -4058,6 +4312,7 @@ def main(argv=None):
     paths += [f["continuous"]["launches"] for f in full.values()]
     paths += [f["http"]["launches"] for f in full.values() if f["http"]]
     paths += [zoo["launches"], zoo["cambrian"]["launches"]] + families["launches"]
+    paths += [gemma_train["launches"], lora_train["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -4195,13 +4450,15 @@ def main(argv=None):
           f"head_dim 256: kernel {per_req['ms']:.3f} ms, plain {per_req['plain_ms']:.3f} ms, "
           f"sdpa {per_req['library_ms']:.3f} ms, bound {per_req['bound_ms']:.4f} ms "
           f"({rows[-1]['bound_by']})", flush=True)
-    # K2: per training step, 32 calls at the decoder's shape (bf16)
+    # K2: per training step, 32 calls at the decoder's shape (bf16); launches
+    # of the 8B paths (phases 9 and 16)
     rows.append({
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "cambrian_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "cambrian_tpu/ops/flash_attention.py:140",
-        "launches": launches["flash_attention_bwd"],
+        "launches": train["launches"]["flash_attention_bwd"]
+        + lora_train["launches"]["flash_attention_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"] * k2["per_step"],
         "plain_ms": k2["plain_ms"] * k2["per_step"],
@@ -4212,6 +4469,25 @@ def main(argv=None):
     print(f"flash_attention_bwd: per training step kernel {rows[-1]['ms']:.1f} ms, plain "
           f"{rows[-1]['plain_ms']:.1f} ms, sdpa backward {rows[-1]['library_ms']:.1f} ms, bound "
           f"{rows[-1]['bound_ms']:.2f} ms ({k2['bound_by']})", flush=True)
+    # K2 at head_dim 256: per Gemma-7B training micro-batch, 28 calls at its
+    # stage-1 shape (bf16); launches of phase 15's path
+    rows.append({
+        "name": "flash_attention_bwd_gemma",
+        "route": "cuda",
+        "source": "cambrian_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "cambrian_tpu/ops/flash_attention.py:140",
+        "launches": gemma_train["launches"]["flash_attention_bwd"],
+        "max_abs_err": k2_gemma["max_abs_err"],
+        "ms": k2_gemma["ms"] * k2_gemma["per_step"],
+        "plain_ms": k2_gemma["plain_ms"] * k2_gemma["per_step"],
+        "bound_ms": k2_gemma["bound_ms"] * k2_gemma["per_step"],
+        "bound_by": k2_gemma["bound_by"],
+        "library_ms": k2_gemma["library_ms"] * k2_gemma["per_step"],
+    })
+    print(f"flash_attention_bwd_gemma: per Gemma-7B training step ({GEMMA_LAYERS} calls at "
+          f"head_dim 256) kernel {rows[-1]['ms']:.1f} ms, plain {rows[-1]['plain_ms']:.1f} ms, "
+          f"sdpa backward ({k2_gemma['sdpa_backend']}) {rows[-1]['library_ms']:.1f} ms, bound "
+          f"{rows[-1]['bound_ms']:.2f} ms ({k2_gemma['bound_by']})", flush=True)
     # K5-K8: one request's drop-in sites (bf16); launches from the drop-in pass
     for kind, (_, _, replaces, source) in VISION_KERNELS.items():
         recs = [r for r in vision["records"] if r["kernel"] == kind and r["per_request"]]
@@ -4250,6 +4526,7 @@ def main(argv=None):
                            kernels=kernels, quant_kernels=quant_kernels, tiny=tiny, full=full,
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
                            vision=vision, phi3=phi3, zoo=zoo, families=families,
+                           gemma_train=gemma_train, lora_train=lora_train,
                            summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -14,8 +14,7 @@ import pytest
 import torch
 
 from cambrian_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_DIM_BWD,
-    MAX_HEAD_DIM_FWD,
+    MAX_HEAD_DIM,
     _check_inputs,
     _flash_fwd,
     flash_attention,
@@ -159,18 +158,18 @@ def test_plain_row_statistic_matches_numpy(name):
 
 
 def test_head_dim_limits():
-    """The card's limits, checked before any launch: the forward (K1) takes
-    head_dim up to 256, the backward (K2) up to 128, and above that raises
-    naming the ROADMAP item; on the CPU the plain versions take any D."""
-    assert (MAX_HEAD_DIM_FWD, MAX_HEAD_DIM_BWD) == (256, 128)
+    """The card's limits, checked before any launch: the forward (K1) and
+    the backward (K2) take head_dim up to 256 and raise above it; on the CPU
+    the plain versions take any D."""
+    assert MAX_HEAD_DIM == 256
     for d in (136, 192, 256):
         q, k, v, valid = (torch.from_numpy(x) for x in _inputs(1, 3, 3, 2, 1, d, seed=d))
-        _check_inputs("flash_attention", q, k, v, valid, MAX_HEAD_DIM_FWD)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            _check_inputs("flash_attention_bwd", q, k, v, valid, MAX_HEAD_DIM_BWD)
+        _check_inputs("flash_attention", q, k, v, valid)
+        _check_inputs("flash_attention_bwd", q, k, v, valid)
     q, k, v, valid = (torch.from_numpy(x) for x in _inputs(1, 3, 3, 2, 1, 264, seed=1))
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        _check_inputs("flash_attention", q, k, v, valid, MAX_HEAD_DIM_FWD)
+    for what in ("flash_attention", "flash_attention_bwd"):
+        with pytest.raises(ValueError, match=f"{what} takes head_dim <= 256"):
+            _check_inputs(what, q, k, v, valid)
     got = flash_attention(q, k, v, valid, causal=True)
     torch.testing.assert_close(got, flash_attention_reference(q, k, v, valid, True),
                                atol=0, rtol=0)
@@ -307,15 +306,38 @@ def test_bf16_tma_layout_rules_raise(cuda_device, rule):
 
 @pytest.mark.cuda
 def test_head_dim_256_forward_launches_and_backward_raises_on_card(cuda_device):
-    """K1 launches at D = 256 in both dtypes; K2 on a CUDA tensor above 128
-    raises before any launch, named by the ROADMAP item (no fallback)."""
+    """K1 and K2 launch at D = 256 in both dtypes, K2 given K1's statistic
+    and held against its plain version; at D = 264 both raise before any
+    launch (no fallback)."""
+    from cambrian_tpu_torch.ops.flash_attention import flash_attention_bwd_reference
+
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, valid = _card_inputs(cuda_device, dtype, 1, 130, 130, 2, 2, 256, "pad")
         before = flash_attention.launches
         out = flash_attention(q, k, v, valid, True)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1 and torch.isfinite(out).all()
+        _, lse = _flash_fwd(q, k, v, valid, True, None, 0, 256 ** -0.5, with_lse=True)
+        do = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                         device=cuda_device).to(dtype)
         before = flash_attention_bwd.launches
-        with pytest.raises(ValueError, match="ROADMAP"):
-            flash_attention_bwd(q, k, v, valid, out, torch.ones_like(out), True)
-        assert flash_attention_bwd.launches == before
+        got = flash_attention_bwd(q, k, v, valid, out, do, True, lse=lse)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        want = flash_attention_bwd_reference(q.float(), k.float(), v.float(), valid,
+                                             out.float(), do.float(), True)
+        # fp32: the same math in another summation order; bf16: the
+        # outputs' rounding of values up to |ref|max (K2's rule on the card)
+        rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        for x, ref in zip(got, want):
+            assert x.dtype == dtype and torch.isfinite(x).all()
+            tol = rel * max(1.0, float(ref.abs().max()))
+            torch.testing.assert_close(x.float(), ref, atol=tol, rtol=0)
+        wide = [torch.zeros((*t.shape[:-1], 264), dtype=dtype, device=cuda_device)
+                for t in (q, k, v)]
+        for fn, args in ((flash_attention, wide), (flash_attention_bwd, wide + [
+                None, torch.zeros_like(wide[0]), torch.zeros_like(wide[0])])):
+            before = fn.launches
+            with pytest.raises(ValueError, match="head_dim <= 256"):
+                fn(*args)
+            assert fn.launches == before

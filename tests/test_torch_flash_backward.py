@@ -77,6 +77,12 @@ CASES = {
     "sliding_window": (1, 96, 96, 2, 2, 32, None, True, 16, 0),
     "gqa": (2, 70, 70, 4, 2, 32, [70, 50], True, None, 0),
     "head_dim_72": (1, 80, 80, 2, 2, 72, None, False, None, 0),
+    # the head dimensions above 128 (the JAX backward pads D to 256 or 384):
+    # causal with GQA and padding, and under a sliding window
+    "head_dim_136_gqa": (2, 70, 70, 4, 2, 136, [70, 45], True, None, 0),
+    "head_dim_192_window": (1, 96, 96, 2, 2, 192, None, True, 16, 0),
+    "head_dim_256_gqa": (2, 70, 70, 4, 2, 256, [70, 45], True, None, 0),
+    "head_dim_256_window": (1, 80, 96, 2, 1, 256, [90], True, 24, 16),
 }
 
 
@@ -223,6 +229,13 @@ KERNEL_CASES = {
     "d72_window": (2, 150, 150, 4, 2, 72, True, 40, 0, "hole"),
     "d96": (2, 130, 130, 4, 2, 96, True, None, 0, None),
     "d24_offset": (2, 40, 100, 2, 1, 24, True, None, 60, "pad"),
+    # above 128 the dk/dv step is two launches (dV alone, dK alone) in bf16,
+    # and the fp32 kernels take 32-row q tiles: Gemma-7B's training shape
+    # cut in length (16 heads of 256, causal, padding), D = 192 under a
+    # window with an empty key tile, and D = 136 (32-byte swizzle) ragged
+    "gemma_d256": (2, 640, 640, 16, 16, 256, True, None, 0, "pad"),
+    "d192_window_hole": (2, 150, 150, 4, 2, 192, True, 40, 0, "hole"),
+    "d136_ragged": (3, 130, 70, 4, 2, 136, False, None, 0, "pad"),
 }
 
 
@@ -276,7 +289,7 @@ def test_kernel_backward_matches_plain_on_card(cuda_device, name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["d72_window", "decoder_gqa", "ragged"])
+@pytest.mark.parametrize("name", ["d72_window", "decoder_gqa", "ragged", "gemma_d256"])
 def test_backward_with_saved_statistic_matches_direct_call(cuda_device, name, dtype):
     """FlashAttentionFunction's backward (the statistic K1 wrote in the
     forward, saved) against ``flash_attention_bwd`` called without it (one
@@ -388,3 +401,67 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
         for k, v in runs["cpu"][2].items():
             torch.testing.assert_close(runs["cuda"][2][k], v, atol=1e-4, rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["gemma_d256", "lora"])
+def test_tiny_gemma_and_lora_train_steps_on_card_match_cpu(cuda_device, variant):
+    """Three stage-1 steps of a tiny Cambrian-Gemma at head_dim 256 (K2's
+    widest, the fp32 kernels' 32-row tiles), and three LoRA steps of the
+    tiny LLaMA Cambrian, on the card (K1/K2, fp32, TF32 off) against the
+    CPU from the same weights and adapters: losses within 1e-4 relative,
+    trained tensors within 1e-4, K2 once per decoder layer a micro-batch."""
+    from cambrian_tpu_torch import tiny_debug
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.train import lora
+    from cambrian_tpu_torch.train.optimizer import TrainConfig
+    from cambrian_tpu_torch.train.train_step import (
+        init_lora_train_state,
+        init_train_state,
+        make_lora_train_step,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_debug(2).replace(tokenizer_model_max_length=192)
+    if variant == "gemma_d256":
+        cfg = cfg.replace(model_type="gemma", hidden_act="gelu_pytorch_tanh", head_dim=256,
+                          tie_word_embeddings=True, rms_norm_eps=1e-6, num_hidden_layers=2,
+                          num_of_vision_sampler_layers=1)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0), 0.05, dtype=torch.float32,
+                           device="cpu")
+    towers = CambrianForInference.from_state_dict(cfg, sd, torch.float32).towers
+    batches = _tiny_train_batches(cfg, towers, np.random.default_rng(1), 3)
+    tc = TrainConfig(learning_rate=1e-3, mm_vision_sampler_lr=5e-4, warmup_ratio=0.34,
+                     total_steps=3, lr_scheduler_type="cosine", max_grad_norm=1.0,
+                     tune_mm_mlp_adapter=variant != "lora")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = CambrianForInference.from_state_dict(
+            cfg, {k: v.to(dev, copy=True) for k, v in sd.items()}, torch.float32)
+        if variant == "lora":
+            # the same adapters on both devices, b off zero
+            made = lora.init_lora_params(m.lm, 4, torch.Generator().manual_seed(3))
+            adapters = {k: {"a": ad["a"].to(dev), "b": torch.full_like(ad["b"], 0.01).to(dev)}
+                        for k, ad in made.items()}
+            state = init_lora_train_state(adapters, tc)
+            step = make_lora_train_step(m.lm, m.towers, adapters, 8, 4)
+            trained = lambda: {k: t.detach().cpu()  # noqa: E731
+                               for k, t in lora.flat_adapters(adapters).items()}
+        else:
+            state = init_train_state(m.lm, m.towers, tc)
+            step = make_train_step(m.lm, m.towers, freeze=tc)
+            trained = lambda: {k: p.detach().cpu()  # noqa: E731
+                               for k, p in m.lm.named_parameters()}
+        b0 = flash_attention_bwd.launches
+        losses = []
+        for batch in batches:
+            tb = {k: [torch.from_numpy(x).to(dev) for x in v] if isinstance(v, list)
+                  else torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            losses.append(float(step(state, tb)[1]["loss"]))
+        runs[dev] = (losses, flash_attention_bwd.launches - b0, trained())
+    assert runs["cpu"][1] == 0 and runs["cuda"][1] == 3 * cfg.num_hidden_layers
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k], v, atol=1e-4, rtol=0, msg=k)
