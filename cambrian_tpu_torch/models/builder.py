@@ -243,10 +243,22 @@ class CambrianForInference:
                         dtype=torch.bfloat16, tokenizer=None, cache_dtype=torch.bfloat16):
         """Build from a full state dict (``lm.*``, ``towers.{i}.*``). The
         tensors become the parameters (cast to each parameter's dtype) and
-        stay on their device."""
+        stay on their device.
+
+        A model whose projector is not SVA may come without ``lm.mm_projector.*``:
+        the JAX package creates no parameters for a projector no path calls,
+        and an HF checkpoint may hold none. It then gets N(0, 0.02) weights,
+        as ``random_state_dict`` makes them."""
         with torch.device("meta"):
             lm, towers = build_modules(config, dtype)
-        load_state_dict_checked(lm, _strip(state_dict, "lm."), assign=True)
+        lm_sd = _strip(state_dict, "lm.")
+        if config.mm_projector_type != "sva" and not any(
+                k.startswith("mm_projector.") for k in lm_sd):
+            dev = lm_sd["embed_tokens.weight"].device
+            shapes = {k: v for k, v in lm.state_dict().items() if k.startswith("mm_projector.")}
+            lm_sd.update(_random_like(shapes, torch.Generator(device=dev).manual_seed(0), 0.02,
+                                      dev))
+        load_state_dict_checked(lm, lm_sd, assign=True)
         for i, t in enumerate(towers):
             load_state_dict_checked(t, _strip(state_dict, f"towers.{i}."), assign=True)
         unknown = [k for k in state_dict

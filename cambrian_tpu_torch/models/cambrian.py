@@ -7,7 +7,10 @@ Mistral, Gemma, Cohere) with periodic in-LLM SVA re-injection -> fp32 logits
 the LM head; the vision towers are separate modules. Module names mirror the
 flax tree (``mm_projector_aux_0``, ``vision_sampler_layers_3``,
 ``layers_12``) for ``checkpoint/from_jax.py``; the JAX package's
-``_SvaProjector`` is ``projectors.SvaProjector``.
+``_SvaProjector`` is ``projectors.SvaProjector``. A model of another
+projector type (``linear``, ``mlp{N}x_gelu``, ``identity``, ``se_mlp``,
+``CAbstractor``) holds that ``mm_projector`` and none of the SVA modules;
+it serves text, and an image request raises, as in the JAX package.
 
 With ``cfg.remat`` and grad enabled, each decoder layer, in-LLM sampler, aux
 projector and connector sampler runs under ``torch.utils.checkpoint``
@@ -37,7 +40,7 @@ from .language.llama import (
     make_causal_mask,
     make_decode_mask,
 )
-from .projectors import SvaProjector
+from .projectors import SvaProjector, build_projector_module
 from .sva import VisionTokenSampler
 
 
@@ -105,9 +108,6 @@ class CambrianLM(nn.Module):
     def __init__(self, cfg: CambrianConfig, tower_hidden_sizes: Sequence[int],
                  dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.mm_projector_type != "sva":
-            raise NotImplementedError(
-                f"projector type {cfg.mm_projector_type!r} is not ported yet")
         if cfg.lm_head_dtype not in (None, "bf16"):
             raise ValueError(f"lm_head_dtype must be None or 'bf16', got {cfg.lm_head_dtype!r}")
         c = cfg
@@ -117,18 +117,24 @@ class CambrianLM(nn.Module):
         vh = c.vision_hidden_size
         self.num_towers = len(tower_hidden_sizes)
         self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
-        for i, hs in enumerate(tower_hidden_sizes):
-            self.add_module(f"mm_projector_aux_{i}", _AuxProjector(hs, vh, **kw))
-        for g, qn in enumerate(c.query_num_list):
-            self.add_module(f"vision_sampler_{g}", VisionTokenSampler(
-                vh, vh, c.cross_att_window_sizes(qn), vh, c.connector_depth, **kw))
-        if not c.connector_only:
-            for k in range(c.num_of_vision_sampler_layers):
-                self.add_module(f"vision_sampler_layers_{k}", VisionTokenSampler(
-                    c.hidden_size, vh, c.cross_att_window_sizes(c.image_token_len), vh,
-                    1, **kw))
-        self.mm_projector = SvaProjector(vh * c.num_query_group, c.hidden_size, **kw)
-        self.vision_query = nn.Parameter(torch.zeros(c.num_query_group, vh, device=device))
+        if c.mm_projector_type == "sva":
+            for i, hs in enumerate(tower_hidden_sizes):
+                self.add_module(f"mm_projector_aux_{i}", _AuxProjector(hs, vh, **kw))
+            for g, qn in enumerate(c.query_num_list):
+                self.add_module(f"vision_sampler_{g}", VisionTokenSampler(
+                    vh, vh, c.cross_att_window_sizes(qn), vh, c.connector_depth, **kw))
+            if not c.connector_only:
+                for k in range(c.num_of_vision_sampler_layers):
+                    self.add_module(f"vision_sampler_layers_{k}", VisionTokenSampler(
+                        c.hidden_size, vh, c.cross_att_window_sizes(c.image_token_len), vh,
+                        1, **kw))
+            self.mm_projector = SvaProjector(vh * c.num_query_group, c.hidden_size, **kw)
+            self.vision_query = nn.Parameter(torch.zeros(c.num_query_group, vh, device=device))
+        else:
+            # LLaVA-style: only the projector (the towers' concatenated width
+            # in); no model path calls it, as in the JAX package
+            self.mm_projector = build_projector_module(
+                c, c.mm_hidden_size or sum(tower_hidden_sizes), **kw)
         self.image_newline = nn.Parameter(torch.zeros(c.hidden_size, device=device))
         for i in range(c.num_hidden_layers):
             self.add_module(f"layers_{i}", LlamaDecoderLayer(c, **kw))
@@ -145,8 +151,14 @@ class CambrianLM(nn.Module):
     def prepare_vision(self, aux_features_list, aux_masks_list):
         """Multi-tower SVA aggregation. Returns (image_embeds [B, 600, hidden],
         vision_kv N x [B, 576, W_i, vh], vision_masks, global_context
-        [B, 576, vh])."""
+        [B, 576, vh]). Only an SVA model has the per-tower aux projectors it
+        starts from: for any other projector type it raises, as the JAX
+        package's ``prepare_vision`` does."""
         c = self.cfg
+        if c.mm_projector_type != "sva":
+            raise AttributeError(
+                f"CambrianLM with mm_projector_type {c.mm_projector_type!r} has no "
+                f"mm_projector_aux: only an 'sva' model takes images")
         b = aux_features_list[0].shape[0]
         final_side = c.image_token_len_per_side
         vh = c.vision_hidden_size

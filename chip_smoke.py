@@ -277,6 +277,27 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    a second trainer given it through ``lora_weight_path`` (0 steps) merges
    the same weights into the restored base; step times and peak memory.
 
+17. the eval harness (``cambrian_tpu_torch.eval``): (a) right after phase
+   4, the first record of every benchmark of
+   ``tests/fixtures/eval/records.json`` (28) through the runner's
+   ``answer_record`` (greedy, 8 new tokens, the stand-in tokenizer, pixels
+   from a seeded numpy generator in place of ``process_images``) and
+   ``score_answers`` on a tiny fp32 Cambrian on the card and on the CPU:
+   identical rows and metrics, K1 once a tower block (and once a decoder
+   layer for a prompt of 128 slots or more) and nothing else; then a tiny
+   text-only model of each LLaVA-style projector type (linear,
+   mlp2x_gelu, identity, se_mlp, CAbstractor): identical greedy tokens,
+   first-token logits within 1e-3 and the projector within 1e-4; (b) on
+   phase 5's live bf16 Cambrian-8B, before it is freed, the same 28
+   records with ``request_images``' pixels: K1 exactly 122 times a request
+   and nothing else; every benchmark scored, ``write_submission`` where a
+   benchmark has a submission, ``append_experiment_row``, ``pivot`` and
+   ``write_pivot`` into ``build/eval_8b/``; each request's encode, prefill
+   and decode ms; (c) one such request under ``profiling.trace`` with
+   ``annotate`` spans around encode and generate: the trace under
+   ``build/eval_trace/`` must name both spans and ``fwd_bf16_kernel`` (a
+   trace without the kernel is taken again, three times in all).
+
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
 """
@@ -404,6 +425,16 @@ GEMMA_QUANT_PER_STEP = 7 * GEMMA_LAYERS
 FAMILY_CB_SLOTS = 4
 FAMILY_CB_TOKENS = 16
 COMMAND_R_LAYERS = 8
+# phase 17: the eval harness, on the first record of every benchmark in the
+# eval fixtures, greedy, with the runner's default template
+EVAL_FIXTURES = os.path.join("tests", "fixtures", "eval", "records.json")
+EVAL_TOKENS = 8
+EVAL_CONV = "llama_3"
+EVAL_SIZES = [(640, 480), (480, 640), (1024, 1024)]
+EVAL_MODEL_ID = "cambrian-8b-random"
+NON_SVA_PROJECTORS = ["linear", "mlp2x_gelu", "identity", "se_mlp", "CAbstractor"]
+TINY_LOGIT_TOL = 1e-3      # tiny fp32 (TF32 off) logits, card against CPU, as phase 4
+TINY_PROJ_TOL = 1e-4       # a tiny projector's output, card against CPU, fp32
 COMMAND_R_K1 = TOWER_K1_CALLS + COMMAND_R_LAYERS        # 98
 QUANT_KERNELS = {
     "int8_matmul": ("cambrian_tpu/ops/quant.py:55", "int8"),
@@ -411,6 +442,13 @@ QUANT_KERNELS = {
     # K4b (:190, CAMBRIAN_INT4_V2=1) and K4c (:282, CAMBRIAN_INT4_V1=1)
     "int4_matmul_scale_on_weights": ("cambrian_tpu/ops/quant.py:190", "int4"),
 }
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def check(cond, msg):
@@ -1095,11 +1133,13 @@ def serve_request(torch, model, counters, cfg, r, pr, stream=False, k1=LAUNCHES_
     return rec
 
 
-def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
+def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None, then=None):
     """Cambrian-8B through the user entry points, bf16 or quantized. With
     ``sites`` (a dict), one more warm request (request 0's prompt and image,
     2 new tokens) runs after the counted ones with ``capture_sites``' hooks,
-    and the captured drop-in sites of K5-K8 are put into ``sites``."""
+    and the captured drop-in sites of K5-K8 are put into ``sites``. ``then``
+    (model, counters, cfg) runs last on the live model; its result is the
+    record's ``then``."""
     from cambrian_tpu_torch import cambrian_8b
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
 
@@ -1190,12 +1230,13 @@ def full_width_phase(torch, fa, quant, prompts, quantize=None, sites=None):
               f"8B sites: {per_request['depthwise_conv7x7']} dwconv, {pairs} ConvNeXt MLP pairs")
         check(per_request["fused_windowed_cross_attention"] == 13,
               f"8B sites: {per_request['fused_windowed_cross_attention']} SVA attention calls")
+    after = then(model, counters, cfg) if then is not None else None
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return dict(requests=requests, launches=launches, n_params=n_params,
                 weight_bytes=weight_bytes, peak_bytes=peak, continuous=continuous, http=http,
-                head=head)
+                head=head, then=after)
 
 
 def fp32_head_times(torch, model, rows):
@@ -1452,11 +1493,16 @@ def continuous_phase(torch, quant, model, counters, cfg, prompts, sequential, qu
 
 class StandInTokenizer:
     """A numpy stand-in for the 8B tokenizer, which the card machine lacks:
-    each whitespace-separated word becomes one id below the special ids, from
-    its bytes; ``decode`` writes each id as a word. No EOS, so a stream runs
-    its whole budget."""
-    bos_token_id = 128000
+    each whitespace-separated word becomes one of ``words`` ids from
+    ``first_word``, from its bytes; ``decode`` writes each id as a word, and
+    skips ids from ``special_from`` (the 8B's special ids) when told to. No
+    EOS, so a stream runs its whole budget."""
     eos_token_id = None
+
+    def __init__(self, bos_token_id=128000, first_word=100, words=100000, special_from=None):
+        self.bos_token_id = bos_token_id
+        self.first_word, self.words = first_word, words
+        self.special_from = bos_token_id if special_from is None else special_from
 
     def __call__(self, text):
         from types import SimpleNamespace
@@ -1464,12 +1510,16 @@ class StandInTokenizer:
         ids = [self.bos_token_id]
         for word in text.split():
             b = np.frombuffer(word.encode(), np.uint8).astype(np.int64)
-            ids.append(int((b * (np.arange(len(b)) + 1) * 131).sum() % 100000) + 100)
+            ids.append(int((b * (np.arange(len(b)) + 1) * 131).sum() % self.words)
+                       + self.first_word)
         return SimpleNamespace(input_ids=ids)
 
     def decode(self, ids, skip_special_tokens=True):
         return "".join(f" w{int(i)}" for i in ids
-                       if not (skip_special_tokens and int(i) >= self.bos_token_id))
+                       if not (skip_special_tokens and int(i) >= self.special_from))
+
+    def batch_decode(self, rows, skip_special_tokens=True):
+        return [self.decode(r, skip_special_tokens) for r in rows]
 
 
 def http_stream(url, payload, timeout):
@@ -4034,6 +4084,249 @@ def lora_train_phase(torch, fa, quant):
     return rec
 
 
+def eval_records():
+    """(benchmark, its first fixture record) for every benchmark of the eval
+    fixtures, in name order; the image stays the fixture's placeholder, and
+    the pixels come from the caller."""
+    with open(os.path.join(REPO, EVAL_FIXTURES)) as f:
+        table = json.load(f)
+    return [(name, table[name][0]) for name in sorted(table) if not name.startswith("_")]
+
+
+def eval_row(r, name, rec, bundle, pixels, out_dir):
+    """Record ``r`` of eval_records() through the runner's ``answer_record``
+    (greedy, EVAL_TOKENS) on ``pixels``, its row written to
+    ``out_dir/<benchmark>.jsonl`` and scored by ``score_answers``: (row,
+    metrics)."""
+    from cambrian_tpu_torch.eval import score
+    from cambrian_tpu_torch.eval.runner import answer_record
+
+    row = answer_record(name, dict(rec), 0, bundle, EVAL_CONV, EVAL_TOKENS, 0.0, pixels=pixels,
+                        image_size=EVAL_SIZES[r % 3])
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.jsonl")
+    with open(path, "w") as f:
+        f.write(json.dumps(row) + "\n")
+    return row, score.score_answers(name, path)
+
+
+def eval_tiny_phase(torch, fa, quant):
+    """Phase 17 (a): the eval harness on a tiny fp32 Cambrian (TF32 off) on
+    the card against the same on the CPU, on the first record of every
+    fixture benchmark with pixels from a seeded numpy generator: identical
+    answer rows and metrics; K1 once a tower block and, where the packed
+    prompt has 128 slots or more, once a decoder layer. Then a tiny
+    text-only model of each LLaVA-style projector type: identical greedy
+    tokens, first-token logits within TINY_LOGIT_TOL, K1 once a decoder
+    layer, and the projector module itself within TINY_PROJ_TOL."""
+    from cambrian_tpu_torch import tiny_debug
+    from cambrian_tpu_torch.eval import BENCHMARKS
+    from cambrian_tpu_torch.eval.runner import build_inputs
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = tiny_debug(num_towers=2)
+        sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED + 17), 0.05,
+                               dtype=torch.float32, device="cpu")
+        models = {"cpu": CambrianForInference.from_state_dict(cfg, sd, torch.float32,
+                                                              cache_dtype=torch.float32),
+                  "gpu": CambrianForInference.from_state_dict(
+                      cfg, {k: v.cuda() for k, v in sd.items()}, torch.float32,
+                      cache_dtype=torch.float32)}
+        tok = StandInTokenizer(bos_token_id=cfg.bos_token_id, first_word=5,
+                               words=cfg.vocab_size - 5, special_from=cfg.vocab_size)
+        records = eval_records()
+        rng = np.random.default_rng(SEED + 17)
+        pixels = [[rng.standard_normal((1, 3, t.image_size, t.image_size)).astype(np.float32)
+                   for t in models["cpu"].towers] for _ in records]
+        counters = all_counters(fa, quant)
+        out = {}
+        for where, model in models.items():
+            bundle = (tok, model, [t.image_processor for t in model.towers],
+                      cfg.tokenizer_model_max_length)
+            out_dir = os.path.join(REPO, "build", "eval_tiny", where)
+            zero_counts(counters)
+            rows, metrics = {}, {}
+            for r, (name, rec) in enumerate(records):
+                rows[name], metrics[name] = eval_row(r, name, rec, bundle, pixels[r], out_dir)
+            out[where] = rows, metrics
+            if where == "gpu":
+                counts = read_counts(counters)
+        check(out["gpu"][0] == out["cpu"][0], "phase 17 (a): the tiny eval rows differ between "
+              "the card and the CPU: " + str([n for n in out["cpu"][0]
+                                              if out["cpu"][0][n] != out["gpu"][0].get(n)]))
+        check(out["gpu"][1] == out["cpu"][1], "phase 17 (a): the tiny metrics differ")
+        blocks = sum(t.config.num_blocks_to_run for t in models["gpu"].towers)
+        long_prompts = 0
+        for r, (name, rec) in enumerate(records):
+            prompt = BENCHMARKS[name].build_prompt(dict(rec))
+            ids = build_inputs(prompt, tok, None, cfg, EVAL_CONV, pixels[r], EVAL_SIZES[r % 3])[0]
+            long_prompts += len(ids) + cfg.image_block_len - 1 >= 128
+        expected = {name: 0 for name in counters}
+        expected["flash_attention_fwd"] = (blocks * len(records)
+                                           + cfg.num_hidden_layers * long_prompts)
+        check(counts == expected, f"phase 17 (a): the tiny eval launched {counts}, not {expected}")
+        answered = sum(bool(row["prediction"]) for row in out["gpu"][0].values())
+        print(f"phase 17 (a): {len(records)} tiny eval rows and metrics identical on the card and "
+              f"the CPU ({answered} non-empty answers; {long_prompts} prompts of 128 slots or "
+              f"more); K1 {counts['flash_attention_fwd']} launches", flush=True)
+        projectors = {}
+        for ptype in NON_SVA_PROJECTORS:
+            projectors[ptype] = tiny_projector_case(torch, fa, quant, ptype, rng)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return dict(records=len(records), rows=out["gpu"][0], metrics=out["gpu"][1],
+                launches=counts, long_prompts=long_prompts, projectors=projectors)
+
+
+def tiny_projector_case(torch, fa, quant, ptype, rng):
+    """A tiny text-only Cambrian with a ``ptype`` projector on the card
+    against the CPU (fp32): 8 greedy tokens and the first token's logits
+    from a 150-id prompt (the decoder's prefill on K1), and the projector
+    module on random tokens."""
+    from cambrian_tpu_torch import tiny_debug
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    cfg = tiny_debug(num_towers=2).replace(mm_projector_type=ptype)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED + 18), 0.05,
+                           dtype=torch.float32, device="cpu")
+    cpu = CambrianForInference.from_state_dict(cfg, sd, torch.float32, cache_dtype=torch.float32)
+    gpu = CambrianForInference.from_state_dict(cfg, {k: v.cuda() for k, v in sd.items()},
+                                               torch.float32, cache_dtype=torch.float32)
+    ids = rng.integers(5, cfg.vocab_size, 150)
+    kw = dict(max_new_tokens=8, eos_token_id=None)
+    want = cpu.generate(ids, **kw)
+    counters = all_counters(fa, quant)
+    zero_counts(counters)
+    got = gpu.generate(ids, **kw)
+    counts = read_counts(counters)
+    logit_err = float((gpu.engine.last_next_logits.cpu() - cpu.engine.last_next_logits)
+                      .abs().max())
+    in_dim = sum(t.hidden_size for t in cpu.towers)
+    x = torch.from_numpy(rng.standard_normal((1, 16, in_dim)).astype(np.float32))
+    with torch.no_grad():
+        proj_err = float((gpu.lm.mm_projector(x.cuda()).cpu() - cpu.lm.mm_projector(x))
+                         .abs().max())
+    print(f"phase 17 (a), {ptype} projector, text only: cpu tokens {want.tolist()} gpu tokens "
+          f"{got.tolist()}; first-token logits max abs diff {logit_err:.3e}; projector "
+          f"max abs diff {proj_err:.3e}; launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    check(got.shape == (1, 8) and (got == want).all(), f"{ptype} projector: tokens differ")
+    check(logit_err < TINY_LOGIT_TOL, f"{ptype} projector: logits differ by {logit_err}")
+    check(proj_err < TINY_PROJ_TOL, f"{ptype} projector: its output differs by {proj_err}")
+    expected = {name: 0 for name in counters}
+    expected["flash_attention_fwd"] = cfg.num_hidden_layers
+    check(counts == expected, f"{ptype} projector: launched {counts}, not {expected}")
+    return dict(tokens=got.tolist(), logit_err=logit_err, proj_err=proj_err)
+
+
+def eval_full_phase(torch, fa, quant, model, counters, cfg):
+    """Phase 17 (b) and (c) on the live bf16 Cambrian-8B of phase 5: (b) the
+    first record of every fixture benchmark through the runner's
+    ``answer_record`` with the stand-in tokenizer and request_images' pixels
+    (greedy, EVAL_TOKENS), each request K1 LAUNCHES_PER_REQUEST times and no
+    other kernel of the port; every benchmark scored, its submission written
+    where it has one, every metric appended to an experiments CSV under
+    ``build/`` and pivoted; (c) one request under ``profiling.trace`` with
+    ``annotate`` spans around encode and generate, whose trace must name both
+    spans and ``fwd_bf16_kernel``."""
+    from cambrian_tpu_torch import profiling
+    from cambrian_tpu_torch.eval import BENCHMARKS, score, tabulate
+    from cambrian_tpu_torch.eval.runner import build_inputs
+
+    out_dir = os.path.join(REPO, "build", "eval_8b")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bundle = (StandInTokenizer(), model, [t.image_processor for t in model.towers],
+              cfg.tokenizer_model_max_length)
+    records = eval_records()
+    requests = []
+    want = {name: 0 for name in counters}
+    want["flash_attention_fwd"] = LAUNCHES_PER_REQUEST
+    zero_counts(counters)                     # the eval path's count starts here
+    t0 = time.perf_counter()
+    rows, metrics = {}, {}
+    for r, (name, rec) in enumerate(records):
+        before, t_req = read_counts(counters), time.perf_counter()
+        rows[name], metrics[name] = eval_row(r, name, rec, bundle,
+                                             request_images(torch, model.towers, r), out_dir)
+        after = read_counts(counters)
+        tm = model.engine.last_timings
+        requests.append(dict(benchmark=name, wall_ms=(time.perf_counter() - t_req) * 1e3,
+                             encode_ms=tm["encode_ms"], prefill_ms=tm["prefill_ms"],
+                             decode_ms=tm["decode_ms"], decode_steps=tm["decode_steps"],
+                             launches={k: after[k] - v for k, v in before.items()}))
+        check(requests[-1]["launches"] == want,
+              f"phase 17 (b) {name}: launched {requests[-1]['launches']}")
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    csv_path = os.path.join(out_dir, "experiments.csv")
+    subs = {}
+    for name, m in metrics.items():
+        b = BENCHMARKS[name]
+        check(b.primary_metric in m and all(np.isfinite(float(v)) for v in m.values()),
+              f"phase 17 (b) {name}: metrics {m}")
+        sub = score.write_submission(name, os.path.join(out_dir, f"{name}.jsonl"), EVAL_MODEL_ID)
+        check((sub is not None) == (b.submission is not None) and (sub is None or
+                                                                    os.path.isfile(sub)),
+              f"phase 17 (b) {name}: submission {sub}")
+        if sub:
+            subs[name] = os.path.relpath(sub, REPO)
+        score.append_experiment_row(csv_path, EVAL_MODEL_ID, name, m)
+    table = tabulate.pivot(tabulate.read_rows([csv_path]))
+    pivot_path = os.path.join(out_dir, "experiments_pivot.csv")
+    tabulate.write_pivot(table, pivot_path)
+    with open(pivot_path) as f:
+        header = f.readline().strip().split(",")
+    check(sorted(table[EVAL_MODEL_ID]) == sorted(metrics) and sorted(header[1:]) ==
+          sorted(metrics), f"phase 17 (b): pivot columns {header}")
+    for req in requests:
+        print(f"phase 17 (b) {req['benchmark']}: encode {req['encode_ms']:.1f} ms, prefill "
+              f"{req['prefill_ms']:.1f} ms, decode {req['decode_ms']:.1f} ms "
+              f"({req['decode_steps']} steps), request {req['wall_ms']:.1f} ms; answer "
+              f"{rows[req['benchmark']]['prediction']!r}", flush=True)
+    print(f"phase 17 (b) on {card_line()}: {len(records)} Cambrian-8B bf16 eval requests in "
+          f"{wall_s:.2f} s, K1 "
+          f"{launches['flash_attention_fwd']} launches ({LAUNCHES_PER_REQUEST} each, nothing "
+          f"else); {len(metrics)} benchmarks scored, submissions {sorted(subs)}, "
+          f"{os.path.relpath(csv_path, REPO)} and {os.path.relpath(pivot_path, REPO)} written",
+          flush=True)
+
+    # (c) one request under the port's profiling.trace; a trace that lacks
+    # K1's kernel is the profiler's loss (see profiled), so it runs again
+    trace_dir = os.path.join(REPO, "build", "eval_trace")
+    name, rec = records[0]
+    prompt = BENCHMARKS[name].build_prompt(dict(rec))
+    ids, images, sizes, _ = build_inputs(prompt, bundle[0], bundle[2], cfg, EVAL_CONV,
+                                         request_images(torch, model.towers, 0), EVAL_SIZES[0])
+    spans = ("eval_encode", "eval_generate")
+    for attempt in range(1, 4):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with profiling.trace(trace_dir):
+            with profiling.annotate(spans[0]):
+                *args, _ = model._prepare_generate(ids, images, sizes,
+                                                   max_new_tokens=EVAL_TOKENS)
+            with profiling.annotate(spans[1]):
+                model.engine.generate(*args)
+            torch.cuda.synchronize()
+        files = sorted(os.listdir(trace_dir))
+        text = ""
+        for fname in files:
+            with open(os.path.join(trace_dir, fname)) as f:
+                text += f.read()
+        found = {key: key in text for key in (*spans, "fwd_bf16_kernel")}
+        if found["fwd_bf16_kernel"]:
+            break
+        print(f"phase 17 (c): trace {attempt} of 3 holds no fwd_bf16_kernel", flush=True)
+    check(files and all(found.values()), f"phase 17 (c): the trace {files} names {found}")
+    print(f"phase 17 (c): profiling.trace wrote {files} ({len(text) / 1e6:.2f} MB) under "
+          f"{os.path.relpath(trace_dir, REPO)}, naming {sorted(found)}", flush=True)
+    return dict(requests=requests, wall_s=wall_s, launches=launches, metrics=metrics,
+                submissions=subs, trace_files=files, trace_attempts=attempt)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4049,9 +4342,7 @@ def main(argv=None):
     from cambrian_tpu_torch.ops import cuda_build, quant
     from cambrian_tpu_torch.ops import flash_attention as fa
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     try:
         import requests  # noqa: F401
@@ -4271,9 +4562,22 @@ def main(argv=None):
     tiny = {q or "fp32": tiny_slice_phase(torch, fa, quant, rng, q)
             for q in (None, "int8", "int4")}
     tiny["phi3_longrope"] = tiny_slice_phase(torch, fa, quant, rng, longrope=True)
+    t17 = time.perf_counter()
+    eval_tiny = eval_tiny_phase(torch, fa, quant)
+    print(f"phase 17 (a) (tiny eval, card against CPU): {time.perf_counter() - t17:.1f} s",
+          flush=True)
     sites = {}       # K5-K8's drop-in sites, captured in the bf16 serving phase
+
+    def eval_8b(model, counters, cfg):
+        t0 = time.perf_counter()
+        rec = eval_full_phase(torch, fa, quant, model, counters, cfg)
+        print(f"phase 17 (b, c) (Cambrian-8B eval and its trace): {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+        return rec
+
     full = {q or "bf16": full_width_phase(torch, fa, quant, prompts, q,
-                                          sites=sites if q is None else None)
+                                          sites=sites if q is None else None,
+                                          then=eval_8b if q is None else None)
             for q in (None, "int8", "int4")}
     # time to first token: each quantized request's prefill beside the bf16
     # model's on the same prompt (bf16 request 0 is the cold one)
@@ -4306,13 +4610,13 @@ def main(argv=None):
     lora_train = lora_train_phase(torch, fa, quant)
     print(f"phase 16 (Cambrian-8B LoRA): {time.perf_counter() - t16:.1f} s", flush=True)
 
-    # launches: each path's counts (8B serving and training, Phi-3 serving
-    # and loading), read just after it, summed over paths
+    # launches: each path's counts (8B serving, eval and training, Phi-3
+    # serving and loading), read just after it, summed over paths
     paths = [f["launches"] for f in full.values()] + [train["launches"], phi3["launches"]]
     paths += [f["continuous"]["launches"] for f in full.values()]
     paths += [f["http"]["launches"] for f in full.values() if f["http"]]
     paths += [zoo["launches"], zoo["cambrian"]["launches"]] + families["launches"]
-    paths += [gemma_train["launches"], lora_train["launches"]]
+    paths += [gemma_train["launches"], lora_train["launches"], full["bf16"]["then"]["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -4527,7 +4831,7 @@ def main(argv=None):
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
                            vision=vision, phi3=phi3, zoo=zoo, families=families,
                            gemma_train=gemma_train, lora_train=lora_train,
-                           summary=summary), f, indent=1)
+                           eval_tiny=eval_tiny, summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

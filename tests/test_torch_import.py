@@ -3,8 +3,9 @@ package, without ``safetensors`` and without a GPU toolchain: kernels are
 built on first use, never at import. The probe covers serving, checkpoint
 I/O and tower loading, the training path and the op modules of kernels
 K5-K8, continuous batching and the serving stack (worker, controller,
-remote worker, web server); a scan of the sources covers imports made inside
-functions."""
+remote worker, web server), the eval harness, the data engine, profiling
+and the projectors (the runner loads ``datasets`` only when it reads a
+benchmark); a scan of the sources covers imports made inside functions."""
 
 import json
 import os
@@ -47,9 +48,17 @@ import cambrian_tpu_torch.data.native_image
 import cambrian_tpu_torch.checkpoint.save
 import cambrian_tpu_torch.checkpoint.safetensors_io
 import cambrian_tpu_torch.checkpoint.hf_vision
+import cambrian_tpu_torch.eval
+import cambrian_tpu_torch.eval.runner
+import cambrian_tpu_torch.eval.score
+import cambrian_tpu_torch.eval.tabulate
+import cambrian_tpu_torch.dataengine.engine
+import cambrian_tpu_torch.profiling
+import cambrian_tpu_torch.models.projectors
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "optax", "orbax", "triton", "PIL",
-                                 "transformers", "safetensors") if m in sys.modules),
+                                 "transformers", "safetensors", "datasets")
+                     if m in sys.modules),
     "jax_package": sorted(m for m in sys.modules
                           if m == "cambrian_tpu" or m.startswith("cambrian_tpu.")),
     "built": sum(lib.cache_info().currsize for lib in (
