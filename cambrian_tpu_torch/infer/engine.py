@@ -9,17 +9,45 @@ chunking, cache sizing and stopping rules; in eager PyTorch a chunk is only
 the cadence of the yields. ``infer/continuous.py`` serves concurrent
 requests through one shared cache; its chunked decode samples each row with
 ``sample_token_per_slot``.
+
+``GenerationEngine(mesh=...)`` serves a model laid out on a (data, fsdp,
+model) mesh by the training rules (``parallel.sharding.shard_model``): each
+rank holds its heads' share of the KV cache. ``generate`` splits the batch
+over (data, fsdp) where it divides (else every rank runs every row, as
+``_fit_spec`` drops the axis), agrees across ranks on when every sample has
+finished, and gathers the tokens, so every rank returns the whole result.
+``generate_stream`` runs every row on every rank, so that the ranks' host
+decisions (chunks, stopping) agree. ``last_next_logits`` holds the rank's
+own rows.
 """
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.cambrian import CambrianLM
 from ..models.language.llama import init_kv_cache
+from ..parallel.distributed import dp_coordinate
+from ..parallel.mesh import axis_sizes
+from ..parallel.sharding import local_kv_heads, shard_model
+
+
+def _serving(method):
+    """Run an engine method under ``torch.inference_mode()``, or under
+    ``torch.no_grad()`` for a sharded model: FSDP2's gathered parameters
+    track versions, which inference tensors cannot."""
+    inference, plain = torch.inference_mode()(method), torch.no_grad()(method)
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        return (plain if self.mesh is not None else inference)(self, *args, **kwargs)
+
+    return run
 
 
 @dataclass
@@ -85,11 +113,20 @@ class GenerationEngine:
     """
 
     def __init__(self, model: CambrianLM, towers: Sequence = (), max_len: int = 4096,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, mesh=None):
+        """``mesh``: a (data, fsdp, model) ``DeviceMesh``; the model and the
+        towers are frozen and sharded on it in place (``shard_model``)."""
         self.model = model
         self.towers = list(towers)
         self.max_len = max_len
         self.cache_dtype = cache_dtype
+        self.mesh = mesh
+        if mesh is not None:
+            # serving trains nothing: no FSDP2 unit then needs one trainable dtype
+            for module in [model, *self.towers]:
+                module.requires_grad_(False)
+        shard_model(model, self.towers, mesh)
+        self.kv_heads = local_kv_heads(model.cfg, mesh)
         self.last_lengths = None
         self.last_next_logits = None
         self.last_timings = {}
@@ -102,7 +139,7 @@ class GenerationEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
+    @_serving
     def encode_images(self, images):
         """Per-tower pixel batches [B, 3, H_i, W_i] -> token features."""
         return [t(torch.as_tensor(px).to(self.device))
@@ -122,7 +159,7 @@ class GenerationEngine:
                          for m in aux_masks]
         b, s = ids.shape
         k_len = min(self.max_len, s + n_new)
-        cache = init_kv_cache(self.model.cfg, b, k_len, self.cache_dtype, dev)
+        cache = init_kv_cache(self.model.cfg, b, k_len, self.cache_dtype, dev, self.kv_heads)
 
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(ids, mask, pos, cache, aux_features, aux_masks)
@@ -141,7 +178,7 @@ class GenerationEngine:
             return None
         return torch.Generator(device=self.device).manual_seed(cfg.seed)
 
-    @torch.inference_mode()
+    @_serving
     def generate(self, input_ids, attention_mask, position_ids, aux_features=None,
                  aux_masks=None, config: Optional[GenerationConfig] = None,
                  stopping: Optional[Callable[[np.ndarray], bool]] = None,
@@ -165,6 +202,14 @@ class GenerationEngine:
             return out
         cfg = config or GenerationConfig()
         dev = self.device
+        rows = self._local_rows(np.asarray(input_ids).shape[0])
+        if rows is not None:
+            input_ids, attention_mask, position_ids = (
+                np.asarray(x)[rows] for x in (input_ids, attention_mask, position_ids))
+            if aux_features is not None:
+                aux_features = [f[rows] for f in aux_features]
+            if aux_masks is not None:
+                aux_masks = [np.asarray(m)[rows] for m in aux_masks]
         next_logits, cache, cache_valid, next_pos = self._prefill(
             input_ids, attention_mask, position_ids, aux_features, aux_masks,
             cfg.max_new_tokens)
@@ -185,19 +230,48 @@ class GenerationEngine:
                 finished |= token == cfg.eos_token_id
             tokens[:, t] = torch.where(finished, cfg.pad_token_id, token)
             lengths += (~finished).long()
-            if t == steps - 1 or bool(finished.all()):
+            if t == steps - 1 or self._all_finished(finished, rows is not None):
                 break
             write_index = s + t
             cache_valid[:, write_index] = ~finished
             next_logits, cache = self._decode(token, next_pos + t, cache, cache_valid,
                                               write_index)
             decode_steps += 1
+        if rows is not None:
+            tokens, lengths = self._gather_rows(tokens), self._gather_rows(lengths)
         self._sync()
         t2 = time.perf_counter()
         self.last_timings.update(decode_ms=(t2 - t1) * 1e3, decode_steps=decode_steps)
         self.last_lengths = lengths.cpu().numpy()
         last = max(1, int(self.last_lengths.max()))
         return tokens[:, :last].cpu().numpy()
+
+    def _local_rows(self, batch: int) -> Optional[slice]:
+        """This rank's rows of a batch under the mesh, or None when every
+        rank runs every row (no mesh, one (data, fsdp) rank, or a batch
+        that does not divide)."""
+        index, size = dp_coordinate(self.mesh)
+        if size == 1 or batch % size:
+            return None
+        n = batch // size
+        return slice(index * n, (index + 1) * n)
+
+    def _all_finished(self, finished: torch.Tensor, split: bool) -> bool:
+        """Whether every sample has finished, on every rank when the batch
+        is split (the ranks must run the same number of steps: each step's
+        forward holds collectives)."""
+        done = finished.all().int()
+        if split:
+            dist.all_reduce(done, op=dist.ReduceOp.MIN)
+        return bool(done)
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole batch from each (data, fsdp) rank's rows, in order (the
+        ranks of one model group hold the same rows; the mesh numbers ranks
+        with model innermost)."""
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, local.contiguous())
+        return torch.cat(parts[::axis_sizes(self.mesh)["model"]], dim=0)
 
     def _decode(self, token, position, cache, cache_valid, write_index: int):
         """One decode step writing slot ``write_index``; retires the slots
@@ -208,7 +282,7 @@ class GenerationEngine:
         return self.model.decode_step(token[:, None], position[:, None], cache, cache_valid,
                                       write_index)
 
-    @torch.inference_mode()
+    @_serving
     def generate_stream(self, input_ids, attention_mask, position_ids, aux_features=None,
                         aux_masks=None, config: Optional[GenerationConfig] = None,
                         stopping: Optional[Callable[[np.ndarray], bool]] = None):

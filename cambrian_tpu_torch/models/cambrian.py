@@ -20,10 +20,13 @@ concern and is not ported.
 
 Training losses: ``cross_entropy_loss`` on whole logits, and
 ``chunked_cross_entropy``, an autograd Function that never holds the fp32
-[B, S, V] logits (``cambrian_tpu/models/cambrian.py:611-776``).
+[B, S, V] logits (``cambrian_tpu/models/cambrian.py:611-776``);
+``CambrianLM.supervised_loss`` picks one by ``cfg.loss_chunk``. Both take
+the count of valid tokens to divide by, which a sharded step sets to the
+global batch's (``train/train_step.py``).
 """
 
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -270,13 +273,36 @@ class CambrianLM(nn.Module):
     def forward(self, input_ids, attention_mask, position_ids,
                 aux_features_list=None, aux_masks_list=None):
         """No-cache (training) forward; fp32 logits [B, S, V]."""
-        return self.logits(self.hidden_states(input_ids, attention_mask, position_ids,
-                                              aux_features_list, aux_masks_list))
+        return self.logits(self._hidden(input_ids, attention_mask, position_ids,
+                                        aux_features_list, aux_masks_list))
 
     def hidden_states(self, input_ids, attention_mask, position_ids,
                       aux_features_list=None, aux_masks_list=None):
         """The training forward up to (excluding) the LM head, so that the
         loss can run over sequence chunks (``chunked_cross_entropy``)."""
+        return self._hidden(input_ids, attention_mask, position_ids, aux_features_list,
+                            aux_masks_list)
+
+    def supervised_loss(self, input_ids, attention_mask, position_ids, labels,
+                        aux_features_list=None, aux_masks_list=None, count=None):
+        """The shifted next-token CE of the training step, over sequence
+        chunks under ``cfg.loss_chunk``: the summed token loss over
+        ``count`` valid tokens (default: this batch's). The head is read
+        inside this call, so a sharded model (``parallel/sharding.py``)
+        holds it gathered."""
+        args = (input_ids, attention_mask, position_ids, aux_features_list, aux_masks_list)
+        chunk = self.cfg.loss_chunk
+        if chunk:
+            cfg = self.cfg
+            return chunked_cross_entropy(self._hidden(*args), labels,
+                                         lambda hd, hc: head_logits(cfg, hd, hc), chunk,
+                                         extract_head(cfg, self), count)
+        return cross_entropy_loss(self.logits(self._hidden(*args)), labels, count)
+
+    def _hidden(self, input_ids, attention_mask, position_ids, aux_features_list=None,
+                aux_masks_list=None):
+        """``hidden_states``' body, which the public methods share (a sharded
+        model hooks each public method, so none calls another)."""
         image_embeds, vision_kv, vision_masks, global_ctx = self._vision(
             aux_features_list, aux_masks_list)
         im_start = self._image_start(input_ids)
@@ -318,8 +344,21 @@ class CambrianLM(nn.Module):
         return self.logits(hidden)[:, 0], cache
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Shifted next-token CE in fp32, ignoring IGNORE_INDEX."""
+def valid_token_count(labels: torch.Tensor) -> torch.Tensor:
+    """The tokens the shifted CE averages over: labels past the first that
+    are not IGNORE_INDEX (an int64 scalar tensor)."""
+    return (labels[:, 1:] != IGNORE_INDEX).sum()
+
+
+def _normaliser(count: Optional[torch.Tensor], labels: torch.Tensor) -> torch.Tensor:
+    count = valid_token_count(labels) if count is None else count
+    return count.clamp_min(1).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shifted next-token CE in fp32, ignoring IGNORE_INDEX: the summed
+    token loss over ``count`` valid tokens (default: these labels')."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
@@ -327,7 +366,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     logp = torch.log_softmax(shift_logits, dim=-1)
     token_ll = logp.gather(-1, safe[..., None])[..., 0]
     token_loss = torch.where(valid, -token_ll, torch.zeros_like(token_ll))
-    return token_loss.sum() / valid.sum().clamp_min(1)
+    return token_loss.sum() / _normaliser(count, labels)
 
 
 def _bf16_head_logits(head: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
@@ -384,20 +423,19 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
     when the head requires grad."""
 
     @staticmethod
-    def forward(ctx, hidden, next_labels, head, logits_fn, chunk):
+    def forward(ctx, hidden, next_labels, head, logits_fn, chunk, count):
         total = hidden.new_zeros((), dtype=torch.float32)
         for i in range(0, hidden.shape[1], chunk):
             total = total + _ce_chunk_total(logits_fn, head, hidden[:, i:i + chunk],
                                             next_labels[:, i:i + chunk])
-        count = (next_labels != IGNORE_INDEX).sum().clamp_min(1).float()
-        ctx.save_for_backward(hidden, next_labels, head)
+        ctx.save_for_backward(hidden, next_labels, head, count)
         ctx.logits_fn, ctx.chunk = logits_fn, chunk
         return total / count
 
     @staticmethod
     def backward(ctx, g):
-        hidden, next_labels, head = ctx.saved_tensors
-        scale = g / (next_labels != IGNORE_INDEX).sum().clamp_min(1).float()
+        hidden, next_labels, head, count = ctx.saved_tensors
+        scale = g / count
         need_head = ctx.needs_input_grad[2]
         dhidden = torch.zeros_like(hidden)
         dhead = torch.zeros_like(head, dtype=torch.float32) if need_head else None
@@ -410,17 +448,19 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
             dhidden[:, i:i + ctx.chunk] = grads[0]
             if need_head:
                 dhead += grads[1].float()
-        return dhidden, None, (dhead.to(head.dtype) if need_head else None), None, None
+        return dhidden, None, (dhead.to(head.dtype) if need_head else None), None, None, None
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
                           logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-                          chunk: int, head: torch.Tensor) -> torch.Tensor:
+                          chunk: int, head: torch.Tensor,
+                          count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shifted next-token CE over sequence chunks of ``chunk`` tokens,
     applying ``logits_fn(head, hidden_chunk)`` per chunk: the math of
-    ``cross_entropy_loss(logits_fn(head, hidden), labels)`` with another fp32
-    summation order, but only one chunk's [B, chunk, V] fp32 logits exist at
-    a time, in the forward and in the backward."""
+    ``cross_entropy_loss(logits_fn(head, hidden), labels, count)`` with
+    another fp32 summation order, but only one chunk's [B, chunk, V] fp32
+    logits exist at a time, in the forward and in the backward."""
     b = labels.shape[0]
     next_labels = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_INDEX)], dim=1)
-    return _ChunkedCrossEntropy.apply(hidden, next_labels, head, logits_fn, chunk)
+    return _ChunkedCrossEntropy.apply(hidden, next_labels, head, logits_fn, chunk,
+                                      _normaliser(count, labels).to(hidden.device))

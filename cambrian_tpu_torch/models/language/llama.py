@@ -23,7 +23,9 @@ otherwise (decode steps). The two treat a row with no valid key
 differently (0 against uniform weights), so the rule must not drift.
 
 The KV cache is updated in place (``copy_`` into preallocated buffers),
-where the JAX package returns a new cache.
+where the JAX package returns a new cache. Under tensor parallelism
+(``parallel/sharding.py``) each rank computes, and caches, its own heads:
+the head counts come from the projections' output widths.
 
 With ``cfg.quantize`` ("int8" or "int4") the seven decoder projections are
 weight-only quantized linears (``ops/quant.py``), as in the JAX package's
@@ -216,9 +218,10 @@ def make_decode_mask(cache_valid: torch.Tensor) -> AttentionMask:
 
 
 def init_kv_cache(cfg: CambrianConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device=None):
-    """Per-layer (k, v) buffers [B, max_len, kv_heads, head_dim]."""
-    shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+                  dtype=torch.bfloat16, device=None, kv_heads: Optional[int] = None):
+    """Per-layer (k, v) buffers [B, max_len, kv_heads, head_dim]; ``kv_heads``
+    is the rank's share under tensor parallelism (default: all of them)."""
+    shape = (batch, max_len, kv_heads or cfg.num_key_value_heads, cfg.head_dim)
     return tuple(
         (torch.zeros(shape, dtype=dtype, device=device),
          torch.zeros(shape, dtype=dtype, device=device))
@@ -255,10 +258,13 @@ class LlamaAttention(nn.Module):
     def forward(self, x, mask: AttentionMask, position_ids, cache=None, cache_index=None):
         c = self.cfg
         b, s, _ = x.shape
-        h, kvh, d = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        q = self.q_proj(x).view(b, s, h, d)
-        k = self.k_proj(x).view(b, s, kvh, d)
-        v = self.v_proj(x).view(b, s, kvh, d)
+        d = c.head_dim
+        # the heads this rank holds: all of them, or its share under tensor
+        # parallelism (parallel/sharding.py), read from the projections' widths
+        q = self.q_proj(x).view(b, s, -1, d)
+        k = self.k_proj(x).view(b, s, -1, d)
+        v = self.v_proj(x).view(b, s, -1, d)
+        h, kvh = q.shape[2], k.shape[2]
         if c.use_qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         if c.model_type == "cohere":

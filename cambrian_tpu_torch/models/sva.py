@@ -6,7 +6,10 @@ the Pallas K5 kernel was never wired in the JAX package either).
 
 Flax infers input widths; torch modules need them, so each constructor takes
 the widths the flax module would have seen. All LayerNorms use eps=1e-5 and
-GELU is the exact form.
+GELU is the exact form. Under tensor parallelism (``parallel/sharding.py``)
+each rank attends with its share of the heads, whose count the attention
+reads from the projections' widths; the activations stay whole over the
+batch.
 """
 
 from typing import Sequence
@@ -87,19 +90,19 @@ class MultiKVCrossAttention(nn.Module):
         b, q_len = queries.shape[:2]
         h = self.num_heads
         d = self.hidden_dim // h
-        q = self.q_proj(self.q_ln(queries)).reshape(b, q_len, h, d)
+        q = self.q_proj(self.q_ln(queries)).reshape(b, q_len, -1, d)
         ks, vs = [], []
         for i, kv in enumerate(kv_list):
             w = kv.shape[2]
             k = getattr(self, f"k_proj_{i}")(getattr(self, f"k_ln_{i}")(kv))
             v = getattr(self, f"v_proj_{i}")(getattr(self, f"v_ln_{i}")(kv))
-            ks.append(k.reshape(b, q_len, w, h, d))
-            vs.append(v.reshape(b, q_len, w, h, d))
+            ks.append(k.reshape(b, q_len, w, -1, d))
+            vs.append(v.reshape(b, q_len, w, -1, d))
         mask = None
         if mask_list is not None:
             mask = torch.cat([m.to(torch.bool) for m in mask_list], dim=-1)
         out = windowed_cross_attention(q, torch.cat(ks, 2), torch.cat(vs, 2), mask)
-        return self.o_proj(out.reshape(b, q_len, self.hidden_dim))
+        return self.o_proj(out.reshape(b, q_len, -1))
 
 
 class CrossAttention(nn.Module):
@@ -123,11 +126,11 @@ class CrossAttention(nn.Module):
         h = self.num_heads
         d = self.hidden_dim // h
         w = kv.shape[2]
-        q = self.q_proj(self.q_ln(queries)).reshape(b, q_len, h, d)
-        k = self.k_proj(self.k_ln(kv)).reshape(b, q_len, w, h, d)
-        v = self.v_proj(self.v_ln(kv)).reshape(b, q_len, w, h, d)
+        q = self.q_proj(self.q_ln(queries)).reshape(b, q_len, -1, d)
+        k = self.k_proj(self.k_ln(kv)).reshape(b, q_len, w, -1, d)
+        v = self.v_proj(self.v_ln(kv)).reshape(b, q_len, w, -1, d)
         out = windowed_cross_attention(q, k, v, mask)
-        return self.o_proj(out.reshape(b, q_len, self.hidden_dim))
+        return self.o_proj(out.reshape(b, q_len, -1))
 
 
 def _pos_embeds(module: nn.Module, kv_size_list, hidden_dim, device):

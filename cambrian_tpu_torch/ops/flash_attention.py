@@ -193,6 +193,17 @@ def _check_tma(what, d, **tensors):
                                  f"bytes) for TMA")
 
 
+def _refuse_dtensors(what, *tensors):
+    """A DTensor (a sharded model's parameter or activation) must never
+    reach the kernels' wrappers: on the CPU it would take the plain path
+    quietly, and the kernels read local storage. The sharded model hands
+    them each rank's local heads as plain tensors (parallel/sharding.py)."""
+    for t in tensors:
+        if hasattr(t, "placements"):
+            raise TypeError(f"{what} takes plain tensors, got a DTensor "
+                            f"({type(t).__name__} with placements {t.placements})")
+
+
 def _card_args(what, q, k, v, key_valid, sliding_window, scale):
     """Check the inputs of a kernel call on the card; returns the key
     validity as contiguous bool (or None) and the scale as a float."""
@@ -227,6 +238,7 @@ def flash_attention(
     the launches; its backward launches K2) or raise; there is no fallback to
     the plain version on the card.
     """
+    _refuse_dtensors("flash_attention", q, k, v, key_valid)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_valid, causal,
                                          sliding_window, q_offset, scale)
@@ -301,6 +313,7 @@ def flash_attention_bwd(
     others raise. ``lse`` is the row statistic the forward wrote (what
     ``FlashAttentionFunction`` saves); without it, one K1 launch (counted in
     ``flash_attention.launches``) writes it first."""
+    _refuse_dtensors("flash_attention_bwd", q, k, v, key_valid, o, do, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, key_valid, o, do, causal,
                                              sliding_window, q_offset, scale, lse)

@@ -39,6 +39,12 @@ Trainable parameters stored in a lower precision than fp32 (a model built in
 bf16) keep an fp32 master copy here, updated in fp32 and rounded into the
 parameter after each step: the JAX package keeps fp32 parameters and casts
 them to bf16 at use, which gives the same forward.
+
+A sharded model's parameters are DTensors (``parallel/sharding.py``): the
+masters, the bf16 ``mu`` and ``nu`` hold each rank's local shard, laid out
+as the parameter is, as the JAX package shards ``opt_state``. The update is
+elementwise, so it runs on the shards; only the clip's global norm needs
+every rank (``global_norm``).
 """
 
 import math
@@ -163,9 +169,41 @@ def group_lrs(config: TrainConfig) -> Dict[str, float]:
     }
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage), or the tensor itself."""
+    return t._local_tensor if hasattr(t, "placements") else t
+
+
+def _shard_share(t: torch.Tensor) -> float:
+    """The part of the world's ranks over which a DTensor's elements are
+    spread without repeats: (ranks sharding it) / (world size). Summing
+    each rank's local squares times this counts every element once."""
+    import torch.distributed as dist
+
+    mesh = t.device_mesh
+    shards = 1
+    for i, pl in enumerate(t.placements):
+        if not pl.is_replicate():       # Shard, or FSDP2's _StridedShard under TP
+            shards *= mesh.size(i)
+    return shards / dist.get_world_size()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of squares of every element, in fp32. Over DTensors
+    (a sharded model's gradients, on the 2-D TP+FSDP mesh or the FSDP one)
+    each rank sums its local squares, weighted so that a replicated shard
+    counts once, and one all-reduce over the world adds them: every rank
+    gets the same norm, so the clip decision agrees."""
+    tensors = list(tensors)
+    if not any(hasattr(t, "placements") for t in tensors):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    import torch.distributed as dist
+
+    total = sum(local(t).float().square().sum()
+                * (_shard_share(t) if hasattr(t, "placements") else 1.0 / dist.get_world_size())
+                for t in tensors)
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 class GroupedAdamW:
@@ -199,7 +237,9 @@ class GroupedAdamW:
                 continue
             p.requires_grad_(True)
             self.params[name] = p
-            master = p.data if p.dtype == torch.float32 else p.data.float()
+            # the local shard of a sharded parameter: the update is elementwise
+            data = local(p.data)
+            master = data if p.dtype == torch.float32 else data.float()
             st = {"master": master,
                   "mu": torch.zeros_like(master, dtype=self.mu_dtype or torch.float32),
                   "nu": torch.zeros_like(master)}
@@ -219,7 +259,7 @@ class GroupedAdamW:
             n = self.mini_step
             for name, g in grads.items():
                 acc = self.norm_acc[name] if name in self.norm_acc else self.state[name]["acc"]
-                acc += (g.float() - acc) / (n + 1)
+                acc += (local(g).float() - acc) / (n + 1)
             self.mini_step = (n + 1) % self.accumulate
             if self.mini_step:
                 return False
@@ -233,7 +273,7 @@ class GroupedAdamW:
 
     def _update(self, grads):
         c = self.config
-        g_norm = global_norm(grads.values())
+        g_norm = global_norm(self._as_params(grads).values())
         grads = {name: g for name, g in grads.items() if name in self.params}
         clip = not bool(g_norm < c.max_grad_norm)
         count_inc = self.count + 1
@@ -242,7 +282,7 @@ class GroupedAdamW:
         bc2 = float(1 - torch.tensor(c.adam_b2, dtype=torch.float32) ** count_inc)
         for name, g in grads.items():
             st = self.state[name]
-            g = g.float()
+            g = local(g).float()
             if clip:
                 g = (g / g_norm) * c.max_grad_norm
             # b1 * mu runs in the stored moment's dtype, b1 rounded to it
@@ -257,28 +297,56 @@ class GroupedAdamW:
             master += -self.schedules[self.labels[name]](self.count) * u
             st["mu"].copy_(mu)
             st["nu"].copy_(nu)
-            p = self.params[name]
-            if p.data is not master:
-                p.data.copy_(master)
+            self._write_param(name)
         self.count = count_inc
 
+    def _write_param(self, name: str) -> None:
+        """Round the master into its parameter (a no-op for an fp32 one,
+        which is its own master)."""
+        data, master = local(self.params[name].data), self.state[name]["master"]
+        if data.data_ptr() != master.data_ptr():
+            data.copy_(master)
+
+    def _like_param(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A local state tensor of parameter ``name`` as a DTensor laid out
+        as the parameter (sharing ``t``'s storage); ``t`` itself for a
+        plain parameter, or when it is a DTensor already."""
+        p = self.params.get(name, self.norm_only.get(name))
+        if not hasattr(p, "placements") or hasattr(t, "placements"):
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, p.device_mesh, p.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+
+    def _as_params(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {name: self._like_param(name, t) for name, t in tensors.items()}
+
     def state_dict(self) -> dict:
+        """The state, each tensor laid out as its parameter (a DTensor under
+        a mesh, sharing the local state's storage), for
+        ``torch.distributed.checkpoint``."""
         return {"count": self.count, "mini_step": self.mini_step,
-                "state": {n: dict(st) for n, st in self.state.items()},
-                "norm_acc": dict(self.norm_acc)}
+                "state": {n: {k: self._like_param(n, t) for k, t in st.items()}
+                          for n, st in self.state.items()},
+                "norm_acc": self._as_params(self.norm_acc)}
 
     def load_state_dict(self, sd: Mapping) -> None:
         if set(sd["state"]) != set(self.state):
             raise KeyError("optimizer state does not match the trainable parameters")
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+
+        def copy(dst, src):
+            src = local(src)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
         for name, acc in self.norm_acc.items():
-            acc.copy_(sd["norm_acc"][name])
+            copy(acc, sd["norm_acc"][name])
         for name, saved in sd["state"].items():
             for key, t in self.state[name].items():
-                t.copy_(saved[key])
-            p = self.params[name]
-            if p.data is not self.state[name]["master"]:
-                p.data.copy_(self.state[name]["master"])
+                copy(t, saved[key])
+            self._write_param(name)
 
 
 def build_optimizer(named_params: Mapping[str, nn.Parameter], config: TrainConfig,

@@ -10,7 +10,15 @@ Usage, with the flags of ``scripts/cambrian/pretrain_cambrian_8b.sh``
         --vision_tower_aux_token_len_list '[576, ...]' \\
         --tune_mm_mlp_adapter True --bf16 True --output_dir ckpt/ ...
 
-The model trains on ``--device`` (default ``cuda``). Weights come from an HF
+Across GPUs, one process a GPU, under ``torchrun`` (``--mesh_data``,
+``--mesh_fsdp``, ``--mesh_model``: the (data, fsdp, model) mesh, fsdp
+absorbing the rest by default):
+
+    torchrun --nproc_per_node 8 -m cambrian_tpu_torch.train.train ... \
+        --mesh_fsdp 4 --mesh_model 2
+
+The model trains on ``--device`` (default ``cuda``: ``cuda:LOCAL_RANK``
+under ``torchrun``). Weights come from an HF
 checkpoint directory (a Cambrian checkpoint, or a plain LLaMA one with a
 fresh connector) or, for a stock name, from a seeded random init; each tower
 loads its local snapshot (``CAMBRIAN_TOWER_CACHE``), else gets seeded random
@@ -52,7 +60,8 @@ from ..models.config import (
     CambrianConfig,
     tiny_debug,
 )
-from .trainer import CambrianTrainer, TrainingArguments, _check_one_device
+from ..parallel.distributed import initialize_distributed
+from .trainer import CambrianTrainer, TrainingArguments
 
 logger = logging.getLogger(__name__)
 
@@ -231,7 +240,11 @@ def build_model(config: CambrianConfig, model_name_or_path: str, dtype, device):
 
 def train(model_args: ModelArguments, data_args: DataArguments,
           training_args: TrainingArguments, tokenizer=None):
-    _check_one_device(training_args)
+    # join the multi-process runtime first (a no-op in one process); each
+    # rank then trains on its own card
+    if initialize_distributed(training_args.coordinator_address, training_args.num_processes,
+                              training_args.process_id) and training_args.device == "cuda":
+        training_args.device = f"cuda:{torch.cuda.current_device()}"
     conversation_lib.default_conversation = conversation_lib.conv_templates[model_args.version]
     config = build_config(model_args, data_args)
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32

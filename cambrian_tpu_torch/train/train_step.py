@@ -11,6 +11,16 @@ gradient accumulation (``optax.MultiSteps`` semantics, train/optimizer.py).
 ``make_lora_train_step`` trains LoRA adapters (train/lora.py) instead: the
 base model is frozen and merged with the adapters inside the loss, the tower
 features are detached, and only the adapters get gradients.
+
+Under a (data, fsdp, model) mesh (``parallel/``), the model and towers laid
+out by ``parallel.sharding.shard_model``, each rank steps on its rows of the
+global batch. The loss's normaliser is global, as in the JAX package
+(``cambrian_tpu/models/cambrian.py:620``): each rank divides its summed
+token loss by the valid tokens of the whole batch (the count summed over
+data and fsdp), FSDP2 sums the gradients (divide factor 1), and the logged
+loss is the sum of the ranks' shares. A mean of per-rank means would differ
+whenever ranks hold different counts. ``batch_shardings`` and
+``state_shardings`` give the layouts, as JAX's do.
 """
 
 from dataclasses import dataclass
@@ -19,13 +29,9 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from ..models.cambrian import (
-    CambrianLM,
-    chunked_cross_entropy,
-    cross_entropy_loss,
-    extract_head,
-    head_logits,
-)
+from ..models.cambrian import CambrianLM, valid_token_count
+from ..parallel.distributed import dp_all_reduce
+from ..parallel.sharding import batch_sharding, spec_of
 from .lora import Adapters, flat_adapters, lora_merged
 from .optimizer import GroupedAdamW, TrainConfig, build_optimizer, global_norm, label_params
 
@@ -67,29 +73,46 @@ def init_train_state(model: CambrianLM, towers: Sequence[nn.Module], config: Tra
     return TrainState(step=0, optimizer=optimizer)
 
 
-def _supervised_loss(model: CambrianLM, batch: Mapping, aux_features) -> torch.Tensor:
-    """Shifted CE over the batch, honoring ``cfg.loss_chunk``."""
-    chunk = model.cfg.loss_chunk
-    args = (batch["input_ids"], batch["attention_mask"], batch["position_ids"], aux_features,
-            batch.get("aux_masks"))
-    if chunk:
-        cfg = model.cfg
-        return chunked_cross_entropy(model.hidden_states(*args), batch["labels"],
-                                     lambda hd, hc: head_logits(cfg, hd, hc), chunk,
-                                     extract_head(cfg, model))
-    return cross_entropy_loss(model(*args), batch["labels"])
+def batch_shardings(mesh=None, num_towers: int = 0) -> Dict:
+    """The spec of each batch entry: rows over (data, fsdp)
+    (``parallel.distributed.put_global_batch`` places them)."""
+    per_tower = {"images": 4, "aux_masks": 3}
+    out = {k: batch_sharding(mesh, 2) for k in ("input_ids", "labels", "attention_mask",
+                                                 "position_ids")}
+    out.update({k: [batch_sharding(mesh, nd)] * num_towers for k, nd in per_tower.items()})
+    return out
+
+
+def state_shardings(state: TrainState, mesh=None) -> Dict[str, Dict[str, tuple]]:
+    """{name: {leaf: spec}} of the optimizer's state: the master, mu, nu
+    (and accumulator) of a parameter lie as the parameter does."""
+    return {name: {leaf: spec_of(state.optimizer.params[name]) for leaf in st}
+            for name, st in state.optimizer.state.items()}
+
+
+def _supervised_loss(model: CambrianLM, batch: Mapping, aux_features, mesh=None):
+    """Shifted CE over the batch, honoring ``cfg.loss_chunk``; under a mesh,
+    this rank's summed token loss over the global batch's valid tokens."""
+    count = None
+    if mesh is not None:
+        count = dp_all_reduce(valid_token_count(batch["labels"]), mesh)
+    return model.supervised_loss(batch["input_ids"], batch["attention_mask"],
+                                 batch["position_ids"], batch["labels"], aux_features,
+                                 batch.get("aux_masks"), count)
 
 
 def make_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]] = None,
-                    train_towers: bool = False, freeze: Optional[TrainConfig] = None):
+                    train_towers: bool = False, freeze: Optional[TrainConfig] = None,
+                    mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` with metrics
     ``loss``, ``grad_norm`` (of this micro-batch's trainable gradients) and
     ``step``, as device tensors and an int.
 
     ``batch``: input_ids, labels, attention_mask, position_ids, images (per
-    tower, NCHW), aux_masks (per tower), tensors on the model's device.
-    ``freeze``: when given, the freeze policy is applied to ``requires_grad``
-    first."""
+    tower, NCHW), aux_masks (per tower), tensors on the model's device: the
+    rank's rows under ``mesh`` (the model sharded on it first; see the module
+    docstring). ``freeze``: when given, the freeze policy is applied to
+    ``requires_grad`` first."""
     if freeze is not None:
         apply_freeze(model, towers or (), freeze)
 
@@ -105,7 +128,7 @@ def make_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]] = N
         params = state.optimizer.params
         for p in params.values():
             p.grad = None
-        loss = _supervised_loss(model, batch, encode(batch.get("images")))
+        loss = _supervised_loss(model, batch, encode(batch.get("images")), mesh)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
@@ -114,7 +137,8 @@ def make_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]] = N
         for p in params.values():
             p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
+        loss = dp_all_reduce(loss.detach(), mesh)
+        return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
 
     return step
 

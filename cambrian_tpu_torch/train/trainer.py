@@ -6,9 +6,13 @@
   pins the next batches while the card steps; the main thread copies each
   batch to the card ``non_blocking``;
 - ``total_steps`` counted in optimizer steps under gradient accumulation;
-- periodic checkpoints of the trainable parameters (their fp32 masters),
-  the optimizer state, the RNG and the step, with ``torch.save`` (the JAX
-  package uses Orbax), and resume from the newest;
+- periodic checkpoints with ``torch.distributed.checkpoint`` (DCP), one
+  format for one rank and for many: every parameter (frozen ones included,
+  as the JAX package's Orbax ``params``; under LoRA the adapters), the
+  optimizer state (the fp32 masters and moments), the RNG and the step, in
+  ``checkpoints/step_N/``; a checkpoint saved under one mesh restores under
+  another, and ``checkpoint/consolidate.py`` turns one into an HF
+  checkpoint; resume from the newest;
 - ``NanInfAlert`` halts the run on a non-finite loss;
 - ``save_model`` writes the HF-layout export (checkpoint/save.py);
 - LoRA (``lora_enable``, train/lora.py): adapters made at init from the seed
@@ -17,16 +21,23 @@
   ``lora_adapters.safetensors`` in ``output_dir`` and the adapters merged
   into the model, so ``save_model`` exports it as a full finetune.
 
-One device: the mesh arguments are accepted, and anything but one device
-raises until multi-GPU training is ported (ROADMAP item 11).
+Across GPUs: under an initialised process group
+(``parallel.distributed.initialize_distributed``) the trainer builds the
+(data, fsdp, model) mesh of ``mesh_data`` / ``mesh_fsdp`` / ``mesh_model``,
+lays the model and towers out on it (``parallel.sharding.shard_model``),
+steps on ``per_device_train_batch_size`` x (data x fsdp) samples at a time,
+each rank on its rows (``put_global_batch``), and logs and exports from the
+main process. Without a process group every axis must resolve to one
+device, and the unsharded path runs. LoRA and quantized models under a
+mesh of more than one rank are not ported yet (ROADMAP queue 1, item 3).
 """
 
 import concurrent.futures
-import glob
 import json
 import logging
 import os
 import queue
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -34,13 +45,26 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
 
 from ..checkpoint import safetensors_io
+from ..checkpoint.consolidate import checkpoint_dirs
 from ..data.dataset import LengthGroupedSampler
-from .lora import init_lora_params, lora_from_state_dict, lora_state_dict, merge_lora
+from ..parallel.distributed import dp_coordinate, is_main_process, put_global_batch
+from ..parallel.mesh import MeshConfig, create_mesh
+from ..parallel.sharding import shard_model
+from .lora import (
+    flat_adapters,
+    init_lora_params,
+    lora_from_state_dict,
+    lora_state_dict,
+    merge_lora,
+)
 from .optimizer import TrainConfig, _schedule, cast_frozen_params
 from .train_step import (
     TrainState,
+    apply_freeze,
     init_lora_train_state,
     init_train_state,
     make_lora_train_step,
@@ -68,7 +92,7 @@ class TrainingArguments(TrainConfig):
     group_by_modality_length: bool = True
     bf16: bool = True
     dataloader_num_workers: int = 4
-    # mesh: one device until ROADMAP item 11
+    # mesh (parallel/mesh.py): -1 absorbs the devices the others leave
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_model: int = 1
@@ -135,16 +159,6 @@ class _Prefetcher:
         self._thread.join(timeout=60)
 
 
-def _check_one_device(args: TrainingArguments) -> None:
-    sizes = {"mesh_data": args.mesh_data, "mesh_fsdp": args.mesh_fsdp,
-             "mesh_model": args.mesh_model, "num_processes": args.num_processes or 1}
-    many = {k: v for k, v in sizes.items() if v not in (-1, 1)}
-    if many:
-        raise NotImplementedError(
-            f"training runs on one device until multi-GPU is ported (ROADMAP item 11); "
-            f"got {many}")
-
-
 def _pin(x):
     if isinstance(x, list):
         return [_pin(v) for v in x]
@@ -152,24 +166,29 @@ def _pin(x):
     return t.pin_memory() if torch.cuda.is_available() else t
 
 
-def _to_device(x, device):
-    if isinstance(x, list):
-        return [_to_device(v, device) for v in x]
-    return x.to(device, non_blocking=True)
-
-
 class CambrianTrainer:
     def __init__(self, model, towers, args: TrainingArguments, train_dataset, data_collator):
-        _check_one_device(args)
         self.model = model
         self.towers = list(towers)
         self.args = args
         self.train_dataset = train_dataset
         self.data_collator = data_collator
         self.device = model.image_newline.device
-        self.dp_size = 1
+        mesh_config = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model)
+        self.mesh = None
+        if dist.is_initialized():
+            if args.lora_enable and dist.get_world_size() > 1:
+                raise NotImplementedError(
+                    "LoRA under a mesh of more than one rank is not ported yet (ROADMAP "
+                    "queue 1, item 3: quantized and LoRA models under a mesh)")
+            if not args.lora_enable:
+                self.mesh = create_mesh(mesh_config, self.device.type)
+        else:
+            mesh_config.resolve(1)          # one process: every axis must be 1
+        self.dp_size = dp_coordinate(self.mesh)[1]
         self.global_batch_size = args.per_device_train_batch_size * self.dp_size
         self.step_seconds: List[float] = []    # wall time of each optimizer step
+        self.saves: List[dict] = []            # each checkpoint's step, bytes and seconds
         self._final_state: Optional[TrainState] = None
         self.adapters = None                   # the LoRA adapters, under lora_enable
 
@@ -180,47 +199,87 @@ class CambrianTrainer:
         return os.path.abspath(os.path.join(self.args.output_dir, "checkpoints"))
 
     def _checkpoints(self) -> List[str]:
-        return sorted(glob.glob(os.path.join(self.checkpoint_dir, "step_*.pt")))
+        return checkpoint_dirs(self.checkpoint_dir)
 
-    def _save_checkpoint(self, state: TrainState, step: int):
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+    def _checkpoint_state(self, state: TrainState, step: int = 0) -> dict:
+        """The checkpoint's tree over the live tensors (DTensors under a
+        mesh): DCP saves it, and loads into it in place."""
         rng = {"cpu": torch.get_rng_state()}
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
-        path = os.path.join(self.checkpoint_dir, f"step_{step:09d}.pt")
         ckpt = {"step": step, "micro_step": state.step,
                 "optimizer": state.optimizer.state_dict(), "rng": rng}
-        if self.adapters is not None:   # the frozen adapters too, which no optimizer holds
-            ckpt["lora"] = lora_state_dict(self.adapters)
-        torch.save(ckpt, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in self._checkpoints()[:-max(1, self.args.save_total_limit)]:
-            os.remove(old)
+        if self.adapters is not None:
+            # LoRA trains the adapters alone (the frozen ones too, which no
+            # optimizer holds); the base comes from the model's checkpoint,
+            # as the JAX package's LoRA state holds the adapters alone
+            ckpt["lora"] = {k: t.detach() for k, t in flat_adapters(self.adapters).items()}
+        else:
+            named = named_parameters(self.model, self.towers, self.args.unfreeze_mm_vision_tower)
+            ckpt["model"] = {n: p.detach() for n, p in named.items()}
+        return ckpt
+
+    def _barrier(self):
+        if dist.is_initialized():
+            dist.barrier()
+
+    def _save_checkpoint(self, state: TrainState, step: int):
+        path = os.path.join(self.checkpoint_dir, f"step_{step:09d}")
+        t0 = time.perf_counter()
+        if is_main_process():
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            shutil.rmtree(path, ignore_errors=True)
+        self._barrier()
+        # a writer thread a core: one thread leaves an 8B checkpoint (20 GB)
+        # at about 0.6 GB/s
+        writer = dcp.FileSystemWriter(path, thread_count=min(8, os.cpu_count() or 1))
+        dcp.save(self._checkpoint_state(state, step), storage_writer=writer)
+        self._barrier()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        self.saves.append({"step": step, "bytes": n_bytes,
+                           "seconds": time.perf_counter() - t0})
+        if is_main_process():
+            for old in self._checkpoints()[:-max(1, self.args.save_total_limit)]:
+                shutil.rmtree(old)
+        self._barrier()
 
     def _restore_checkpoint(self, state: TrainState) -> int:
         found = self._checkpoints()
         if not found:
             return 0
-        ckpt = torch.load(found[-1], map_location=self.device, weights_only=True)
-        if self.adapters is not None:
-            saved = lora_from_state_dict(ckpt["lora"], self.device)
-            with torch.no_grad():
-                for key, adapter in self.adapters.items():
-                    for part, t in adapter.items():
-                        t.copy_(saved[key][part])
+        ckpt = self._checkpoint_state(state)
+        with torch.no_grad():
+            dcp.load(ckpt, checkpoint_id=found[-1])
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["micro_step"])
-        torch.set_rng_state(ckpt["rng"]["cpu"].cpu())
-        if "cuda" in ckpt["rng"] and self.device.type == "cuda":
+        torch.set_rng_state(ckpt["rng"]["cpu"])
+        if "cuda" in ckpt["rng"]:
             torch.cuda.set_rng_state(ckpt["rng"]["cuda"].cpu(), self.device)
         logger.info("resumed from checkpoint step %d", ckpt["step"])
         return int(ckpt["step"])
 
     def save_model(self, output_dir: Optional[str] = None):
-        """Final HF-format export of the model (not the towers)."""
+        """Final HF-format export of the model (not the towers), written by
+        the main process; a sharded model is gathered first (every rank
+        takes part)."""
         from ..checkpoint.save import save_pretrained
 
-        save_pretrained(self.model, self.model.cfg, output_dir or self.args.output_dir)
+        model = self.model
+        if self.mesh is not None:
+            from ..checkpoint.from_jax import load_state_dict_checked
+            from ..models.builder import build_modules
+
+            full = {n: t.full_tensor() if hasattr(t, "placements") else t
+                    for n, t in model.state_dict().items()}
+            if not is_main_process():
+                return
+            with torch.device("meta"):
+                model, _ = build_modules(self.model.cfg, self.model.dtype)
+            load_state_dict_checked(model, full, assign=True)
+        if is_main_process():
+            save_pretrained(model, model.cfg, output_dir or self.args.output_dir)
 
     # -- batching -----------------------------------------------------------
 
@@ -239,18 +298,13 @@ class CambrianTrainer:
             for i in range(0, len(order) - self.global_batch_size + 1, self.global_batch_size):
                 yield order[i:i + self.global_batch_size]
 
-    # -- the loop -----------------------------------------------------------
-
-    def train(self, resume_from_checkpoint: Optional[bool] = None):
-        args = self.args
-        # total_steps counts OPTIMIZER steps: the schedule advances once per
-        # k micro-batches, and one epoch holds dataset // (batch * k) of them
-        accum = max(1, args.gradient_accumulation_steps)
-        steps_per_epoch = max(1, len(self.train_dataset) // (self.global_batch_size * accum))
-        total_steps = (args.max_steps if args.max_steps > 0
-                       else int(steps_per_epoch * args.num_train_epochs))
-        args.total_steps = total_steps
-
+    def prepare(self, accumulate: int = 1):
+        """The train state and step function: the LoRA adapters and their
+        optimizer, or the frozen groups stored in bf16 (under ``bf16``), the
+        model and towers sharded on the mesh, and the optimizer over the
+        trainable parameters. ``train()`` calls it; a caller that feeds its
+        own batches (each rank's rows, ``put_global_batch``) may too."""
+        args, accum = self.args, max(1, accumulate)
         if args.lora_enable:
             # the adapters train; the base stays in its dtype, frozen
             if args.lora_weight_path:
@@ -267,9 +321,28 @@ class CambrianTrainer:
                 # frozen groups never update: store them in bf16 (norms exempt)
                 frozen = named_parameters(self.model, self.towers, args.unfreeze_mm_vision_tower)
                 cast_frozen_params(frozen, args)
+            if self.mesh is not None:
+                # the freeze first: FSDP2 takes requires_grad as it shards
+                apply_freeze(self.model, self.towers, args)
+                shard_model(self.model, self.towers, self.mesh)
             state = init_train_state(self.model, self.towers, args, accumulate=accum)
             step_fn = make_train_step(self.model, self.towers,
-                                      train_towers=args.unfreeze_mm_vision_tower)
+                                      train_towers=args.unfreeze_mm_vision_tower,
+                                      mesh=self.mesh)
+        return state, step_fn
+
+    # -- the loop -----------------------------------------------------------
+
+    def train(self, resume_from_checkpoint: Optional[bool] = None):
+        args = self.args
+        # total_steps counts OPTIMIZER steps: the schedule advances once per
+        # k micro-batches, and one epoch holds dataset // (batch * k) of them
+        accum = max(1, args.gradient_accumulation_steps)
+        steps_per_epoch = max(1, len(self.train_dataset) // (self.global_batch_size * accum))
+        total_steps = (args.max_steps if args.max_steps > 0
+                       else int(steps_per_epoch * args.num_train_epochs))
+        args.total_steps = total_steps
+        state, step_fn = self.prepare(accum)
         torch.manual_seed(args.seed)
         start_step = 0
         if resume_from_checkpoint or args.train_continue:
@@ -331,7 +404,7 @@ class CambrianTrainer:
                         self._save_checkpoint(state, step)
                         self._final_state = state
                         return history
-                    batch = {k: _to_device(v, self.device) for k, v in host.items()}
+                    batch = put_global_batch(host, self.mesh, self.device)
                     state, metrics = step_fn(state, batch)
 
                 if (step + 1) % args.logging_steps == 0 or step == start_step:
@@ -347,7 +420,8 @@ class CambrianTrainer:
                              "steps_per_sec": round(sps, 4),
                              "samples_per_sec": round(sps * self.global_batch_size, 2)}
                     history.append(entry)
-                    logger.info("train %s", json.dumps(entry))
+                    if is_main_process():
+                        logger.info("train %s", json.dumps(entry))
                 self.step_seconds.append(time.perf_counter() - t_step)
 
                 if (step + 1) % args.save_steps == 0:

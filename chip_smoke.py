@@ -298,6 +298,29 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    ``build/eval_trace/`` must name both spans and ``fwd_bf16_kernel`` (a
    trace without the kernel is taken again, three times in all).
 
+18. the sharded path (``parallel/``) on the one card, last, under a process
+   group of world size 1 over NCCL and the (1,1,1) mesh (every earlier
+   phase runs without a group): (a) phase 8's tiny Cambrian, weights and
+   batches through the sharded trainer (FSDP2, fp32, TF32 off): 3 stage-1
+   steps within phase 8's tolerances of the plain path on the CPU, K1 and
+   K2 by counter as in phase 8; a DCP checkpoint, from which a fresh
+   sharded trainer's next step equals the uninterrupted run's bit for bit;
+   ``consolidate`` of it, ``load_pretrained_model`` of the export (the
+   trained weights exactly), and greedy tokens through
+   ``GenerationEngine(mesh=...)`` equal to the unsharded engine's; (b)
+   Cambrian-8B stage 1 as phase 9 runs it, through
+   ``CambrianTrainer.train()`` on the mesh for 2 optimizer steps over phase
+   9's samples: 154 K1 and 32 K2 launches a micro-batch, finite losses, the
+   first within bf16 rounding of phase 9's, frozen weights bitwise
+   unchanged, step ms and peak memory beside phase 9's; (c) Cambrian-8B
+   bf16 built anew as phase 5 builds it and served through
+   ``GenerationEngine(mesh=...)``: phase 5's three requests, K1 exactly 122
+   times each, phase 5's tokens. The group is destroyed at the end.
+
+Phases 9, 15, 16 and 18 write their training checkpoints (DCP: every
+parameter, or the LoRA adapters, with the optimizer state) under
+``build/``, print each save's GB and seconds, and delete them.
+
 Prints one JSON line of kernel results, then, as the last line, the device
 record. Exits non-zero without a result when no CUDA device is present.
 """
@@ -2460,12 +2483,35 @@ def device_time_by_kind(prof):
     return kinds
 
 
-def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
+def whole(t):
+    """A DTensor (a sharded model's parameter) gathered whole, or the tensor."""
+    return t.full_tensor() if hasattr(t, "placements") else t
+
+
+def snapshot(module):
+    """A copy of each parameter of ``module``, whole, on the CPU."""
+    return {n: whole(p).detach().to("cpu", copy=True) for n, p in module.named_parameters()}
+
+
+def print_saves(label, trainer):
+    """Each checkpoint the trainer wrote: its step, GB and seconds."""
+    for rec in trainer.saves:
+        print(f"{label}: checkpoint of step {rec['step']}: {rec['bytes'] / 1e9:.2f} GB in "
+              f"{rec['seconds']:.1f} s", flush=True)
+    return list(trainer.saves)
+
+
+def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers, steps=TRAIN_STEPS):
     """Stage-1 pretraining of the Cambrian ``cfg`` (``layers`` decoder
-    layers) through ``CambrianTrainer.train()``: phase 9 (Cambrian-8B) and
-    phase 15 (Cambrian-Gemma-7B)."""
+    layers) through ``CambrianTrainer.train()``: phase 9 (Cambrian-8B),
+    phase 15 (Cambrian-Gemma-7B) and, under phase 18's process group, the
+    sharded trainer on the (1,1,1) mesh. ``steps`` optimizer steps
+    (``max_steps``) over the same samples, so the first batches are phase
+    9's. The run's checkpoint (every parameter) goes under ``build/`` and
+    is deleted with it."""
     from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
     from cambrian_tpu_torch.train.optimizer import cast_frozen_params, label_params
     from cambrian_tpu_torch.train.train_step import make_train_step, named_parameters
     from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments, _pin
@@ -2480,6 +2526,7 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
     args = TrainingArguments(
         output_dir=out_dir, tune_mm_mlp_adapter=True, bf16=True, num_train_epochs=1,
         per_device_train_batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
+        max_steps=steps,
         learning_rate=1e-3, mm_vision_sampler_lr=1e-4, weight_decay=0.0, warmup_ratio=0.06,
         lr_scheduler_type="cosine", logging_steps=1, save_steps=500, save_total_limit=2,
         group_by_modality_length=True, seed=SEED, device="cuda")
@@ -2516,6 +2563,10 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
           f"parameters ({len(trainable)} / {len(frozen)} tensors) in "
           f"{time.perf_counter() - t0:.1f} s; {len(dataset)} samples, {valid_tokens} valid "
           f"tokens in {len(dataset) * TRAIN_SEQ} slots", flush=True)
+    # the names alone from here: a sharded trainer puts new parameters in the
+    # modules' places, and a reference kept to the old ones keeps them alive
+    frozen, trainable = list(frozen), list(trainable)
+    del named
 
     trainer = CambrianTrainer(model=lm, towers=towers, args=args, train_dataset=dataset,
                               data_collator=collator)
@@ -2532,23 +2583,32 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
     for h in history:
         print(f"{label} train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
               f"lr {h['lr']:.3e}", flush=True)
-    check([h["step"] for h in history] == list(range(1, TRAIN_STEPS + 1)),
+    check([h["step"] for h in history] == list(range(1, steps + 1)),
           f"{label} train: history steps {[h['step'] for h in history]}")
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
               for h in history), f"{label} train: non-finite loss or grad_norm, or grad_norm 0")
     want = {name: 0 for name in counters}
-    want["flash_attention_fwd"] = TRAIN_STEPS * k1_per_batch
-    want["flash_attention_bwd"] = TRAIN_STEPS * k2_per_batch
+    want["flash_attention_fwd"] = steps * k1_per_batch
+    want["flash_attention_bwd"] = steps * k2_per_batch
     check(launches == want, f"{label} train: launched {launches}, not {want}")
-    moved = [n for n, p in trainable.items() if not torch.equal(p.detach().cpu(),
-                                                                 trainable_before[n])]
+    # the parameters by name as they are now (a sharded trainer put DTensors
+    # in the modules' places)
+    named = named_parameters(lm, towers)
+    now = dict(named)
+    now.update({f"towers.{i}.{n}": p for i, t in enumerate(towers)
+                for n, p in t.named_parameters()})
+    moved = [n for n in trainable if not torch.equal(whole(now[n]).detach().cpu(),
+                                                     trainable_before[n])]
     check(any("vision_sampler" in n for n in moved) and any("mm_projector" in n for n in moved),
           f"{label} train: the connector did not move ({len(moved)} tensors changed)")
-    changed = [n for n, p in frozen.items() if not torch.equal(p.detach().cpu(),
-                                                               frozen_before[n])]
+    changed = [n for n in frozen if not torch.equal(whole(now[n]).detach().cpu(),
+                                                    frozen_before[n])]
     check(not changed, f"{label} train: frozen weights changed: {changed[:5]}")
     check(all(p.grad is None for p in named.values()), f"{label} train: a parameter kept a .grad")
-    del frozen_before, trainable_before
+    del frozen_before, trainable_before, now
+    saves = print_saves(f"{label} train", trainer)
+    check(len(saves) == 1 and saves[0]["step"] == steps,
+          f"{label} train: checkpoints {saves}")
 
     k2_step_ms = k2_per_batch * k2_record["ms"]
     warm_s = warm_ms / 1e3
@@ -2557,7 +2617,7 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
                valid_tokens_per_s=valid_tokens / TRAIN_STEPS / warm_s, peak_bytes=peak,
                n_trainable=n_trainable, n_frozen=n_frozen, launches=launches,
                history=history, moved=len(moved), trainable_tensors=len(trainable),
-               k2_step_ms=k2_step_ms, k2_share=k2_step_ms / warm_ms)
+               k2_step_ms=k2_step_ms, k2_share=k2_step_ms / warm_ms, saves=saves)
     print(f"{label} train: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); "
           f"warm {warm_ms:.1f} ms, {rec['samples_per_s']:.3f} samples/s, "
           f"{rec['slot_tokens_per_s']:.1f} slot tokens/s, {rec['valid_tokens_per_s']:.1f} valid "
@@ -2568,11 +2628,10 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers):
           f"{k2_step_ms:.1f} ms, {100 * rec['k2_share']:.1f}% of a warm step", flush=True)
 
     # one more step under the profiler: where a step's device time goes
-    step_fn = make_train_step(lm, towers)
+    step_fn = make_train_step(lm, towers, mesh=trainer.mesh)
     state = trainer._final_state
     host = collator(dataset.items[:TRAIN_BATCH])
-    batch = {k: [x.to(dev, non_blocking=True) for x in _pin(v)] if isinstance(v, list)
-             else _pin(v).to(dev, non_blocking=True) for k, v in host.items()}
+    batch = put_global_batch({k: _pin(v) for k, v in host.items()}, trainer.mesh, dev)
     torch.cuda.synchronize()
 
     def step():
@@ -4071,6 +4130,7 @@ def lora_train_phase(torch, fa, quant):
     rec = dict(step_ms=step_ms, warm_step_ms=warm_ms, peak_bytes=peak, launches=launches,
                history=history, targets=len(targets), adapter_params=n_adapter,
                file_tensors=len(saved), slot_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_ms * 1e3)
+    rec["saves"] = print_saves("8B LoRA", trainer) + print_saves("8B LoRA reload", reload)
     print(f"8B LoRA: step wall ms {[round(s, 1) for s in step_ms]} (the first is cold); warm "
           f"{warm_ms:.1f} ms, {rec['slot_tokens_per_s']:.1f} slot tokens/s; peak memory "
           f"allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {len(saved)} tensors in "
@@ -4325,6 +4385,239 @@ def eval_full_phase(torch, fa, quant, model, counters, cfg):
           f"{os.path.relpath(trace_dir, REPO)}, naming {sorted(found)}", flush=True)
     return dict(requests=requests, wall_s=wall_s, launches=launches, metrics=metrics,
                 submissions=subs, trace_files=files, trace_attempts=attempt)
+
+
+# -- phase 18: the sharded path on the one card ---------------------------------
+
+SHARDED_TINY_STEPS = TRAIN_STEPS + 1     # 3 steps, the checkpoint, then one more
+SHARDED_TRAIN_STEPS = 2                  # Cambrian-8B's sharded steps (over phase 9's samples)
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_tiny_phase(torch, fa, quant, mesh):
+    """Phase 18 (a): phase 8's tiny Cambrian, weights and batches through
+    the sharded trainer (fp32, TF32 off): 3 stage-1 steps against the plain
+    path on the CPU (phase 8's tolerances; K1/K2 by counter), a DCP
+    checkpoint that a fresh sharded trainer restores so that its next step
+    equals the uninterrupted run's bit for bit, then ``consolidate`` and
+    ``load_pretrained_model``: greedy tokens through
+    ``GenerationEngine(mesh=...)`` equal the unsharded engine's."""
+    from cambrian_tpu_torch import tiny_debug
+    from cambrian_tpu_torch.checkpoint.consolidate import consolidate
+    from cambrian_tpu_torch.checkpoint.save import save_config
+    from cambrian_tpu_torch.infer.engine import GenerationConfig, GenerationEngine
+    from cambrian_tpu_torch.models.builder import (
+        CambrianForInference,
+        load_pretrained_model,
+        random_state_dict,
+    )
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
+    from cambrian_tpu_torch.train.optimizer import TrainConfig
+    from cambrian_tpu_torch.train.train_step import init_train_state, make_train_step
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    out_dir = os.path.join(REPO, "build", "chip_smoke_sharded_tiny")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = tiny_debug(num_towers=2).replace(tokenizer_model_max_length=192)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(SEED), 0.05,
+                           dtype=torch.float32, device="cpu")
+    towers = CambrianForInference.from_state_dict(cfg, sd, torch.float32).towers
+    batches = tiny_train_batches(cfg, towers, np.random.default_rng(SEED + 1),
+                                 SHARDED_TINY_STEPS)
+    kw = dict(learning_rate=1e-3, mm_vision_sampler_lr=5e-4, warmup_ratio=0.34,
+              total_steps=SHARDED_TINY_STEPS, lr_scheduler_type="cosine", max_grad_norm=1.0,
+              tune_mm_mlp_adapter=True)
+    loss_tol, param_tol = 1e-4, 1e-4          # phase 8's
+    tower_calls = sum(t.config.num_blocks_to_run for t in towers)
+    counters = all_counters(fa, quant)
+
+    # the plain path on the CPU, unsharded
+    m = CambrianForInference.from_state_dict(cfg, {k: v.clone() for k, v in sd.items()},
+                                             torch.float32)
+    tc = TrainConfig(**kw)
+    state = init_train_state(m.lm, m.towers, tc)
+    step = make_train_step(m.lm, m.towers, freeze=tc)
+    cpu_losses = [float(step(state, batch_to(torch, b, "cpu"))[1]["loss"])
+                  for b in batches[:TRAIN_STEPS]]
+    cpu_params = {n: p.detach().clone() for n, p in m.lm.named_parameters()}
+
+    def sharded_trainer():
+        model = CambrianForInference.from_state_dict(
+            cfg, {k: v.to(dev, copy=True) for k, v in sd.items()}, torch.float32)
+        args = TrainingArguments(output_dir=out_dir, device="cuda", bf16=False, mesh_data=1,
+                                 mesh_fsdp=1, mesh_model=1, **kw)
+        trainer = CambrianTrainer(model.lm, model.towers, args, None, None)
+        check(trainer.mesh is not None and trainer.dp_size == 1,
+              "phase 18 (a): the trainer built no (1,1,1) mesh")
+        return (model, trainer) + trainer.prepare()
+
+    def run_step(trainer, step, state, batch):
+        state, metrics = step(state, put_global_batch(batch, trainer.mesh, dev))
+        return state, float(metrics["loss"])
+
+    model, trainer, state, step = sharded_trainer()
+    check(all(hasattr(p, "placements") for p in model.lm.parameters()),
+          "phase 18 (a): the model's parameters are not DTensors")
+    zero_counts(counters)
+    losses = []
+    for b in batches[:TRAIN_STEPS]:
+        state, loss = run_step(trainer, step, state, b)
+        losses.append(loss)
+    counts = read_counts(counters)
+    params = snapshot(model.lm)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    param_err = max(float((params[n] - p).abs().max()) for n, p in cpu_params.items())
+    want = {name: 0 for name in counters}
+    want["flash_attention_fwd"] = TRAIN_STEPS * (tower_calls + 2 * cfg.num_hidden_layers)
+    want["flash_attention_bwd"] = TRAIN_STEPS * cfg.num_hidden_layers
+    print(f"phase 18 (a) tiny sharded stage 1: card losses {losses} cpu losses {cpu_losses} "
+          f"(max rel diff {loss_err:.3e}), parameters max abs diff {param_err:.3e}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    check(counts == want, f"phase 18 (a): launched {counts}, not {want}")
+    check(loss_err <= loss_tol, f"phase 18 (a): losses differ by {loss_err}")
+    check(param_err <= param_tol, f"phase 18 (a): parameters differ by {param_err}")
+
+    # the checkpoint, then one more step: uninterrupted, and from a restore
+    trainer._save_checkpoint(state, TRAIN_STEPS)
+    saves = print_saves("phase 18 (a) tiny", trainer)
+    state, next_loss = run_step(trainer, step, state, batches[TRAIN_STEPS])
+    next_params = snapshot(model.lm)
+    del model, trainer, state, step
+    model, trainer, state, step = sharded_trainer()
+    restored_step = trainer._restore_checkpoint(state)
+    state, resumed_loss = run_step(trainer, step, state, batches[TRAIN_STEPS])
+    resumed = snapshot(model.lm)
+    differ = [n for n, p in next_params.items() if not torch.equal(resumed[n], p)]
+    print(f"phase 18 (a) resume: restored step {restored_step}; step {TRAIN_STEPS + 1} loss "
+          f"uninterrupted {next_loss!r}, resumed {resumed_loss!r}; {len(differ)} parameters "
+          f"differ", flush=True)
+    check(restored_step == TRAIN_STEPS and resumed_loss == next_loss and not differ,
+          f"phase 18 (a): the resumed step differs ({differ[:5]})")
+    del model, trainer, state, step
+
+    # consolidate, load, and serve sharded and unsharded
+    save_config(cfg, out_dir)
+    hf_dir = os.path.join(out_dir, "hf")
+    consolidate(out_dir, hf_dir)
+    rng = np.random.default_rng(SEED + 18)
+    ids = rng.integers(5, cfg.vocab_size, (1, 150))
+    mask = np.ones(ids.shape, bool)
+    pos = np.arange(ids.shape[1])[None]
+    tokens = {}
+    for sharded in (False, True):
+        _, loaded, _, _ = load_pretrained_model(hf_dir, device="cuda", dtype=torch.float32)
+        engine = GenerationEngine(loaded.lm, loaded.towers, max_len=256,
+                                  cache_dtype=torch.float32, mesh=mesh if sharded else None)
+        zero_counts(counters)
+        tokens[sharded] = engine.generate(
+            ids, mask, pos, config=GenerationConfig(max_new_tokens=8, temperature=0.0))
+        k1 = read_counts(counters)["flash_attention_fwd"]
+        check(k1 == cfg.num_hidden_layers, f"phase 18 (a) serving: K1 launched {k1}x")
+        del loaded, engine
+    loaded_sd = {k: v for k, v in load_pretrained_model(
+        hf_dir, device="cpu", dtype=torch.float32)[1].lm.state_dict().items()}
+    export_err = max(float((loaded_sd[n] - p).abs().max()) for n, p in params.items())
+    print(f"phase 18 (a) consolidate: the export against the trained weights max abs diff "
+          f"{export_err:.3e}; greedy tokens unsharded {tokens[False].tolist()} sharded "
+          f"{tokens[True].tolist()}", flush=True)
+    check(tokens[False].shape == (1, 8) and (tokens[False] == tokens[True]).all(),
+          "phase 18 (a): the sharded engine's tokens differ from the unsharded engine's")
+    check(export_err == 0.0, f"phase 18 (a): the consolidated weights differ by {export_err}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(card_losses=losses, cpu_losses=cpu_losses, loss_rel_err=loss_err,
+                param_abs_err=param_err, launches=counts, saves=saves,
+                resumed_loss=resumed_loss, tokens=tokens[True].tolist(), export_err=export_err)
+
+
+def sharded_serve_phase(torch, fa, quant, prompts, mesh, phase5):
+    """Phase 18 (c): Cambrian-8B bf16 built anew as phase 5 builds it,
+    served through ``GenerationEngine(mesh=...)`` on the (1,1,1) mesh:
+    phase 5's three requests, K1 exactly 122 times a request, the tokens
+    phase 5 gave."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.infer.engine import GenerationEngine
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    dev = torch.device("cuda")
+    cfg = cambrian_8b()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sd = random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+    model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+    del sd
+    model.engine = GenerationEngine(model.lm, model.towers, model.engine.max_len,
+                                    model.engine.cache_dtype, mesh=mesh)
+    check(all(hasattr(p, "placements") for p in model.lm.parameters()),
+          "phase 18 (c): the model's parameters are not DTensors")
+    counters = all_counters(fa, quant)
+    zero_counts(counters)                    # the sharded serving path's count starts here
+    requests = [serve_request(torch, model, counters, cfg, r, pr) for r, pr in enumerate(prompts)]
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    for rec, ref in zip(requests, phase5):
+        same = sum(a == b for a, b in zip(rec["tokens"], ref["tokens"]))
+        print(f"phase 18 (c) request {rec['request']}: {same}/{len(ref['tokens'])} tokens equal "
+              f"phase 5's; prefill {rec['prefill_ms']:.1f} ms (phase 5 {ref['prefill_ms']:.1f}), "
+              f"decode {rec['decode_tokens_per_s']:.2f} tok/s (phase 5 "
+              f"{ref['decode_tokens_per_s']:.2f})", flush=True)
+        check(rec["tokens"] == ref["tokens"],
+              f"phase 18 (c) request {rec['request']}: tokens differ from phase 5's")
+    print(f"phase 18 (c) peak memory allocated: {peak / 2**30:.2f} GiB", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(requests=requests, launches=launches, peak_bytes=peak)
+
+
+def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record):
+    """Phase 18: the sharded path on the one card, world size 1 over NCCL,
+    the (1,1,1) mesh: (a) the tiny sharded trainer, its checkpoint,
+    consolidate and the sharded engine; (b) Cambrian-8B stage 1 through
+    ``CambrianTrainer.train()`` on the mesh; (c) Cambrian-8B served sharded.
+    Runs after every other phase; the process group is destroyed at its
+    end."""
+    import torch.distributed as dist
+
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.parallel.distributed import initialize_distributed
+    from cambrian_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    check(initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+          and dist.get_backend() == "nccl", "phase 18: no NCCL process group")
+    try:
+        mesh = create_mesh(MeshConfig(1, 1, 1), "cuda")
+        t0 = time.perf_counter()
+        tiny = sharded_tiny_phase(torch, fa, quant, mesh)
+        print(f"phase 18 (a): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        train = train_stage1_phase(torch, fa, quant, k2_record, cambrian_8b(), "8B sharded",
+                                   LAYERS, steps=SHARDED_TRAIN_STEPS)
+        first, ref = train["history"][0]["loss"], phase9["history"][0]["loss"]
+        print(f"phase 18 (b): first loss {first:.6f} against phase 9's {ref:.6f}; warm step "
+              f"{train['warm_step_ms']:.1f} ms against {phase9['warm_step_ms']:.1f} ms; peak "
+              f"memory {train['peak_bytes'] / 2**30:.2f} GiB against "
+              f"{phase9['peak_bytes'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(abs(first - ref) <= 2 ** -7 * abs(ref),
+              f"phase 18 (b): the first loss {first} is not within bf16 rounding of {ref}")
+        t0 = time.perf_counter()
+        serve = sharded_serve_phase(torch, fa, quant, prompts, mesh, phase5)
+        print(f"phase 18 (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return dict(tiny=tiny, train=train, serve=serve)
 
 
 def main(argv=None):
@@ -4609,6 +4902,10 @@ def main(argv=None):
     t16 = time.perf_counter()
     lora_train = lora_train_phase(torch, fa, quant)
     print(f"phase 16 (Cambrian-8B LoRA): {time.perf_counter() - t16:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    sharded = sharded_phase(torch, fa, quant, prompts, full["bf16"]["requests"], train, k2)
+    print(f"phase 18 (the sharded path, world size 1): {time.perf_counter() - t18:.1f} s",
+          flush=True)
 
     # launches: each path's counts (8B serving, eval and training, Phi-3
     # serving and loading), read just after it, summed over paths
@@ -4617,6 +4914,7 @@ def main(argv=None):
     paths += [f["http"]["launches"] for f in full.values() if f["http"]]
     paths += [zoo["launches"], zoo["cambrian"]["launches"]] + families["launches"]
     paths += [gemma_train["launches"], lora_train["launches"], full["bf16"]["then"]["launches"]]
+    paths += [sharded["train"]["launches"], sharded["serve"]["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -4755,14 +5053,15 @@ def main(argv=None):
           f"sdpa {per_req['library_ms']:.3f} ms, bound {per_req['bound_ms']:.4f} ms "
           f"({rows[-1]['bound_by']})", flush=True)
     # K2: per training step, 32 calls at the decoder's shape (bf16); launches
-    # of the 8B paths (phases 9 and 16)
+    # of the 8B paths (phases 9, 16 and 18)
     rows.append({
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "cambrian_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "cambrian_tpu/ops/flash_attention.py:140",
         "launches": train["launches"]["flash_attention_bwd"]
-        + lora_train["launches"]["flash_attention_bwd"],
+        + lora_train["launches"]["flash_attention_bwd"]
+        + sharded["train"]["launches"]["flash_attention_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"] * k2["per_step"],
         "plain_ms": k2["plain_ms"] * k2["per_step"],
@@ -4831,7 +5130,7 @@ def main(argv=None):
                            bwd_kernels=bwd_kernels, tiny_train=tiny_train, train=train,
                            vision=vision, phi3=phi3, zoo=zoo, families=families,
                            gemma_train=gemma_train, lora_train=lora_train,
-                           eval_tiny=eval_tiny, summary=summary), f, indent=1)
+                           eval_tiny=eval_tiny, sharded=sharded, summary=summary), f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(summary))

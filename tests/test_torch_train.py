@@ -510,6 +510,7 @@ def test_dataset_items_match_jax(workdir):
 
 
 def test_train_entry_resume_and_export(workdir):
+    from cambrian_tpu_torch.checkpoint.consolidate import read_checkpoint
     from cambrian_tpu_torch.models.builder import load_pretrained_model
     from cambrian_tpu_torch.train.train import train
 
@@ -520,17 +521,19 @@ def test_train_entry_resume_and_export(workdir):
     assert [h["step"] for h in history] == list(range(1, 9))
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history)
     ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
-    assert ckpts == ["step_000000006.pt", "step_000000008.pt"]      # save_total_limit 2
+    assert ckpts == ["step_000000006", "step_000000008"]      # save_total_limit 2
     assert os.path.exists(os.path.join(out, "config.json"))
 
     # the HF export loads through the port's loader and holds the trained weights
     _, model, _, ctx = load_pretrained_model(out, device="cpu", dtype=torch.float32)
     assert ctx == 96 and model.config.image_token_len == 16
-    final = torch.load(os.path.join(out, "checkpoints", ckpts[-1]), weights_only=True)
+    final = read_checkpoint(os.path.join(out, "checkpoints", ckpts[-1]))
     assert final["step"] == 8
     exported = model.lm.state_dict()
     for name, st in final["optimizer"]["state"].items():
         torch.testing.assert_close(exported[name], st["master"], atol=0, rtol=0, msg=name)
+    # the checkpoint holds every parameter, frozen ones included
+    assert set(final["model"]) == set(exported)
 
     # resume continues the step count from the newest checkpoint
     history = train(*_train_args(ckpt, data_path, img_dir, out, num_train_epochs=3,
@@ -603,12 +606,14 @@ def test_pretrain_mm_mlp_adapter_loads_a_stage1_dump(tmp_path):
 
 
 def test_many_devices_are_refused(workdir):
-    """More than one device raises until multi-GPU training is ported (LoRA
-    trains: tests/test_torch_lora.py); and the launch script's flags parse."""
+    """A mesh of more than one device in one process, with no process group
+    to span, raises as ``MeshConfig.resolve`` does (the sharded path runs
+    under torchrun: tests/test_torch_parallel_train.py); and the launch
+    script's flags parse."""
     from cambrian_tpu_torch.train.train import parse_args, train
 
     d, ckpt, data_path, _, img_dir = workdir
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(ValueError, match=r"mesh \(1, 2, 1\) does not cover 1 devices"):
         train(*_train_args(ckpt, data_path, img_dir, str(d / "out_mesh"), mesh_fsdp=2))
     # the launch script's spelling of booleans and lists
     model_args, data_args, args = parse_args([

@@ -1,0 +1,279 @@
+"""Multi-process helpers of the port's sharded tests
+(tests/test_torch_parallel_train.py, tests/test_torch_parallel_infer.py).
+
+``start_ranks`` starts one spawned process a rank on the CPU (gloo, a
+``file://`` rendezvous under the test's temporary directory, one thread a
+process); ``join_ranks`` joins them within a time limit and returns what
+each wrote. The
+rank functions here import the port only, never JAX: the tests compute the
+JAX references in their own process and hand the ranks numpy inputs.
+"""
+
+import multiprocessing
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+
+def start_ranks(target, world: int, tmp_path, payload):
+    """Start ``target(rank, world, payload)`` in ``world`` spawned
+    processes; ``join_ranks`` collects them. The caller may work meanwhile
+    (the JAX references)."""
+    tmp = str(tmp_path)
+    payload_path = os.path.join(tmp, "payload.pt")
+    torch.save(payload, payload_path)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(target, r, world, tmp, payload_path))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return tmp, procs
+
+
+def join_ranks(started, timeout: float = 90.0):
+    """Each rank's return value, rank order. A rank that raises, dies or is
+    still running ``timeout`` seconds after the join starts fails the call
+    (the others are stopped)."""
+    tmp, procs = started
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise TimeoutError(f"ranks {alive} still running after {timeout} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(len(procs))
+              if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+    if errors:
+        raise RuntimeError("a rank failed:\n" + errors[0])
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"ranks exited with {bad}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.out"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def run_ranks(target, world: int, tmp_path, payload, timeout: float = 90.0):
+    """``start_ranks`` then ``join_ranks``."""
+    return join_ranks(start_ranks(target, world, tmp_path, payload), timeout)
+
+
+def _rank_main(target, rank, world, tmp, payload_path):
+    torch.set_num_threads(1)
+    try:
+        from cambrian_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(f"file://{tmp}/rendezvous", world, rank)
+        out = target(rank, world, torch.load(payload_path, weights_only=False))
+        torch.save(out, os.path.join(tmp, f"rank{rank}.out"))
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (every rank takes part), or the tensor."""
+    return (t.full_tensor() if hasattr(t, "placements") else t).detach().clone()
+
+
+def build_model(payload):
+    """The port's CambrianLM and towers of the payload's config and weights
+    (fp32, CPU)."""
+    from cambrian_tpu_torch.models.builder import CambrianForInference
+    from cambrian_tpu_torch.models.config import CambrianConfig
+
+    cfg = CambrianConfig.from_dict(payload["cfg"])
+    m = CambrianForInference.from_state_dict(
+        cfg, {k: v.clone() for k, v in payload["sd"].items()}, torch.float32)
+    return m.lm, m.towers
+
+
+def _trainer(lm, towers, payload, dims, stage, out_dir):
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments
+
+    args = TrainingArguments(output_dir=out_dir, device="cpu", mesh_data=dims[0],
+                             mesh_fsdp=dims[1], mesh_model=dims[2], bf16=False,
+                             tune_mm_mlp_adapter=stage == 1, **payload["train_kw"])
+    return CambrianTrainer(lm, towers, args, None, None)
+
+
+def _optimizer_leaves(state):
+    return {f"{n}/{k}": full(t) for n, st in state.optimizer.state_dict()["state"].items()
+            for k, t in st.items()}
+
+
+def train_rank(rank, world, payload):
+    """3 steps of stage 1 and of stage 2 on each mesh of the payload, from
+    its weights and global batches; then the stage-1 (1,2,2) state saved
+    through the trainer, and restored under each of ``restore_meshes``."""
+    from cambrian_tpu_torch.models.cambrian import valid_token_count
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
+
+    out = {"runs": {}, "restored": {}}
+    saved = None
+    for stage in (1, 2):
+        for dims in payload["meshes"]:
+            lm, towers = build_model(payload)
+            ckpt_dir = os.path.join(payload["out_dir"], f"stage{stage}_{'x'.join(map(str, dims))}")
+            trainer = _trainer(lm, towers, payload, dims, stage, ckpt_dir)
+            state, step = trainer.prepare()
+            run = {"loss": [], "grad_norm": [], "valid_tokens": []}
+            for batch in payload["batches"]:
+                local = put_global_batch(batch, trainer.mesh, "cpu")
+                run["valid_tokens"].append(int(valid_token_count(local["labels"])))
+                state, m = step(state, local)
+                run["loss"].append(float(m["loss"]))
+                run["grad_norm"].append(float(m["grad_norm"]))
+            params = {n: full(p) for n, p in lm.named_parameters()}
+            if rank == 0:
+                run["params"] = params
+            run["requires_grad"] = {n: p.requires_grad for n, p in lm.named_parameters()}
+            run["grads_left"] = [n for n, p in lm.named_parameters() if p.grad is not None]
+            run["trainable"] = sorted(state.optimizer.params)
+            out["runs"][(stage, dims)] = run
+            if stage == 1 and dims == payload["save_mesh"]:
+                torch.manual_seed(payload["rng_seed"])
+                rng = torch.get_rng_state()
+                trainer._save_checkpoint(state, step=len(payload["batches"]))
+                saved = dict(params=params, optimizer=_optimizer_leaves(state), rng=rng,
+                             micro_step=state.step, ckpt=trainer.checkpoint_dir)
+    for dims in payload["restore_meshes"]:
+        # another mesh, other weights: everything must come from the checkpoint
+        lm, towers = build_model(payload)
+        with torch.no_grad():
+            for p in lm.parameters():
+                p.mul_(0.5)
+        trainer = _trainer(lm, towers, payload, dims, 1, os.path.dirname(saved["ckpt"]))
+        state, _ = trainer.prepare()
+        torch.manual_seed(0)
+        step = trainer._restore_checkpoint(state)
+        got = dict(step=step, micro_step=state.step, rng=torch.get_rng_state(),
+                   params={n: full(p) for n, p in lm.named_parameters()},
+                   optimizer=_optimizer_leaves(state),
+                   count=state.optimizer.count)
+        out["restored"][dims] = {
+            "step": got["step"], "micro_step": got["micro_step"] == saved["micro_step"],
+            "rng": torch.equal(got["rng"], saved["rng"]),
+            "count": got["count"],
+            "params": [n for n, t in saved["params"].items()
+                       if not torch.equal(got["params"][n], t)],
+            "optimizer": [n for n, t in saved["optimizer"].items()
+                          if not torch.equal(got["optimizer"][n], t)],
+            "n_params": len(got["params"]), "n_optimizer": len(got["optimizer"]),
+            "optimizer_nonzero": sum(bool(t.abs().sum() > 0) for t in
+                                     saved["optimizer"].values()),
+        }
+    if rank == 0:
+        out["saved_params"] = saved["params"]
+    out["train"] = _train_loop(rank, payload)
+    out["bf16"] = _bf16_step(payload)
+    return out
+
+
+def _bf16_step(payload):
+    """Two stage-1 steps of the model built in bf16 (the trainer stores the
+    frozen groups in bf16, norms and the trainable fp32 ones stay) on
+    (1,2,2): FSDP2 units of one trainable dtype each. The loss and grad
+    norm, and how many trainable tensors moved."""
+    from cambrian_tpu_torch.models.builder import CambrianForInference
+    from cambrian_tpu_torch.models.config import CambrianConfig
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
+
+    cfg = CambrianConfig.from_dict(payload["cfg"])
+    m = CambrianForInference.from_state_dict(
+        cfg, {k: v.clone() for k, v in payload["sd"].items()}, torch.bfloat16)
+    trainer = _trainer(m.lm, m.towers, payload, (1, 2, 2), 1,
+                       os.path.join(payload["out_dir"], "bf16"))
+    trainer.args.bf16 = True
+    state, step = trainer.prepare()
+    before = {n: full(p) for n, p in state.optimizer.params.items()}
+    dtypes = sorted({str(p.dtype) for p in state.optimizer.params.values()})
+    for batch in payload["batches"][:2]:        # the first step's rate is 0 (warmup)
+        state, metrics = step(state, put_global_batch(batch, trainer.mesh, "cpu"))
+    moved = sum(not torch.equal(full(p), before[n]) for n, p in state.optimizer.params.items())
+    return dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                moved=moved, trainable=len(before), dtypes=dtypes)
+
+
+class _Tokenizer:
+    """What the collator reads of a tokenizer."""
+    model_max_length = 160
+    pad_token_id = 0
+    padding_side = "right"
+
+
+def _train_loop(rank, payload):
+    """``CambrianTrainer.train()`` on the (1,2,2) mesh over pre-tokenized
+    samples: two optimizer steps of a global batch of 4, the final
+    checkpoint and ``save_model`` (gathered, written by rank 0)."""
+    from cambrian_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
+    from cambrian_tpu_torch.models.config import CambrianConfig
+
+    cfg = CambrianConfig.from_dict(payload["cfg"])
+    rng = np.random.default_rng(5)
+    items, lengths = [], []
+    for i in range(8):
+        n = int(rng.integers(40, 120))
+        ids = rng.integers(5, cfg.vocab_size, n)
+        labels = ids.copy()
+        labels[:cfg.image_position + 4] = IGNORE_INDEX
+        ids[cfg.image_position] = IMAGE_TOKEN_INDEX
+        items.append(dict(input_ids=ids, labels=labels, image_size=(640, 360),
+                          image_aux_list=[rng.standard_normal((3, 32, 32), dtype=np.float32)
+                                          for _ in range(2)]))
+        lengths.append(n)
+
+    class Dataset(list):
+        modality_lengths = lengths
+
+    collator = DataCollatorForSupervisedDataset(
+        tokenizer=_Tokenizer(), image_token_len=cfg.image_token_len,
+        image_aux_token_len_list=list(cfg.mm_vision_tower_aux_token_len_list),
+        image_position=cfg.image_position)
+    lm, towers = build_model(payload)
+    out_dir = os.path.join(payload["out_dir"], "train_loop")
+    trainer = _trainer(lm, towers, payload, (1, 2, 2), 1, out_dir)
+    trainer.train_dataset, trainer.data_collator = Dataset(items), collator
+    trainer.args.per_device_train_batch_size = 2
+    trainer.args.dataloader_num_workers = 1
+    trainer.args.logging_steps = 1
+    trainer.global_batch_size = 2 * trainer.dp_size
+    history = trainer.train()
+    trainer.save_model()
+    return dict(history=history, checkpoints=trainer._checkpoints(), out_dir=out_dir,
+                global_batch=trainer.global_batch_size)
+
+
+def infer_rank(rank, world, payload):
+    """Greedy tokens of ``GenerationEngine(mesh=...)`` for each case of the
+    payload: (its config and weights, the mesh, the prompt)."""
+    from cambrian_tpu_torch.infer.engine import GenerationConfig, GenerationEngine
+    from cambrian_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    out = {}
+    for name, case in payload["cases"].items():
+        lm, towers = build_model(case)
+        mesh = create_mesh(MeshConfig(*case["mesh"]), "cpu")
+        engine = GenerationEngine(lm, towers, max_len=128, cache_dtype=torch.float32, mesh=mesh)
+        ids, mask, pos, pixels, aux_masks = case["prompt"]
+        feats = None if pixels is None else engine.encode_images(pixels)
+        gcfg = GenerationConfig(max_new_tokens=case["new_tokens"], temperature=0.0)
+        tokens = engine.generate(ids, mask, pos, feats, aux_masks, gcfg)
+        out[name] = dict(tokens=np.asarray(tokens), kv_heads=engine.kv_heads,
+                         rows=engine._local_rows(np.asarray(ids).shape[0]))
+    return out
