@@ -12,10 +12,13 @@ requests through one shared cache; its chunked decode samples each row with
 
 ``GenerationEngine(mesh=...)`` serves a model laid out on a (data, fsdp,
 model) mesh by the training rules (``parallel.sharding.shard_model``): each
-rank holds its heads' share of the KV cache. ``generate`` splits the batch
-over (data, fsdp) where it divides (else every rank runs every row, as
-``_fit_spec`` drops the axis), agrees across ranks on when every sample has
-finished, and gathers the tokens, so every rank returns the whole result.
+rank holds its heads' share of the KV cache. A quantized model
+(``load_8bit`` / ``load_4bit``) is laid out by the same rules: each rank's
+K3/K4/K4b calls read its slice of each split projection. ``generate``
+splits the batch over (data, fsdp) where it divides (else every rank runs
+every row, as ``_fit_spec`` drops the axis), agrees across ranks on when
+every sample has finished, and gathers the tokens, so every rank returns
+the whole result.
 ``generate_stream`` runs every row on every rank, so that the ranks' host
 decisions (chunks, stopping) agree. ``last_next_logits`` holds the rank's
 own rows.
@@ -126,7 +129,7 @@ class GenerationEngine:
             for module in [model, *self.towers]:
                 module.requires_grad_(False)
         shard_model(model, self.towers, mesh)
-        self.kv_heads = local_kv_heads(model.cfg, mesh)
+        self.kv_heads = local_kv_heads(model.cfg, mesh, model)
         self.last_lengths = None
         self.last_next_logits = None
         self.last_timings = {}

@@ -26,6 +26,7 @@ import os
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import cuda_build
@@ -499,12 +500,24 @@ int4_matmul_scale_on_weights.function_launches = {}
 class _QuantLinearBase(nn.Module):
     """Shared forward of the quantized linears: activations outside
     bf16/fp32 are cast to ``dtype`` (as the JAX modules do), the bias is fp32
-    and added in the output dtype."""
+    and added in the output dtype.
+
+    Under tensor parallelism (``parallel/sharding.py``) a linear keeps its
+    rank's slice of its tensors (``shard_``), each stored contiguous once, so
+    that the kernel reads it in place: a column-parallel one its N columns
+    of the weights, scales and bias; a row-parallel one its K rows (int4:
+    its packed rows and the scale groups they fall in, whole groups only),
+    whose partial products it sums over the model axis before the bias is
+    added, once. The weights and scales stay buffers, which FSDP2 leaves
+    whole on every (data, fsdp) rank."""
+
+    _WEIGHT = ""          # the weights' leaf: ``kernel_q`` or ``kernel_q4``
 
     def __init__(self, out_features: int, bias: bool, dtype, device):
         super().__init__()
         self.out_features = out_features
         self.dtype = dtype
+        self.tp_group = None    # the model axis' group, for a row-parallel shard
         if bias:
             self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32,
                                                  device=device))
@@ -514,6 +527,34 @@ class _QuantLinearBase(nn.Module):
     def _matmul(self, x2: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    @torch.no_grad()
+    def shard_(self, parallel: str, rank: int, size: int, group=None) -> None:
+        """Keep rank ``rank`` of ``size``'s slice, in place: ``parallel``
+        "column" (N) or "row" (K; ``group`` sums the partial outputs)."""
+        def part(t, dim):
+            n = t.shape[dim]
+            if n % size:
+                raise ValueError(f"{tuple(t.shape)} does not split over {size} ranks on dim {dim}")
+            # a copy of its own: the whole tensor is freed, and the kernel
+            # reads a contiguous slice
+            return t.narrow(dim, rank * n // size, n // size).clone(
+                memory_format=torch.contiguous_format)
+
+        w, scale = getattr(self, self._WEIGHT), self.scale
+        if parallel == "column":
+            setattr(self, self._WEIGHT, part(w, 1))
+            self.scale = part(scale, scale.dim() - 1)
+            if self.bias is not None:
+                self.bias = nn.Parameter(part(self.bias, 0), requires_grad=self.bias.requires_grad)
+            self.out_features //= size
+        elif parallel == "row":
+            setattr(self, self._WEIGHT, part(w, 0))
+            if scale.dim() == 2:        # int4: the groups of the rank's rows
+                self.scale = part(scale, 0)
+            self.tp_group = group
+        else:
+            raise ValueError(f"parallel must be 'column' or 'row', got {parallel!r}")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
         x2 = x.reshape(-1, shape[-1])
@@ -522,6 +563,8 @@ class _QuantLinearBase(nn.Module):
         if x2.stride(-1) != 1:    # the kernels read rows of x with a unit stride
             x2 = x2.contiguous()
         y = self._matmul(x2)
+        if self.tp_group is not None:
+            dist.all_reduce(y, group=self.tp_group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y.reshape(*shape[:-1], self.out_features)
@@ -531,6 +574,8 @@ class QuantLinear(_QuantLinearBase):
     """Linear over int8 weights with per-output-channel fp32 scales (the
     ``load_8bit`` path; JAX ``QuantDense``). Buffers: ``kernel_q`` int8
     [K, N], ``scale`` fp32 [N]; optional fp32 ``bias``."""
+
+    _WEIGHT = "kernel_q"
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.bfloat16, device=None):
@@ -547,7 +592,11 @@ class QuantLinear(_QuantLinearBase):
 class QuantLinear4(_QuantLinearBase):
     """Linear over nibble-packed int4 weights with K-groupwise fp32 scales
     (the ``load_4bit`` path; JAX ``QuantDense4``). Buffers: ``kernel_q4``
-    int8 [K/2, N], ``scale`` fp32 [K/group, N]; optional fp32 ``bias``."""
+    int8 [K/2, N], ``scale`` fp32 [K/group, N]; optional fp32 ``bias``. The
+    kernel reads the group from the shapes, so a row-parallel shard's is its
+    own K over its scale rows."""
+
+    _WEIGHT = "kernel_q4"
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.bfloat16, device=None, group: int = INT4_GROUP):

@@ -28,6 +28,20 @@ a Dense weight [out, in] takes the JAX kernel's [in, out] spec reversed.
   unit) become units of their own (``fsdp_units``).
 - the token embedding and the LM head take FSDP only: the JAX package's
   vocab-parallel embedding, head and loss are not ported.
+- a quantized model (``load_8bit`` / ``load_4bit``) takes the same rules:
+  the JAX ``QuantDense`` leaves (``kernel_q`` [K, N], ``kernel_q4`` [K/2,
+  N], ``scale`` [N] or [K/group, N], the fp32 ``bias``) keep their names
+  and shapes in the port, so ``param_spec`` reads them as JAX does. Each
+  split ``QuantLinear`` / ``QuantLinear4`` keeps its rank's slice
+  (``shard_``), so the hand-written K3/K4/K4b kernels read local tensors; a
+  row-parallel int4 one takes the axis only where every rank's K is whole
+  scale groups (``_tp_plan``). Its int8 tensors stay buffers, whole on
+  every (data, fsdp) rank: FSDP2 shards parameters only, and in the card's
+  PyTorch (2.11) it cannot hold an integer one (it makes each sharded
+  parameter require grad). The JAX layout shards ``kernel_q`` over fsdp.
+- LoRA's adapter leaves (``<kernel path>/a`` [in, r], ``/b`` [r, out]) get
+  the JAX specs from the same rules; ``train/lora.py`` lays the adapters
+  themselves out like their linears (``model.tp_plan``).
 
 Gradients are reduced as sums (divide factor 1): the train step divides the
 summed token loss by the valid tokens of the whole global batch
@@ -162,10 +176,17 @@ def attention_tp(num_heads: int, num_kv_heads: int, tp: int) -> bool:
     return tp > 1 and num_heads % tp == 0 and num_kv_heads % tp == 0
 
 
-def local_kv_heads(cfg, mesh) -> int:
-    """The decoder's kv heads on one rank of ``mesh`` (the KV cache's)."""
+def local_kv_heads(cfg, mesh, model: Optional[nn.Module] = None) -> int:
+    """The decoder's kv heads on one rank of ``mesh`` (the KV cache's). For
+    a model ``shard_model`` laid out, read from its plan: its attention
+    blocks hold a share of the heads only where the plan split them (an
+    int4 block whose o_proj keeps its groups whole stays replicated)."""
     tp = axis_sizes(mesh)["model"] if mesh is not None else 1
     kvh = cfg.num_key_value_heads
+    plan = getattr(model, "tp_plan", None)
+    if plan is not None:
+        split = any(name.endswith("self_attn.k_proj") for name in plan)
+        return kvh // tp if split else kvh
     return kvh // tp if attention_tp(cfg.num_attention_heads, kvh, tp) else kvh
 
 
@@ -173,12 +194,29 @@ def _on_model(axis) -> bool:
     return axis == "model" or (isinstance(axis, tuple) and "model" in axis)
 
 
-def _tp_plan(model: nn.Module, sizes: Mapping[str, int]) -> Dict[str, object]:
-    """{linear's name: ColwiseParallel() | RowwiseParallel()} for the Dense
-    weights the rules shard over ``model``, attention blocks whose heads do
-    not divide by the axis left out."""
-    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
+def _quantized(mod: nn.Module) -> bool:
+    from ..ops.quant import QuantLinear, QuantLinear4
 
+    return isinstance(mod, (QuantLinear, QuantLinear4))
+
+
+def _linear_axes(name: str, mod: nn.Module, sizes: Mapping[str, int]) -> Tuple:
+    """(in-axis, out-axis) the rules give a Dense: of the weight [out, in]
+    of an ``nn.Linear``, of ``kernel_q`` [K, N] or ``kernel_q4`` [K/2, N] of
+    a quantized linear (the JAX ``QuantDense``/``QuantDense4`` leaves)."""
+    if type(mod) is nn.Linear:
+        out_axis, in_axis = param_spec(name + ".weight", tuple(mod.weight.shape), sizes)
+        return in_axis, out_axis
+    leaf = mod._WEIGHT
+    return param_spec(f"{name}.{leaf}", tuple(getattr(mod, leaf).shape), sizes)
+
+
+def _tp_plan(model: nn.Module, sizes: Mapping[str, int]) -> Dict[str, str]:
+    """{linear's name: "column" | "row"} for the Dense weights, plain or
+    quantized, the rules shard over ``model``, attention blocks whose heads
+    do not divide by the axis left out. A row-parallel int4 linear takes the
+    axis only where every rank's K is whole scale groups (its scale rows
+    divide by the axis); otherwise it and its partners stay replicated."""
     from ..models.language.llama import LlamaAttention
     from ..models.sva import CrossAttention, MultiKVCrossAttention
 
@@ -195,23 +233,47 @@ def _tp_plan(model: nn.Module, sizes: Mapping[str, int]) -> Dict[str, object]:
             skip.append(name + ".")
     plan = {}
     for name, mod in model.named_modules():
-        if type(mod) is not nn.Linear or any(name.startswith(s) for s in skip):
+        if not (type(mod) is nn.Linear or _quantized(mod)) or any(
+                name.startswith(s) for s in skip):
             continue
         last = name.rsplit(".", 1)[-1]
-        spec = param_spec(name + ".weight", tuple(mod.weight.shape), sizes)
-        if any(last.startswith(k) for k in _COLUMN) and _on_model(spec[0]):
-            plan[name] = ColwiseParallel()
-        elif any(last.startswith(k) for k in _ROW) and _on_model(spec[1]):
-            plan[name] = RowwiseParallel()
+        in_axis, out_axis = _linear_axes(name, mod, sizes)
+        if any(last.startswith(k) for k in _COLUMN) and _on_model(out_axis):
+            plan[name] = "column"
+        elif any(last.startswith(k) for k in _ROW) and _on_model(in_axis) and (
+                not hasattr(mod, "kernel_q4") or mod.scale.shape[0] % tp == 0):
+            plan[name] = "row"
     # a column-parallel Dense feeds its row-parallel partner: keep pairs whole
     for name in list(plan):
         owner = name.rsplit(".", 1)[0]
         partners = [n for n in plan if n.rsplit(".", 1)[0] == owner]
-        kinds = {type(plan[n]).__name__ for n in partners}
-        if kinds != {"ColwiseParallel", "RowwiseParallel"}:
+        if {plan[n] for n in partners} != {"column", "row"}:
             for n in partners:
                 plan.pop(n, None)
     return plan
+
+
+def _apply_tp(model: nn.Module, plan: Mapping[str, str], mesh) -> None:
+    """Lay out the plan's linears on ``mesh["model"]``: ``nn.Linear``s through
+    ``parallelize_module`` (DTensor weights), quantized ones by keeping each
+    rank's slice of its tensors (``shard_``): the hand-written kernels read
+    the local tensors."""
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+        parallelize_module,
+    )
+
+    modules = dict(model.named_modules())
+    tp_mesh = mesh["model"]
+    styles = {n: ColwiseParallel() if kind == "column" else RowwiseParallel()
+              for n, kind in plan.items() if type(modules[n]) is nn.Linear}
+    if styles:
+        parallelize_module(model, tp_mesh, styles)
+    rank, size, group = tp_mesh.get_local_rank(), tp_mesh.size(), tp_mesh.get_group()
+    for name, kind in plan.items():
+        if _quantized(modules[name]):
+            modules[name].shard_(kind, rank, size, group)
 
 
 def _walk(module: nn.Module, done: set):
@@ -297,29 +359,24 @@ FORWARD_METHODS = ("hidden_states", "supervised_loss", "prefill", "decode_step")
 
 
 def shard_model(model: nn.Module, towers: Sequence[nn.Module] = (), mesh=None) -> Optional[list]:
-    """Lay ``model`` (a ``CambrianLM``) and ``towers`` out on ``mesh`` in
-    place, as the module docstring says. Returns the FSDP2 modules, or None
-    (and changes nothing) when ``mesh`` is None."""
+    """Lay ``model`` (a ``CambrianLM``, full precision or quantized) and
+    ``towers`` out on ``mesh`` in place, as the module docstring says.
+    Returns the FSDP2 modules, or None (and changes nothing) when ``mesh``
+    is None. The plan of tensor parallelism is kept as ``model.tp_plan``
+    ({linear's name: "column" | "row"}; empty where ``model`` is 1)."""
     if mesh is None:
         return None
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
-    from torch.distributed.tensor.parallel import parallelize_module
 
-    from ..ops.quant import QuantLinear, QuantLinear4
-
-    if any(isinstance(m, (QuantLinear, QuantLinear4)) for m in model.modules()):
-        raise NotImplementedError(
-            "a quantized model is not sharded yet (ROADMAP queue 1, item 3: quantized and "
-            "LoRA models under a mesh)")
     for module in [model, *towers]:
         for p in module.parameters():
             if not p.is_contiguous():       # FSDP2 shards contiguous storage only
                 p.data = p.data.contiguous()
     sizes = axis_sizes(mesh)
-    if sizes["model"] > 1:
-        plan = _tp_plan(model, sizes)
-        if plan:
-            parallelize_module(model, mesh["model"], plan)
+    plan = _tp_plan(model, sizes) if sizes["model"] > 1 else {}
+    if plan:
+        _apply_tp(model, plan, mesh)
+    model.tp_plan = plan
     dp_mesh = mesh["data", "fsdp"]
     units = [fully_shard(m, mesh=dp_mesh) for m in fsdp_units(model, towers)]
     for unit in units:

@@ -25,10 +25,20 @@ transposed kernel, ``[out, in]``, named after the same path
 The default init draws ``a`` from a ``torch.Generator``; the JAX package
 draws it with ``jax.random``, which the port cannot reproduce, so the two
 default inits differ. Given the same adapters the two packages agree.
+
+On a (data, fsdp, model) mesh (``parallel/``), the base laid out by
+``shard_model``, ``distribute_adapters`` makes each factor a DTensor laid
+out like its linear's weight: replicated over data and fsdp; over model, B's
+N columns split where the linear is column-parallel and A's K rows where it
+is row-parallel (``lora_layout``), the other factor whole. Every rank draws
+the same whole adapters from the seed first. The merged forward reads the
+weight FSDP2 gathered for the layer (a DTensor over model under tensor
+parallelism) and adds the rank's part of the delta; ``lora_state_dict`` and
+``merge_lora`` work on whole tensors (every rank takes part).
 """
 
 import contextlib
-from typing import Callable, Dict, Iterator, Mapping, Sequence
+from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -83,13 +93,30 @@ def init_lora_params(model: nn.Module, rank: int, generator: torch.Generator,
     return adapters
 
 
+def _part(t: torch.Tensor) -> torch.Tensor:
+    """A factor's local part (differentiable), or the factor itself."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (every rank takes part), or the tensor."""
+    return t.full_tensor() if hasattr(t, "placements") else t
+
+
 def merged_weight(w: torch.Tensor, adapter: Mapping[str, torch.Tensor], alpha: float,
                   rank: int) -> torch.Tensor:
     """``w + delta^T`` for an ``nn.Linear`` weight ``w`` [out, in]: the
     kernel's update ``delta = (a @ b) * alpha / rank`` in the adapters'
-    dtype, cast to ``w``'s dtype before the sum."""
-    delta = (adapter["a"] @ adapter["b"]) * (alpha / rank)
-    return w + delta.to(device=w.device, dtype=w.dtype).t()
+    dtype, cast to ``w``'s dtype before the sum. A tensor-parallel ``w`` (a
+    DTensor over the model axis, as FSDP2 gathers it for the forward) takes
+    the delta of the adapters' local parts, laid out as ``w`` is."""
+    delta = (_part(adapter["a"]) @ _part(adapter["b"])) * (alpha / rank)
+    delta = delta.to(device=w.device, dtype=w.dtype).t()
+    if hasattr(w, "placements"):
+        from torch.distributed.tensor import DTensor
+
+        delta = DTensor.from_local(delta, w.device_mesh, w.placements, run_check=False)
+    return w + delta
 
 
 def apply_lora(params: Mapping[str, torch.Tensor], adapters: Adapters, alpha: float,
@@ -105,21 +132,33 @@ def apply_lora(params: Mapping[str, torch.Tensor], adapters: Adapters, alpha: fl
 
 @torch.no_grad()
 def merge_lora(model: nn.Module, adapters: Adapters, alpha: float, rank: int) -> nn.Module:
-    """Fold the adapters into the model's weights, in place (the export)."""
+    """Fold the adapters into the model's weights, in place (the export).
+    On a sharded model (``shard_model``) each weight is gathered whole,
+    merged with the whole adapters, and each rank keeps its shard of the
+    result; every rank takes part."""
     linears = _linears(model)
     for key, adapter in adapters.items():
         w = linears[key].weight
-        w.copy_(merged_weight(w, adapter, alpha, rank))
+        whole = {part: _whole(t) for part, t in adapter.items()}
+        if not hasattr(w, "placements"):
+            w.copy_(merged_weight(w, whole, alpha, rank))
+            continue
+        from torch.distributed.tensor import distribute_tensor
+
+        merged = merged_weight(w.full_tensor(), whole, alpha, rank)
+        shard = distribute_tensor(merged, w.device_mesh, w.placements, src_data_rank=None)
+        w.to_local().copy_(shard.to_local())
     return model
 
 
 def lora_state_dict(adapters: Adapters) -> Dict[str, torch.Tensor]:
     """Flat ``{<kernel key>.lora_a: [in, r], <kernel key>.lora_b: [r, out]}``
-    of contiguous CPU tensors, the JAX package's file layout."""
+    of whole, contiguous CPU tensors, the JAX package's file layout (from
+    DTensor adapters every rank takes part)."""
     out = {}
     for key, adapter in adapters.items():
-        out[f"{key}.lora_a"] = adapter["a"].detach().cpu().contiguous()
-        out[f"{key}.lora_b"] = adapter["b"].detach().cpu().contiguous()
+        out[f"{key}.lora_a"] = _whole(adapter["a"].detach()).cpu().contiguous()
+        out[f"{key}.lora_b"] = _whole(adapter["b"].detach()).cpu().contiguous()
     return out
 
 
@@ -135,6 +174,44 @@ def lora_from_state_dict(sd: Mapping, device=None) -> Adapters:
     return adapters
 
 
+def lora_layout(model: nn.Module) -> Dict[str, Optional[str]]:
+    """{kernel key: "column" | "row" | None} of every ``nn.Linear``: how
+    ``shard_model`` split it over the model axis (``model.tp_plan``)."""
+    plan = getattr(model, "tp_plan", None) or {}
+    return {kernel_key(name): plan.get(name) for name, m in model.named_modules()
+            if isinstance(m, nn.Linear)}
+
+
+# the factor a parallel linear splits over the model axis, and its dim
+_SPLIT = {"column": ("b", 1), "row": ("a", 0)}
+
+
+def model_partial(kind: Optional[str], part: str) -> bool:
+    """Whether factor ``part`` of an adapter on a linear split ``kind`` over
+    the model axis is whole on every rank while each rank's gradient of it
+    is a partial sum (A of a column-parallel linear, B of a row-parallel
+    one): the gradient is summed over the model axis."""
+    return kind is not None and _SPLIT[kind][0] != part
+
+
+def distribute_adapters(adapters: Adapters, model: nn.Module, mesh) -> Adapters:
+    """Whole adapters, the same on every rank, as DTensors on ``mesh`` laid
+    out like their linears' weights (``lora_layout``; the module
+    docstring): each rank keeps its slice, with no communication."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    layout = lora_layout(model)
+    out: Adapters = {}
+    for key, adapter in adapters.items():
+        split = _SPLIT.get(layout.get(key))
+        out[key] = {}
+        for part, t in adapter.items():
+            placements = [Shard(split[1]) if axis == "model" and split and split[0] == part
+                          else Replicate() for axis in mesh.mesh_dim_names]
+            out[key][part] = distribute_tensor(t.detach(), mesh, placements, src_data_rank=None)
+    return out
+
+
 def flat_adapters(adapters: Adapters) -> Dict[str, torch.Tensor]:
     """{``<kernel key>/a``: a, ``<kernel key>/b``: b}: the adapter tree's
     leaves under the paths the JAX package's optimizer labels them by."""
@@ -148,7 +225,10 @@ def lora_merged(model: nn.Module, adapters: Adapters, alpha: float, rank: int) -
     ``F.linear(x, W + delta^T, bias)``, its merged weight built inside its
     own forward (so autograd reaches the adapters, and remat recomputes the
     merged weight instead of keeping it). Run the backward inside the block
-    too: remat's recomputation calls the same forwards."""
+    too: remat's recomputation calls the same forwards. On a sharded model
+    ``W`` is read when the forward runs: the weight FSDP2 gathered for the
+    layer, and under tensor parallelism the rank's DTensor shard, which the
+    layout's hooks around the forward feed and read."""
     linears = _linears(model)
     missing = sorted(set(adapters) - set(linears))
     if missing:

@@ -17,6 +17,10 @@ absorbing the rest by default):
     torchrun --nproc_per_node 8 -m cambrian_tpu_torch.train.train ... \
         --mesh_fsdp 4 --mesh_model 2
 
+``--lora_enable True`` trains LoRA adapters there too: the frozen base
+sharded as above, the adapters split like their projections; the adapters'
+file and the merged export are written once, by rank 0.
+
 The model trains on ``--device`` (default ``cuda``: ``cuda:LOCAL_RANK``
 under ``torchrun``). Weights come from an HF
 checkpoint directory (a Cambrian checkpoint, or a plain LLaMA one with a

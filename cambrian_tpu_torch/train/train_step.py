@@ -10,7 +10,11 @@ gradient accumulation (``optax.MultiSteps`` semantics, train/optimizer.py).
 
 ``make_lora_train_step`` trains LoRA adapters (train/lora.py) instead: the
 base model is frozen and merged with the adapters inside the loss, the tower
-features are detached, and only the adapters get gradients.
+features are detached, and only the adapters get gradients. Under a mesh
+the adapters are DTensors (``lora.distribute_adapters``): each rank's
+gradient of its part is summed over (data, fsdp), and also over model where
+every model rank holds the whole factor but computes with its slice of the
+linear (``lora.model_partial``); the loss is normalised as below.
 
 Under a (data, fsdp, model) mesh (``parallel/``), the model and towers laid
 out by ``parallel.sharding.shard_model``, each rank steps on its rows of the
@@ -31,9 +35,17 @@ from torch import nn
 
 from ..models.cambrian import CambrianLM, valid_token_count
 from ..parallel.distributed import dp_all_reduce
+from ..parallel.mesh import axis_sizes
 from ..parallel.sharding import batch_sharding, spec_of
-from .lora import Adapters, flat_adapters, lora_merged
-from .optimizer import GroupedAdamW, TrainConfig, build_optimizer, global_norm, label_params
+from .lora import Adapters, flat_adapters, lora_layout, lora_merged, model_partial
+from .optimizer import (
+    GroupedAdamW,
+    TrainConfig,
+    build_optimizer,
+    global_norm,
+    label_params,
+    local,
+)
 
 
 @dataclass
@@ -154,17 +166,27 @@ def init_lora_train_state(adapters: Adapters, config: TrainConfig,
 
 
 def make_lora_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]],
-                         adapters: Adapters, alpha: float, rank: int):
+                         adapters: Adapters, alpha: float, rank: int, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` over the adapters
     of ``state`` (``init_lora_train_state``), as ``make_train_step`` does.
     The base model and the towers are frozen (no parameter of theirs
     requires grad); each targeted linear merges its weight with its adapters
     inside its forward (``lora_merged``), so under remat the merged weights
-    stay transient. ``grad_norm`` is over every adapter's gradient."""
+    stay transient. ``grad_norm`` is over every adapter's gradient. Under
+    ``mesh`` (the model sharded on it, the adapters distributed) the batch
+    is the rank's rows, as in ``make_train_step``."""
+    import torch.distributed as dist
+
     model.requires_grad_(False)
     for t in towers or ():
         t.requires_grad_(False)
     leaves = flat_adapters(adapters)
+    layout = lora_layout(model)
+    # the leaves whose gradients are partial sums over the model axis
+    partial = {f"{key}/{part}" for key in adapters for part in ("a", "b")
+               if model_partial(layout.get(key), part)}
+    model_group = (mesh.get_group("model") if mesh is not None
+                   and axis_sizes(mesh)["model"] > 1 else None)
 
     def step(state: TrainState, batch: Mapping):
         names = list(state.optimizer.params) + list(state.optimizer.norm_only)
@@ -174,11 +196,17 @@ def make_lora_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]
                 feats = [t(px) for t, px in zip(towers, batch["images"])]
         # the backward too runs merged: remat recomputes each layer's forward
         with lora_merged(model, adapters, alpha, rank):
-            loss = _supervised_loss(model, batch, feats)
+            loss = _supervised_loss(model, batch, feats, mesh)
             grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
+        if mesh is not None:
+            for name, g in grads.items():
+                dp_all_reduce(local(g), mesh)
+                if model_group is not None and name in partial:
+                    dist.all_reduce(local(g), group=model_group)
         grad_norm = global_norm(grads.values())
         state.optimizer.step(grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
+        loss = dp_all_reduce(loss.detach(), mesh)
+        return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
 
     return step

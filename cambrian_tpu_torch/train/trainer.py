@@ -28,8 +28,11 @@ lays the model and towers out on it (``parallel.sharding.shard_model``),
 steps on ``per_device_train_batch_size`` x (data x fsdp) samples at a time,
 each rank on its rows (``put_global_batch``), and logs and exports from the
 main process. Without a process group every axis must resolve to one
-device, and the unsharded path runs. LoRA and quantized models under a
-mesh of more than one rank are not ported yet (ROADMAP queue 1, item 3).
+device, and the unsharded path runs. LoRA runs on the mesh too: the frozen
+base laid out as above, the adapters and their optimizer state laid out
+like their linears' weights (``lora.distribute_adapters``), saved in the
+checkpoints as DTensors (so they restore under another mesh), and the
+adapters' file written once, by the main process, from whole tensors.
 """
 
 import concurrent.futures
@@ -55,6 +58,7 @@ from ..parallel.distributed import dp_coordinate, is_main_process, put_global_ba
 from ..parallel.mesh import MeshConfig, create_mesh
 from ..parallel.sharding import shard_model
 from .lora import (
+    distribute_adapters,
     flat_adapters,
     init_lora_params,
     lora_from_state_dict,
@@ -177,12 +181,7 @@ class CambrianTrainer:
         mesh_config = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model)
         self.mesh = None
         if dist.is_initialized():
-            if args.lora_enable and dist.get_world_size() > 1:
-                raise NotImplementedError(
-                    "LoRA under a mesh of more than one rank is not ported yet (ROADMAP "
-                    "queue 1, item 3: quantized and LoRA models under a mesh)")
-            if not args.lora_enable:
-                self.mesh = create_mesh(mesh_config, self.device.type)
+            self.mesh = create_mesh(mesh_config, self.device.type)
         else:
             mesh_config.resolve(1)          # one process: every axis must be 1
         self.dp_size = dp_coordinate(self.mesh)[1]
@@ -212,8 +211,10 @@ class CambrianTrainer:
         if self.adapters is not None:
             # LoRA trains the adapters alone (the frozen ones too, which no
             # optimizer holds); the base comes from the model's checkpoint,
-            # as the JAX package's LoRA state holds the adapters alone
+            # as the JAX package's LoRA state holds the adapters alone; alpha
+            # for consolidate's merge
             ckpt["lora"] = {k: t.detach() for k, t in flat_adapters(self.adapters).items()}
+            ckpt["lora_alpha"] = self.args.lora_alpha
         else:
             named = named_parameters(self.model, self.towers, self.args.unfreeze_mm_vision_tower)
             ckpt["model"] = {n: p.detach() for n, p in named.items()}
@@ -306,16 +307,24 @@ class CambrianTrainer:
         own batches (each rank's rows, ``put_global_batch``) may too."""
         args, accum = self.args, max(1, accumulate)
         if args.lora_enable:
-            # the adapters train; the base stays in its dtype, frozen
+            # the adapters train; the base stays in its dtype, frozen (and
+            # sharded on the mesh, as serving shards it)
+            if self.mesh is not None:
+                for module in [self.model, *self.towers]:
+                    module.requires_grad_(False)
+                shard_model(self.model, self.towers, self.mesh)
             if args.lora_weight_path:
                 self.adapters = lora_from_state_dict(
                     safetensors_io.load_file(args.lora_weight_path), self.device)
             else:
+                # the same draw on every rank
                 g = torch.Generator(device=self.device).manual_seed(args.seed)
                 self.adapters = init_lora_params(self.model, args.lora_r, g)
+            if self.mesh is not None:
+                self.adapters = distribute_adapters(self.adapters, self.model, self.mesh)
             state = init_lora_train_state(self.adapters, args, accumulate=accum)
             step_fn = make_lora_train_step(self.model, self.towers, self.adapters,
-                                           args.lora_alpha, args.lora_r)
+                                           args.lora_alpha, args.lora_r, mesh=self.mesh)
         else:
             if args.bf16:
                 # frozen groups never update: store them in bf16 (norms exempt)
@@ -433,10 +442,15 @@ class CambrianTrainer:
 
         self._save_checkpoint(state, total_steps)
         if self.adapters is not None:
-            # the adapters' file, and the merged weights for save_model
-            os.makedirs(args.output_dir, exist_ok=True)
-            safetensors_io.save_file(lora_state_dict(self.adapters),
-                                     os.path.join(args.output_dir, "lora_adapters.safetensors"))
+            # the adapters' file (whole tensors, gathered by every rank and
+            # written by the main process), and the merged weights for
+            # save_model
+            whole = lora_state_dict(self.adapters)
+            if is_main_process():
+                os.makedirs(args.output_dir, exist_ok=True)
+                safetensors_io.save_file(
+                    whole, os.path.join(args.output_dir, "lora_adapters.safetensors"))
+            self._barrier()
             merge_lora(self.model, self.adapters, args.lora_alpha, args.lora_r)
         self._final_state = state
         return history

@@ -315,7 +315,25 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    unchanged, step ms and peak memory beside phase 9's; (c) Cambrian-8B
    bf16 built anew as phase 5 builds it and served through
    ``GenerationEngine(mesh=...)``: phase 5's three requests, K1 exactly 122
-   times each, phase 5's tokens. The group is destroyed at the end.
+   times each, phase 5's tokens; (d) Cambrian-8B int8 and int4, quantized on
+   the card as phase 6 builds them, served through
+   ``GenerationEngine(mesh=...)`` (the int8 tensors plain buffers beside
+   FSDP2's parameters): phase 6's requests, and the int4 one under
+   ``CAMBRIAN_INT4_V2=1``, each token equal to phase 6's in the same run,
+   K3/K4/K4b launches by counter and by route (224 a forward), peak memory
+   and decode tokens/s beside phase 6's; (e) Cambrian-8B LoRA as phase 16
+   runs it, through ``CambrianTrainer.train()`` on the mesh for 2 steps
+   (154 K1 and 32 K2 launches a micro-batch, the first loss within bf16
+   rounding of phase 16's, the adapters DTensors, their checkpoint and
+   file written), then a trainer over a base built anew from the seed
+   resumes from the checkpoint and takes step 3 (the optimizer's count 3);
+   (f) K3, K4 and K4b/K4c alone at the local shapes a rank of 8B gives them
+   at model = 2 and 4 (``SHARD_SHAPES``: N of q/k/v/gate/up, K of o/down
+   split), bf16 at M = 1 and at the prefill's rows, each call behind the
+   spin kernel against its plain version (phase 3's tolerances) and
+   ``torch.matmul`` on the dequantized shard, with its bound and its route
+   by counter: the only way one card runs the shapes tensor parallelism
+   gives the kernels. The group is destroyed at the end.
 
 Phases 9, 15, 16 and 18 write their training checkpoints (DCP: every
 parameter, or the LoRA adapters, with the optimizer state) under
@@ -825,12 +843,15 @@ def kernel_phase(torch, fa, prompt):
 
 
 def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tuple(QUANT_KERNELS),
-                       dtypes=None, label="8B", slots=None):
+                       dtypes=None, label="8B", slots=None, functions=True):
     """K3, K4 and K4b/K4c (``names``) against their plain versions at the
     decoder's projection shapes (the 8B decoder's by default), bf16 and fp32
     (``dtypes``); with ``slots``, also bf16 at M = ``slots`` (the
     continuous-batching decode, on ``gemv_m8_kernel``) and at the further
-    rows of GEMV_M8_EXTRA; returns per-case records."""
+    rows of GEMV_M8_EXTRA; returns per-case records. The bf16 prefill and
+    decode calls' kernel functions are checked by one profiled run
+    (``quant_function_check``), or with ``functions`` False by counter
+    alone (``quant_route_check``)."""
     dtypes = dtypes or (torch.bfloat16, torch.float32)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # plain fp32 products in fp32
@@ -960,14 +981,15 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
             profiled_cases.append((name, site, x, cases[name][2], cases[name][3], rec))
         del w, prefill
     del l2
-    quant_function_check(torch, quant, profiled_cases)
+    (quant_function_check if functions else quant_route_check)(torch, quant, profiled_cases)
     del profiled_cases
     for name in (n for n in GEMV_M1_KERNELS if n in names):
         recs = [r for r in records if r["kernel"] == name and r["m"] == 1
                 and r["gemv_kernel_ms"] is not None]
         step = {key: LAYERS * sum(r[key] for r in recs)
                 for key in ("ms", "gemv_kernel_ms", "library_ms", "bound_ms")}
-        print(f"gemv M=1 {name}: a {label} decode step (7 shapes x {LAYERS} layers) gemv_m1_kernel "
+        print(f"gemv M=1 {name}: a {label} decode step ({len(shapes)} shapes x {LAYERS} layers) "
+              f"gemv_m1_kernel "
               f"{step['ms']:.3f} ms, gemv_kernel {step['gemv_kernel_ms']:.3f} ms, matmul "
               f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
               f"({step['bound_ms'] / step['ms']:.1%} of bound)", flush=True)
@@ -975,7 +997,8 @@ def quant_kernel_phase(torch, quant, prompt_len, shapes=QUANT_SHAPES, names=tupl
             recs = [r for r in records if r["kernel"] == name and r["m"] == slots]
             step = {key: LAYERS * sum(r[key] for r in recs)
                     for key in ("ms", "gemv_kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-            print(f"gemv M={slots} {name}: a {label} continuous-batching decode step (7 shapes x "
+            print(f"gemv M={slots} {name}: a {label} continuous-batching decode step "
+                  f"({len(shapes)} shapes x "
                   f"{LAYERS} layers) gemv_m8_kernel {step['ms']:.3f} ms, gemv_kernel "
                   f"{step['gemv_kernel_ms']:.3f} ms, matmul {step['library_ms']:.3f} ms, plain "
                   f"{step['plain_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
@@ -3994,6 +4017,21 @@ def gemma_train_phase(torch, fa, quant, k2_record):
     return train_stage1_phase(torch, fa, quant, k2_record, cfg, "Gemma-7B", GEMMA_LAYERS)
 
 
+def lora_arguments(out_dir, **kw):
+    """``scripts/cambrian/finetune_cambrian_8b.sh``'s flags with
+    ``lora_enable`` (r 16, alpha 32, the seven default targets) at phase
+    9's batch; ``kw`` overrides."""
+    from cambrian_tpu_torch.train.trainer import TrainingArguments
+
+    return TrainingArguments(**{**dict(
+        output_dir=out_dir, lora_enable=True, lora_r=16, lora_alpha=32,
+        tune_mm_mlp_adapter=False, bf16=True, num_train_epochs=1,
+        per_device_train_batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
+        adam_mu_dtype="bfloat16", learning_rate=4e-5, mm_vision_sampler_lr=1e-5,
+        warmup_ratio=0.03, lr_scheduler_type="cosine", logging_steps=1, save_steps=500,
+        save_total_limit=1, group_by_modality_length=True, seed=SEED, device="cuda"), **kw})
+
+
 def lora_train_phase(torch, fa, quant):
     """Phase 16: Cambrian-8B LoRA at full width and depth through
     ``CambrianTrainer.train()``: ``scripts/cambrian/finetune_cambrian_8b.sh``'s
@@ -4008,7 +4046,7 @@ def lora_train_phase(torch, fa, quant):
     from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
     from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
     from cambrian_tpu_torch.train import lora
-    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4017,13 +4055,7 @@ def lora_train_phase(torch, fa, quant):
     shutil.rmtree(out_dir, ignore_errors=True)
 
     def arguments(**kw):
-        return TrainingArguments(**{**dict(
-            output_dir=out_dir, lora_enable=True, lora_r=16, lora_alpha=32,
-            tune_mm_mlp_adapter=False, bf16=True, num_train_epochs=1,
-            per_device_train_batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
-            adam_mu_dtype="bfloat16", learning_rate=4e-5, mm_vision_sampler_lr=1e-5,
-            warmup_ratio=0.03, lr_scheduler_type="cosine", logging_steps=1, save_steps=500,
-            save_total_limit=1, group_by_modality_length=True, seed=SEED, device="cuda"), **kw})
+        return lora_arguments(out_dir, **kw)
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -4581,11 +4613,244 @@ def sharded_serve_phase(torch, fa, quant, prompts, mesh, phase5):
     return dict(requests=requests, launches=launches, peak_bytes=peak)
 
 
-def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record):
+def sharded_quant_phase(torch, fa, quant, prompts, mesh, phase6):
+    """Phase 18 (d): Cambrian-8B int8 and int4, quantized on the card as
+    phase 6 builds them, served through ``GenerationEngine(mesh=...)`` on
+    the (1,1,1) mesh: phase 6's requests (0 and 1 through ``generate``, 0
+    through ``generate_stream``; int4 also request 1 under
+    ``CAMBRIAN_INT4_V2=1``), each token equal to phase 6's, K3/K4/K4b
+    launches by counter and by route, peak memory and decode tokens/s beside
+    phase 6's."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.infer.engine import GenerationEngine
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+
+    dev = torch.device("cuda")
+    out = {}
+    for q in ("int8", "int4"):
+        cfg = cambrian_8b().replace(quantize=q)
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sd = random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+        model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+        del sd
+        model.engine = GenerationEngine(model.lm, model.towers, model.engine.max_len,
+                                        model.engine.cache_dtype, mesh=mesh)
+        # the int8 tensors stay buffers (FSDP2 shards the floating parameters)
+        proj = model.lm.layers_0.mlp.down_proj
+        weight = getattr(proj, proj._WEIGHT)
+        check(not hasattr(weight, "placements") and weight.dtype == torch.int8
+              and hasattr(model.lm.layers_0.input_layernorm.weight, "placements"),
+              f"phase 18 (d) {q}: the int8 weights are not plain buffers beside FSDP2's "
+              f"parameters")
+        counters = all_counters(fa, quant)
+        fns = {name: getattr(quant, name) for name in QUANT_KERNELS}
+        for fn in fns.values():
+            fn.function_launches.clear()
+        zero_counts(counters)                # the sharded quantized path's count starts here
+        kernel = f"{q}_matmul"
+        requests = []
+        for r, stream in ((0, False), (1, False), (0, True)):
+            rec = serve_request(torch, model, counters, cfg, r, prompts[r], stream=stream)
+            want = QUANT_PER_STEP * (1 + rec["decode_steps"]) if stream else QUANT_LAUNCHES
+            check(rec["launches"][kernel] == want,
+                  f"phase 18 (d) {q}: {kernel} launched {rec['launches'][kernel]}x, not {want}x")
+            requests.append(rec)
+        if q == "int4":
+            os.environ["CAMBRIAN_INT4_V2"] = "1"
+            try:
+                rec = serve_request(torch, model, counters, cfg, 1, prompts[1])
+            finally:
+                del os.environ["CAMBRIAN_INT4_V2"]
+            got = (rec["launches"]["int4_matmul_scale_on_weights"], rec["launches"]["int4_matmul"])
+            check(got == (QUANT_LAUNCHES, 0),
+                  f"phase 18 (d) int4 scale-on-weights: launches {got}, not ({QUANT_LAUNCHES}, 0)")
+            rec["scale_on_weights"] = True
+            requests.append(rec)
+        launches = read_counts(counters)
+        routes = {name: dict(fn.function_launches) for name, fn in fns.items()
+                  if fn.function_launches}
+        peak = torch.cuda.max_memory_allocated()
+        ref = phase6[q]
+        for rec in requests:
+            match = next(x for x in ref["requests"] if x["request"] == rec["request"]
+                         and x["stream"] == rec["stream"]
+                         and x.get("scale_on_weights") == rec.get("scale_on_weights"))
+            label = (f"{q} {'stream ' if rec['stream'] else ''}"
+                     f"{'scale-on-weights ' if rec.get('scale_on_weights') else ''}"
+                     f"request {rec['request']}")
+            same = sum(a == b for a, b in zip(rec["tokens"], match["tokens"]))
+            print(f"phase 18 (d) {label}: {same}/{len(match['tokens'])} tokens equal phase 6's; "
+                  f"prefill {rec['prefill_ms']:.1f} ms (phase 6 {match['prefill_ms']:.1f}), "
+                  f"decode {rec['decode_tokens_per_s']:.2f} tok/s (phase 6 "
+                  f"{match['decode_tokens_per_s']:.2f})", flush=True)
+            check(rec["tokens"] == match["tokens"],
+                  f"phase 18 (d) {label}: tokens differ from phase 6's")
+        # every decode step's calls ran a GEMV (the plan's, else the first
+        # port's), every prefill the GEMM: 224 a forward
+        for name, route in routes.items():
+            steps = sum(r["decode_steps"] + 1 for r in requests
+                        if (name == "int4_matmul_scale_on_weights") == bool(
+                            r.get("scale_on_weights")))
+            decode = route.get("gemv_m1_kernel", 0) + route.get("gemv_kernel", 0)
+            check(route.get("gemm", 0) + decode == QUANT_PER_STEP * steps
+                  and set(route) <= {"gemm", "gemv_m1_kernel", "gemv_kernel"},
+                  f"phase 18 (d) {q}: {name} routes {route}")
+        print(f"phase 18 (d) {q}: routes {routes}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; peak memory allocated "
+              f"{peak / 2**30:.2f} GiB (phase 6 {ref['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+        out[q] = dict(requests=requests, launches=launches, routes=routes, peak_bytes=peak)
+        del model, proj, weight
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_lora_phase(torch, fa, quant, phase16):
+    """Phase 18 (e): Cambrian-8B LoRA on the (1,1,1) mesh through
+    ``CambrianTrainer.train()``: phase 16's flags and samples, 2 optimizer
+    steps (154 K1 and 32 K2 launches a micro-batch by counter), the first
+    loss within bf16 rounding of phase 16's, the adapters' DCP checkpoint
+    and file written; then a trainer over the same base, built anew from
+    the seed, resumes from that checkpoint and takes step 3."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.checkpoint import safetensors_io
+    from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
+    from cambrian_tpu_torch.models.builder import CambrianForInference, random_state_dict
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cambrian_8b()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_lora_sharded")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counters = all_counters(fa, quant)
+    runs = []
+    for steps, resume in ((SHARDED_TRAIN_STEPS, False), (SHARDED_TRAIN_STEPS + 1, True)):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sd = random_state_dict(cfg, g, 0.02, dtype=torch.bfloat16, device=dev)
+        model = CambrianForInference.from_state_dict(cfg, sd, torch.bfloat16)
+        del sd
+        dataset = PretokenizedDataset(cfg, model.towers, TRAIN_STEPS * TRAIN_BATCH,
+                                      np.random.default_rng(SEED))
+        collator = DataCollatorForSupervisedDataset(
+            tokenizer=PretokenizedTokenizer(), image_token_len=cfg.image_token_len,
+            image_aux_token_len_list=list(cfg.mm_vision_tower_aux_token_len_list),
+            image_position=cfg.image_position)
+        trainer = CambrianTrainer(model=model.lm, towers=model.towers,
+                                  args=lora_arguments(out_dir, max_steps=steps,
+                                                      save_total_limit=2,
+                                                      train_continue=resume),
+                                  train_dataset=dataset, data_collator=collator)
+        check(trainer.mesh is not None, "phase 18 (e): the LoRA trainer built no mesh")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)                # the sharded LoRA path's count starts here
+        history = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        micro = len(history) if resume else steps
+        want = {name: 0 for name in counters}
+        want["flash_attention_fwd"] = micro * TRAIN_K1_LAUNCHES
+        want["flash_attention_bwd"] = micro * TRAIN_K2_LAUNCHES
+        label = "resumed" if resume else "trained"
+        check(launches == want, f"phase 18 (e) {label}: launched {launches}, not {want}")
+        check(all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in history),
+              f"phase 18 (e) {label}: a non-finite loss or a zero grad_norm")
+        leaf = next(iter(trainer.adapters.values()))["b"]
+        check(hasattr(leaf, "placements"), f"phase 18 (e) {label}: the adapters are not DTensors")
+        runs.append(dict(history=history, launches=launches,
+                         step_ms=[s * 1e3 for s in trainer.step_seconds],
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         count=trainer._final_state.optimizer.count,
+                         saves=print_saves(f"8B LoRA sharded {label}", trainer)))
+        del model, trainer, dataset, leaf
+        gc.collect()
+        torch.cuda.empty_cache()
+    first, resumed = runs
+    check([h["step"] for h in first["history"]] == list(range(1, SHARDED_TRAIN_STEPS + 1)),
+          f"phase 18 (e): steps {[h['step'] for h in first['history']]}")
+    check([h["step"] for h in resumed["history"]] == [SHARDED_TRAIN_STEPS + 1]
+          and resumed["count"] == SHARDED_TRAIN_STEPS + 1,
+          f"phase 18 (e): the resumed run took steps {[h['step'] for h in resumed['history']]} "
+          f"to the optimizer count {resumed['count']}")
+    saved = safetensors_io.load_file(os.path.join(out_dir, "lora_adapters.safetensors"))
+    loss, ref = first["history"][0]["loss"], phase16["history"][0]["loss"]
+    print(f"phase 18 (e): losses {[round(h['loss'], 6) for h in first['history']]}, then "
+          f"{resumed['history'][0]['loss']:.6f} resumed at step {SHARDED_TRAIN_STEPS + 1}; "
+          f"first {loss:.6f} against phase 16's {ref:.6f}; step wall ms "
+          f"{[round(s, 1) for s in first['step_ms']]} (phase 16 warm "
+          f"{phase16['warm_step_ms']:.1f}); peak memory {first['peak_bytes'] / 2**30:.2f} GiB "
+          f"(phase 16 {phase16['peak_bytes'] / 2**30:.2f}); {len(saved)} tensors in the "
+          f"adapters' file", flush=True)
+    check(abs(loss - ref) <= 2 ** -7 * abs(ref),
+          f"phase 18 (e): the first loss {loss} is not within bf16 rounding of {ref}")
+    check(len(saved) == phase16["file_tensors"],
+          f"phase 18 (e): {len(saved)} tensors in the adapters' file, not "
+          f"{phase16['file_tensors']}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(first=first, resumed=resumed, launches={
+        k: first["launches"][k] + resumed["launches"][k] for k in first["launches"]})
+
+
+# phase 18 (f): the 8B decoder projections' local shapes on a rank of model =
+# 2 and 4 (column-parallel: N split; row-parallel: K split): (site, K, N,
+# calls a forward)
+SHARD_SHAPES = {tp: [("k_v_proj", 4096, 1024 // tp, 2), ("q_proj", 4096, 4096 // tp, 1),
+                     ("gate_up_proj", 4096, 14336 // tp, 2), ("o_proj", 4096 // tp, 4096, 1),
+                     ("down_proj", 14336 // tp, 4096, 1)] for tp in (2, 4)}
+
+
+def quant_route_check(torch, quant, cases, calls=3):
+    """By launch counter: ``calls`` calls of each case of K3, K4 and K4b
+    (name, site, x, weights, scales, record) run the route its plan gives:
+    at M = 1 gemv_m1_kernel, or the first port's gemv_kernel where
+    ``_gemv_plan`` has none; above M = 8 the GEMM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, site, x, wq, sc, rec in cases:
+        fn = getattr(quant, name)
+        mode = list(QUANT_KERNELS).index(name)
+        m = x.shape[0]
+        plan = quant._gemv_plan(mode, x.dtype, m, rec["n"], rec["k"],
+                                1 if mode == 0 else rec["k"] // sc.shape[0], x.data_ptr(),
+                                wq.data_ptr(), sms, sc.data_ptr()) if m == 1 else None
+        want = quant._route_function(plan, m)
+        fn.function_launches.clear()
+        for _ in range(calls):
+            fn(x, wq, sc)
+        check(fn.function_launches == {want: calls}, f"{name} {site} M={m}: the wrapper "
+              f"launched {fn.function_launches}, not {calls} x {want}")
+        rec["function"] = want
+        print(f"kernel {name:29s} {site:12s} M={m:<4d} K={rec['k']:<5d} N={rec['n']:<5d} ran "
+              f"{want}", flush=True)
+
+
+def shard_kernel_phase(torch, quant, prompt_len):
+    """Phase 18 (f): K3, K4 and K4b/K4c alone at the local shapes a rank
+    gives them under tensor parallelism of Cambrian-8B at model = 2 and 4
+    (``SHARD_SHAPES``), bf16, at M = 1 and at the prefill's rows: each call
+    timed alone behind the spin kernel (the L2 flushed), against its plain
+    version (the tolerances of phase 3) and ``torch.matmul`` on the
+    dequantized shard, with its bound; the route of each by counter."""
+    out = {}
+    for tp, shapes in SHARD_SHAPES.items():
+        records = quant_kernel_phase(torch, quant, prompt_len, shapes=[s[:3] for s in shapes],
+                                     dtypes=(torch.bfloat16,), label=f"8B model={tp} rank",
+                                     functions=False)
+        calls = {site: n for site, _, _, n in shapes}
+        for rec in records:
+            rec["tp"], rec["calls"] = tp, calls[rec["site"]]
+        out[tp] = records
+    return out
+
+
+def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record, phase6, phase16):
     """Phase 18: the sharded path on the one card, world size 1 over NCCL,
     the (1,1,1) mesh: (a) the tiny sharded trainer, its checkpoint,
     consolidate and the sharded engine; (b) Cambrian-8B stage 1 through
-    ``CambrianTrainer.train()`` on the mesh; (c) Cambrian-8B served sharded.
+    ``CambrianTrainer.train()`` on the mesh; (c) Cambrian-8B served sharded;
+    (d) Cambrian-8B int8 and int4 served sharded (phase 6's tokens); (e)
+    Cambrian-8B LoRA through ``CambrianTrainer.train()`` on the mesh, and
+    resumed; (f) K3/K4/K4b alone at the local shapes of model = 2 and 4.
     Runs after every other phase; the process group is destroyed at its
     end."""
     import torch.distributed as dist
@@ -4615,9 +4880,54 @@ def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record):
         t0 = time.perf_counter()
         serve = sharded_serve_phase(torch, fa, quant, prompts, mesh, phase5)
         print(f"phase 18 (c): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        quantized = sharded_quant_phase(torch, fa, quant, prompts, mesh, phase6)
+        print(f"phase 18 (d): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        lora = sharded_lora_phase(torch, fa, quant, phase16)
+        print(f"phase 18 (e): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        shards = shard_kernel_phase(torch, quant, len(prompts[0]["mask"]))
+        print(f"phase 18 (f): {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
-    return dict(tiny=tiny, train=train, serve=serve)
+    return dict(tiny=tiny, train=train, serve=serve, quantized=quantized, lora=lora,
+                shards=shards)
+
+
+def shard_rows(quant_launches, shards, prompt_len):
+    """Summary rows of K3, K4 and K4b at a rank's local shapes under tensor
+    parallelism (phase 18 (f)): for model = 2 and 4, one 8B request's worth
+    on a rank (each projection at the prefill's rows once and at M = 1 for
+    the other 31 tokens, 32 layers); launches of the sharded serving path,
+    phase 18 (d)."""
+    rows = []
+    calls = {prompt_len: 1, 1: NEW_TOKENS - 1}
+    for tp, records in shards.items():
+        for name, (replaces, _) in QUANT_KERNELS.items():
+            recs = [r for r in records if r["kernel"] == name]
+            per = {key: sum(LAYERS * r["calls"] * calls[r["m"]] * r[key] for r in recs)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+            rows.append({
+                "name": f"{name}_tp{tp}",
+                "route": "cuda",
+                "source": "cambrian_tpu_torch/csrc/quant_matmul.cu",
+                "replaces": replaces,
+                "launches": quant_launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                "ms": per["ms"],
+                "plain_ms": per["plain_ms"],
+                "bound_ms": per["bound_ms"],
+                "bound_by": "bytes" if per["bytes_ms"] >= per["ops_ms"] else "operations",
+                "library_ms": per["library_ms"],
+            })
+            r = rows[-1]
+            print(f"{r['name']}: a request on a rank of model = {tp}: kernel {r['ms']:.1f} ms, "
+                  f"plain {r['plain_ms']:.1f} ms, matmul {r['library_ms']:.1f} ms, bound "
+                  f"{r['bound_ms']:.2f} ms ({r['bound_by']}); launches on the sharded path "
+                  f"{r['launches']}", flush=True)
+            check(r["launches"] > 0, f"{name}: no launch on the sharded quantized path")
+    return rows
 
 
 def main(argv=None):
@@ -4903,7 +5213,8 @@ def main(argv=None):
     lora_train = lora_train_phase(torch, fa, quant)
     print(f"phase 16 (Cambrian-8B LoRA): {time.perf_counter() - t16:.1f} s", flush=True)
     t18 = time.perf_counter()
-    sharded = sharded_phase(torch, fa, quant, prompts, full["bf16"]["requests"], train, k2)
+    sharded = sharded_phase(torch, fa, quant, prompts, full["bf16"]["requests"], train, k2,
+                            {q: full[q] for q in ("int8", "int4")}, lora_train)
     print(f"phase 18 (the sharded path, world size 1): {time.perf_counter() - t18:.1f} s",
           flush=True)
 
@@ -4915,6 +5226,7 @@ def main(argv=None):
     paths += [zoo["launches"], zoo["cambrian"]["launches"]] + families["launches"]
     paths += [gemma_train["launches"], lora_train["launches"], full["bf16"]["then"]["launches"]]
     paths += [sharded["train"]["launches"], sharded["serve"]["launches"]]
+    paths += [q["launches"] for q in sharded["quantized"].values()] + [sharded["lora"]["launches"]]
     launches = {name: sum(p[name] for p in paths) for name in all_counters(fa, quant)}
     path = [k for k in kernels if k["per_request"] and k["dtype"] == "bfloat16"]
     # one request's worth of launches at the path's shapes, bf16
@@ -5061,7 +5373,8 @@ def main(argv=None):
         "replaces": "cambrian_tpu/ops/flash_attention.py:140",
         "launches": train["launches"]["flash_attention_bwd"]
         + lora_train["launches"]["flash_attention_bwd"]
-        + sharded["train"]["launches"]["flash_attention_bwd"],
+        + sharded["train"]["launches"]["flash_attention_bwd"]
+        + sharded["lora"]["launches"]["flash_attention_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"] * k2["per_step"],
         "plain_ms": k2["plain_ms"] * k2["per_step"],
@@ -5122,6 +5435,9 @@ def main(argv=None):
               f"{r['ms']:.3f} ms{rate}, plain {r['plain_ms']:.3f} ms, library "
               f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
+    sharded_quant = {name: sum(q["launches"][name] for q in sharded["quantized"].values())
+                     for name in QUANT_KERNELS}
+    rows += shard_rows(sharded_quant, sharded["shards"], prompt_len)
     summary = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as f:

@@ -216,10 +216,11 @@ class _Tokenizer:
     padding_side = "right"
 
 
-def _train_loop(rank, payload):
+def _train_loop(rank, payload, lora=False):
     """``CambrianTrainer.train()`` on the (1,2,2) mesh over pre-tokenized
-    samples: two optimizer steps of a global batch of 4, the final
-    checkpoint and ``save_model`` (gathered, written by rank 0)."""
+    samples: two optimizer steps of a global batch of 4 (of stage 1, or of
+    LoRA), the final checkpoint and ``save_model`` (gathered, written by
+    rank 0)."""
     from cambrian_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
     from cambrian_tpu_torch.data.dataset import DataCollatorForSupervisedDataset
     from cambrian_tpu_torch.models.config import CambrianConfig
@@ -246,8 +247,9 @@ def _train_loop(rank, payload):
         image_aux_token_len_list=list(cfg.mm_vision_tower_aux_token_len_list),
         image_position=cfg.image_position)
     lm, towers = build_model(payload)
-    out_dir = os.path.join(payload["out_dir"], "train_loop")
-    trainer = _trainer(lm, towers, payload, (1, 2, 2), 1, out_dir)
+    out_dir = os.path.join(payload["out_dir"], "lora_train_loop" if lora else "train_loop")
+    trainer = (_lora_trainer(lm, towers, payload, (1, 2, 2), out_dir) if lora
+               else _trainer(lm, towers, payload, (1, 2, 2), 1, out_dir))
     trainer.train_dataset, trainer.data_collator = Dataset(items), collator
     trainer.args.per_device_train_batch_size = 2
     trainer.args.dataloader_num_workers = 1
@@ -276,4 +278,134 @@ def infer_rank(rank, world, payload):
         tokens = engine.generate(ids, mask, pos, feats, aux_masks, gcfg)
         out[name] = dict(tokens=np.asarray(tokens), kv_heads=engine.kv_heads,
                          rows=engine._local_rows(np.asarray(ids).shape[0]))
+    return out
+
+
+def _lora_trainer(lm, towers, payload, dims, out_dir):
+    from cambrian_tpu_torch.train.trainer import CambrianTrainer, TrainingArguments
+
+    args = TrainingArguments(output_dir=out_dir, device="cpu", mesh_data=dims[0],
+                             mesh_fsdp=dims[1], mesh_model=dims[2], bf16=False,
+                             lora_enable=True, lora_r=payload["rank"],
+                             lora_alpha=payload["alpha"], **payload["train_kw"])
+    return CambrianTrainer(lm, towers, args, None, None)
+
+
+def _whole_adapters(adapters):
+    return {f"{k}/{p}": full(t) for k, ad in adapters.items() for p, t in ad.items()}
+
+
+def lora_rank(rank, world, payload):
+    """LoRA on each mesh of the payload: the payload's adapters (whole,
+    from numpy) distributed on the mesh, 3 steps of its global batches;
+    the losses, grad norms, whole adapters, the base unchanged, and each
+    factor's layout. Then the (1,4,1) run's checkpoint restored under
+    ``restore_mesh`` (adapters and optimizer state, against the saved), and
+    the merged model's export and the adapters' file written."""
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
+    from cambrian_tpu_torch.parallel.sharding import spec_of
+    from cambrian_tpu_torch.train import lora
+
+    out = {"runs": {}}
+    saved = None
+    for dims in payload["meshes"]:
+        lm, towers = build_model(payload)
+        base = {n: full(p) for n, p in lm.named_parameters()}
+        out_dir = os.path.join(payload["out_dir"], "x".join(map(str, dims)))
+        trainer = _lora_trainer(lm, towers, payload, dims, out_dir)
+        trainer.args.lora_weight_path = payload["adapters_file"]
+        state, step = trainer.prepare()
+        run = {"loss": [], "grad_norm": []}
+        for batch in payload["batches"]:
+            state, m = step(state, put_global_batch(batch, trainer.mesh, "cpu"))
+            run["loss"].append(float(m["loss"]))
+            run["grad_norm"].append(float(m["grad_norm"]))
+        run["adapters"] = _whole_adapters(trainer.adapters)
+        run["layout"] = {f"{k}/{p}": spec_of(t) for k, ad in trainer.adapters.items()
+                         for p, t in ad.items()}
+        run["base_moved"] = [n for n, p in lm.named_parameters()
+                             if not torch.equal(full(p), base[n])]
+        run["grads_left"] = [n for n, p in lm.named_parameters() if p.grad is not None]
+        out["runs"][dims] = run
+        if dims == payload["save_mesh"]:
+            trainer._save_checkpoint(state, step=len(payload["batches"]))
+            saved = dict(adapters=run["adapters"], optimizer=_optimizer_leaves(state),
+                         micro_step=state.step, out_dir=out_dir, lm=lm, towers=towers,
+                         trainer=trainer)
+    # the checkpoint under another mesh, from other adapters
+    lm, towers = build_model(payload)
+    trainer = _lora_trainer(lm, towers, payload, payload["restore_mesh"], saved["out_dir"])
+    state, _ = trainer.prepare()
+    got_step = trainer._restore_checkpoint(state)
+    adapters = _whole_adapters(trainer.adapters)
+    optimizer = _optimizer_leaves(state)
+    out["restored"] = dict(
+        step=got_step, micro_step=state.step == saved["micro_step"],
+        adapters=[n for n, t in saved["adapters"].items() if not torch.equal(adapters[n], t)],
+        optimizer=[n for n, t in saved["optimizer"].items() if not torch.equal(optimizer[n], t)],
+        n_adapters=len(adapters), n_optimizer=len(optimizer),
+        layout={f"{k}/{p}": spec_of(t) for k, ad in trainer.adapters.items()
+                for p, t in ad.items()})
+    # the end of a run on the saving mesh: the adapters' file and the merge,
+    # then the gathered export
+    first = saved["trainer"]
+    whole = lora.lora_state_dict(first.adapters)
+    if rank == 0:
+        from cambrian_tpu_torch.checkpoint import safetensors_io
+
+        safetensors_io.save_file(whole, os.path.join(saved["out_dir"],
+                                                     "lora_adapters.safetensors"))
+    lora.merge_lora(first.model, first.adapters, payload["alpha"], payload["rank"])
+    export = os.path.join(saved["out_dir"], "hf")
+    first.save_model(export)
+    if rank == 0:       # the export is whole: the test's reader may start
+        open(export + ".done", "w").close()
+    out["train"] = _train_loop(rank, payload, lora=True)
+    return out
+
+
+def quant_rank(rank, world, payload):
+    """Greedy tokens, the first step's logits (the rank's rows) and the
+    layout of ``GenerationEngine(mesh=...)`` over a quantized model, for
+    each case of the payload: (its config and weights, or a checkpoint that
+    ``load_pretrained_model(load_4bit=True)`` reads; the mesh, the prompt,
+    ``CAMBRIAN_INT4_V2``)."""
+    from cambrian_tpu_torch.infer.engine import GenerationConfig, GenerationEngine
+    from cambrian_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from cambrian_tpu_torch.parallel.sharding import spec_of
+
+    from cambrian_tpu_torch.models.builder import load_pretrained_model
+
+    out = {}
+    for name, case in payload["cases"].items():
+        if "checkpoint" in case:
+            _, model, _, _ = load_pretrained_model(case["checkpoint"], load_4bit=True,
+                                                   device="cpu", dtype=torch.float32)
+            lm, towers = model.lm, model.towers
+        else:
+            lm, towers = build_model(case)
+        mesh = create_mesh(MeshConfig(*case["mesh"]), "cpu")
+        engine = GenerationEngine(lm, towers, max_len=64, cache_dtype=torch.float32, mesh=mesh)
+        ids, mask, pos = case["prompt"]
+        if case.get("scale_on_weights"):
+            os.environ["CAMBRIAN_INT4_V2"] = "1"
+        try:
+            tokens = engine.generate(ids, mask, pos, None, None,
+                                     GenerationConfig(max_new_tokens=case["new_tokens"]))
+        finally:
+            os.environ.pop("CAMBRIAN_INT4_V2", None)
+        layer = lm.layers_0
+        mods = {"q_proj": layer.self_attn.q_proj, "o_proj": layer.self_attn.o_proj,
+                "up_proj": layer.mlp.up_proj, "down_proj": layer.mlp.down_proj}
+        tensors = {f"{site}.{leaf}": getattr(mod, leaf) for site, mod in mods.items()
+                   for leaf in (mod._WEIGHT, "scale")}
+        out[name] = dict(
+            tokens=np.asarray(tokens), kv_heads=engine.kv_heads, plan=dict(lm.tp_plan),
+            rows=engine._local_rows(np.asarray(ids).shape[0]),
+            logits=engine.last_next_logits.detach().clone(),
+            # each tensor's rank-local shape under tensor parallelism, and
+            # the axes FSDP2 shards it over
+            local={k: tuple(full(t).shape) for k, t in tensors.items()},
+            fsdp={k: spec_of(t) for k, t in tensors.items()},
+            norm=spec_of(layer.input_layernorm.weight))
     return out
