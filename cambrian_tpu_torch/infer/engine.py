@@ -20,8 +20,13 @@ every row, as ``_fit_spec`` drops the axis), agrees across ranks on when
 every sample has finished, and gathers the tokens, so every rank returns
 the whole result.
 ``generate_stream`` runs every row on every rank, so that the ranks' host
-decisions (chunks, stopping) agree. ``last_next_logits`` holds the rank's
-own rows.
+decisions (chunks, stopping) agree. The embedding and the LM head are
+vocab-parallel there (``models/cambrian.py``): each rank holds V/n of their
+rows, n = model x fsdp, and the prefill and every decode step compute its
+slab's fp32 logits of the fsdp ranks' rows, then send each row's slabs to
+its owner, so that ``last_next_logits`` and the sampling hold the rank's
+own rows over the whole vocab (greedy ties go to the lowest index, as on
+one card).
 """
 
 import functools

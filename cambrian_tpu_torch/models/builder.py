@@ -225,6 +225,36 @@ def random_state_dict(config: CambrianConfig, generator: torch.Generator, std: f
     return sd
 
 
+def initialize_vision_tokenizer(sd: Dict[str, torch.Tensor], tokenizer, config: CambrianConfig,
+                                mm_use_im_start_end: bool = False,
+                                mm_use_im_patch_token: bool = False
+                                ) -> Tuple[Dict[str, torch.Tensor], CambrianConfig]:
+    """Add the image special tokens to ``tokenizer`` (in place) and give
+    each new id a row of ``embed_tokens.weight`` and of ``lm_head.weight``
+    (untied) equal to the mean of the existing rows (reference
+    cambrian_arch.py:611-653). ``sd`` is a state dict of the port's names,
+    with or without the ``lm.`` prefix. Returns (a state dict with the
+    grown tensors, the config with the new ``vocab_size``); nothing changes
+    when no token is new."""
+    from ..constants import DEFAULT_IM_END_TOKEN, DEFAULT_IM_START_TOKEN, DEFAULT_IMAGE_PATCH_TOKEN
+
+    new_tokens = []
+    if mm_use_im_patch_token:
+        new_tokens.append(DEFAULT_IMAGE_PATCH_TOKEN)
+    if mm_use_im_start_end:
+        new_tokens.extend([DEFAULT_IM_START_TOKEN, DEFAULT_IM_END_TOKEN])
+    if not new_tokens:
+        return sd, config
+    num_new = tokenizer.add_tokens(new_tokens, special_tokens=True)
+    if num_new == 0:
+        return sd, config
+    out = dict(sd)
+    for name, t in sd.items():
+        if name.split(".")[-2:] in (["embed_tokens", "weight"], ["lm_head", "weight"]):
+            out[name] = torch.cat([t, t.mean(0, keepdim=True).expand(num_new, -1)], dim=0)
+    return out, config.replace(vocab_size=config.vocab_size + num_new)
+
+
 class CambrianForInference:
     """Config + LM + towers + generation engine."""
 

@@ -24,11 +24,25 @@ Training losses: ``cross_entropy_loss`` on whole logits, and
 ``CambrianLM.supervised_loss`` picks one by ``cfg.loss_chunk``. Both take
 the count of valid tokens to divide by, which a sharded step sets to the
 global batch's (``train/train_step.py``).
+
+On a mesh (``parallel.sharding.shard_model``) the embedding and the head
+are vocab-parallel, as in the JAX package (``model.vocab_layout``, a
+``parallel.distributed.VocabParallel``): each rank holds a slab of V/n
+rows, n = model x fsdp. ``vocab_parallel_embedding`` looks up the ids of
+every fsdp rank of its data index in its slab and sums the rows back to
+their owners; ``vocab_parallel_logits`` gives each rank its own rows over
+the whole vocab; ``vocab_parallel_cross_entropy`` keeps each chunk's fp32
+logits [rows, V/n], its log-softmax statistics all-reduced over the vocab
+group, and the head's gradient on the rank's slab. Where V does not divide
+by n the tensors are whole on every rank and the plain functions run on
+them.
 """
 
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -36,6 +50,14 @@ from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..ops.activations import gelu_exact
 from ..ops.norms import LayerNorm
 from ..ops.resize import resize_bilinear
+from ..parallel.distributed import (
+    ScatterRows,
+    SumOver,
+    VocabParallel,
+    all_gather_rows,
+    all_reduce,
+    reduce_scatter_rows,
+)
 from .config import CambrianConfig
 from .language.llama import (
     LlamaDecoderLayer,
@@ -148,6 +170,9 @@ class CambrianLM(nn.Module):
             head_dtype = torch.bfloat16 if c.lm_head_dtype == "bf16" else torch.float32
             self.lm_head = nn.Linear(c.hidden_size, c.vocab_size, bias=False,
                                      dtype=head_dtype, device=device)
+        # the vocab-parallel layout of the embedding and head (set by
+        # ``parallel.sharding.shard_model``); None: the plain path
+        self.vocab_layout: Optional[VocabParallel] = None
 
     # -- vision connector ---------------------------------------------------
 
@@ -235,14 +260,23 @@ class CambrianLM(nn.Module):
 
     def head(self) -> torch.Tensor:
         """The LM head weight [V, hidden]: ``lm_head.weight``, or the token
-        embeddings when tied."""
+        embeddings when tied (a vocab-parallel DTensor on a mesh)."""
         if self.cfg.tie_word_embeddings:
             return self.embed_tokens.weight
         return self.lm_head.weight
 
     def logits(self, hidden):
-        """fp32 logits (``head_logits``)."""
-        return head_logits(self.cfg, self.head(), hidden)
+        """fp32 logits (``head_logits``); on a mesh this rank's rows over
+        the whole vocab (``vocab_parallel_logits``)."""
+        if self.vocab_layout is None:
+            return head_logits(self.cfg, self.head(), hidden)
+        return vocab_parallel_logits(self.cfg, self.head(), hidden, self.vocab_layout)
+
+    def _embed(self, ids):
+        """Token embeddings; on a mesh by ``vocab_parallel_embedding``."""
+        if self.vocab_layout is None:
+            return self.embed_tokens(ids)
+        return vocab_parallel_embedding(ids, self.embed_tokens.weight, self.vocab_layout)
 
     def _image_start(self, input_ids) -> torch.Tensor:
         """Per-sample index of the image indicator [B]; cfg.image_position
@@ -255,7 +289,7 @@ class CambrianLM(nn.Module):
         """Embed text tokens (ids < 0 clamped to 0) and overwrite each
         sample's image block; Gemma then scales the whole sequence, image
         block included, by sqrt(hidden_size) in the embeddings' dtype."""
-        embeds = self.embed_tokens(input_ids.clamp(min=0))
+        embeds = self._embed(input_ids.clamp(min=0))
         if image_embeds is not None:
             b, s, width = embeds.shape
             idx = _block_index(im_start, image_embeds.shape[1], s)
@@ -287,11 +321,14 @@ class CambrianLM(nn.Module):
                         aux_features_list=None, aux_masks_list=None, count=None):
         """The shifted next-token CE of the training step, over sequence
         chunks under ``cfg.loss_chunk``: the summed token loss over
-        ``count`` valid tokens (default: this batch's). The head is read
-        inside this call, so a sharded model (``parallel/sharding.py``)
-        holds it gathered."""
+        ``count`` valid tokens (default: this batch's). On a mesh the head
+        stays the rank's vocab slab, which no FSDP2 unit gathers, and the
+        loss is ``vocab_parallel_cross_entropy``: this rank's rows' share."""
         args = (input_ids, attention_mask, position_ids, aux_features_list, aux_masks_list)
         chunk = self.cfg.loss_chunk
+        if self.vocab_layout is not None:
+            return vocab_parallel_cross_entropy(self.cfg, self._hidden(*args), labels,
+                                                self.head(), self.vocab_layout, chunk, count)
         if chunk:
             cfg = self.cfg
             return chunked_cross_entropy(self._hidden(*args), labels,
@@ -338,7 +375,7 @@ class CambrianLM(nn.Module):
         The new token's embedding is not scaled by Gemma's normaliser: the
         JAX package's ``decode_step`` applies it only in the prefill's
         splice, and the port keeps that (ROADMAP queue 3)."""
-        hidden = self.embed_tokens(token_ids)
+        hidden = self._embed(token_ids)
         hidden = self._decoder(hidden, make_decode_mask(cache_valid), position_ids,
                                cache, cache_index, None, None, None, inject=False)
         return self.logits(hidden)[:, 0], cache
@@ -464,3 +501,145 @@ def chunked_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
     next_labels = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_INDEX)], dim=1)
     return _ChunkedCrossEntropy.apply(hidden, next_labels, head, logits_fn, chunk,
                                       _normaliser(count, labels).to(hidden.device))
+
+
+# -- the vocab-parallel embedding, head and loss (a mesh) -------------------
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local slab (autograd reaches the DTensor), or ``t``."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def vocab_parallel_embedding(ids: torch.Tensor, weight: torch.Tensor,
+                             layout: VocabParallel) -> torch.Tensor:
+    """The embeddings of this rank's ids [B, S] from the vocab-parallel
+    ``weight``: the ids of every fsdp rank of the data index are gathered,
+    looked up in this rank's slab (others' rows zero), summed over fsdp back
+    to their owners' rows and over model. The backward mirrors it: the slab
+    gets its rows' gradient from every row of the data index (the train
+    step sums it over data). Exact: one slab holds each id."""
+    slab = _local(weight)
+    if not layout.split:
+        return F.embedding(ids, slab)
+    idx = all_gather_rows(ids, layout.fsdp_group) - layout.start
+    mine = (idx >= 0) & (idx < layout.rows)
+    rows = F.embedding(idx.clamp(0, layout.rows - 1), slab).masked_fill(~mine[..., None], 0)
+    return SumOver.apply(ScatterRows.apply(rows, layout.fsdp_group), layout.model_group)
+
+
+def vocab_parallel_logits(cfg: CambrianConfig, head: torch.Tensor, hidden: torch.Tensor,
+                          layout: VocabParallel) -> torch.Tensor:
+    """fp32 logits of this rank's rows ``hidden`` [B, ..., H] over the whole
+    vocab [B, ..., V] (serving: no gradient flows): the rows of every fsdp
+    rank of the data index times this rank's slab, then each row's slabs
+    sent to its owner (``VocabParallel.gather_vocab``). The products are
+    ``head_logits``' on the slab."""
+    slab = _local(head)
+    if not layout.split:
+        return head_logits(cfg, slab, hidden)
+    if torch.is_grad_enabled() and (hidden.requires_grad or slab.requires_grad):
+        raise NotImplementedError("vocab-parallel logits carry no gradient: train through "
+                                  "supervised_loss (vocab_parallel_cross_entropy)")
+    rows = all_gather_rows(hidden, layout.fsdp_group)
+    return layout.gather_vocab(head_logits(cfg, slab, rows))
+
+
+def _vocab_targets(labels: torch.Tensor, layout: VocabParallel):
+    """(index in the slab, whether the slab holds it) of each label."""
+    idx = labels - layout.start
+    return idx.clamp(0, layout.rows - 1), (idx >= 0) & (idx < layout.rows)
+
+
+def _vocab_nll(z: torch.Tensor, labels: torch.Tensor, layout: VocabParallel):
+    """(NLL of each row's label, 0 where ignored; log-sum-exp) of fp32
+    slab logits ``z`` [R, c, V/n], the max and then the sums of exp and of
+    the label's logit all-reduced over the vocab group."""
+    m = all_reduce(z.amax(-1), layout.vocab_group, dist.ReduceOp.MAX)
+    idx, mine = _vocab_targets(labels, layout)
+    target = z.gather(-1, idx[..., None])[..., 0].masked_fill(~mine, 0.0)
+    sums = all_reduce(torch.stack([(z - m[..., None]).exp().sum(-1), target]),
+                      layout.vocab_group)
+    lse = m + sums[0].log()
+    return torch.where(labels != IGNORE_INDEX, lse - sums[1], 0.0), lse
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """``_ChunkedCrossEntropy`` on a vocab slab. Per chunk: the rows of
+    every fsdp rank of the data index gathered, their fp32 logits on the
+    slab [rows, V/n], the log-softmax by all-reduces over the vocab group,
+    and this rank's own rows' NLL summed. Backward: each chunk's logits
+    recomputed, ``softmax - onehot`` on the slab; the head's gradient on
+    the slab from every gathered row, accumulated in fp32; the hidden rows'
+    gradient summed over fsdp back to their owners and over model. The
+    upstream gradient is taken as the same on every rank (the loss's
+    ``backward()``)."""
+
+    @staticmethod
+    def forward(ctx, hidden, next_labels, head, cfg, layout, chunk, count):
+        b = hidden.shape[0]
+        own = slice(layout.fsdp_index * b, (layout.fsdp_index + 1) * b)
+        labels = all_gather_rows(next_labels, layout.fsdp_group)
+        lse = torch.empty(labels.shape, dtype=torch.float32, device=hidden.device)
+        total = hidden.new_zeros((), dtype=torch.float32)
+        for i in range(0, hidden.shape[1], chunk):
+            rows = all_gather_rows(hidden[:, i:i + chunk], layout.fsdp_group)
+            z = head_logits(cfg, head, rows).float()
+            nll, lse[:, i:i + chunk] = _vocab_nll(z, labels[:, i:i + chunk], layout)
+            total = total + nll[own].sum()
+        ctx.save_for_backward(hidden, labels, lse, head, count)
+        ctx.cfg, ctx.layout, ctx.chunk = cfg, layout, chunk
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, labels, lse, head, count = ctx.saved_tensors
+        layout, chunk = ctx.layout, ctx.chunk
+        scale = g / count
+        need_head = ctx.needs_input_grad[2]
+        dhidden = torch.empty_like(hidden)
+        dhead = torch.zeros_like(head, dtype=torch.float32) if need_head else None
+        hd = head.detach().requires_grad_(need_head)
+        for i in range(0, hidden.shape[1], chunk):
+            lab = labels[:, i:i + chunk]
+            rows = all_gather_rows(hidden[:, i:i + chunk], layout.fsdp_group)
+            with torch.enable_grad():
+                # fp32 rows: the partial sums of dhidden cross ranks in fp32
+                hc = rows.float().requires_grad_(True)
+                z = head_logits(ctx.cfg, hd, hc).float()
+            idx, mine = _vocab_targets(lab, layout)
+            dz = torch.exp(z.detach() - lse[:, i:i + chunk, None])
+            dz.scatter_add_(-1, idx[..., None], -mine[..., None].to(dz.dtype))
+            dz *= (lab != IGNORE_INDEX)[..., None] * scale
+            grads = torch.autograd.grad(z, [hc, hd] if need_head else [hc], dz)
+            dh = reduce_scatter_rows(grads[0], layout.fsdp_group)
+            dhidden[:, i:i + chunk] = all_reduce(dh, layout.model_group).to(hidden.dtype)
+            if need_head:
+                dhead += grads[1].float()
+        dhead = dhead.to(head.dtype) if need_head else None
+        return dhidden, None, dhead, None, None, None, None
+
+
+def vocab_parallel_cross_entropy(cfg: CambrianConfig, hidden: torch.Tensor,
+                                 labels: torch.Tensor, head: torch.Tensor,
+                                 layout: VocabParallel, chunk: Optional[int],
+                                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This rank's share of the shifted next-token CE over the vocab-
+    parallel ``head``: its rows' summed token loss over ``count`` valid
+    tokens (default: these labels'), over sequence chunks of ``chunk``
+    tokens (the whole sequence when None). The shares of the (data, fsdp)
+    ranks sum to ``cross_entropy_loss``'s value, with another fp32
+    summation order; one chunk's [rows, V/n] fp32 logits exist at a time.
+    Where V does not divide by the vocab group the head is whole on the
+    rank and the plain functions run."""
+    slab = _local(head)
+    if not layout.split:
+        if chunk:
+            return chunked_cross_entropy(hidden, labels, lambda hd, hc: head_logits(cfg, hd, hc),
+                                         chunk, slab, count)
+        return cross_entropy_loss(head_logits(cfg, slab, hidden), labels, count)
+    b = labels.shape[0]
+    next_labels = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_INDEX)], dim=1)
+    return _VocabParallelCrossEntropy.apply(hidden, next_labels, slab, cfg, layout,
+                                            chunk or hidden.shape[1],
+                                            _normaliser(count, labels).to(hidden.device))

@@ -26,8 +26,13 @@ a Dense weight [out, in] takes the JAX kernel's [in, out] spec reversed.
   unit's trainable parameters, so a bf16 model's trainable fp32 norms,
   position tables and queries (or its bf16 Linears, where fp32 holds the
   unit) become units of their own (``fsdp_units``).
-- the token embedding and the LM head take FSDP only: the JAX package's
-  vocab-parallel embedding, head and loss are not ported.
+- the token embedding and the LM head (one tensor when tied) are in no
+  FSDP2 unit: each is a DTensor laid out as the JAX rule says, V split
+  over the (model, fsdp) ranks model-major and replicated over data
+  (``parallel.distributed.VocabParallel``), or whole on every rank where V
+  does not divide by model x fsdp. The model's lookup, head and loss then
+  run vocab-parallel (``models/cambrian.py``): no rank holds the whole
+  embedding, head, head gradient or whole-vocab logits of others' rows.
 - a quantized model (``load_8bit`` / ``load_4bit``) takes the same rules:
   the JAX ``QuantDense`` leaves (``kernel_q`` [K, N], ``kernel_q4`` [K/2,
   N], ``scale`` [N] or [K/group, N], the fp32 ``bias``) keep their names
@@ -45,7 +50,8 @@ a Dense weight [out, in] takes the JAX kernel's [in, out] spec reversed.
 
 Gradients are reduced as sums (divide factor 1): the train step divides the
 summed token loss by the valid tokens of the whole global batch
-(``train/train_step.py``). The model's methods called from outside
+(``train/train_step.py``), and sums the embedding's and the head's over
+data itself (``VocabParallel.sum_grad``). The model's methods called from outside
 ``forward`` (``hidden_states``, ``supervised_loss``, ``prefill``,
 ``decode_step``) are registered with ``register_fsdp_forward_method``, so
 FSDP2 gathers the parameters for them too.
@@ -60,6 +66,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 from torch import nn
 
+from .distributed import VocabParallel
 from .mesh import axis_sizes
 
 Spec = Tuple
@@ -284,12 +291,15 @@ def _walk(module: nn.Module, done: set):
             yield from _walk(child, done)
 
 
-def _direct_dtypes(module: nn.Module) -> set:
-    """The dtypes of the trainable parameters a module holds itself."""
-    return {p.dtype for p in module.parameters(recurse=False) if p.requires_grad}
+def _direct_dtypes(module: nn.Module, ignored: frozenset = frozenset()) -> set:
+    """The dtypes of the trainable parameters a module holds itself, those
+    in ``ignored`` (ids) left out."""
+    return {p.dtype for p in module.parameters(recurse=False)
+            if p.requires_grad and id(p) not in ignored}
 
 
-def _plan_unit(module: nn.Module, done: set, order: list) -> None:
+def _plan_unit(module: nn.Module, done: set, order: list,
+               ignored: frozenset = frozenset()) -> None:
     """Plan ``module`` as an FSDP2 unit, after the units it needs below it.
 
     FSDP2 wants one dtype among a unit's trainable parameters, and the port
@@ -297,8 +307,9 @@ def _plan_unit(module: nn.Module, done: set, order: list) -> None:
     tables and queries. So the unit takes the dtype of the parameters it
     holds itself (else the dtype of most of its trainable elements), and
     every module below it whose own trainable parameters are of another
-    dtype becomes a unit of its own, planned first."""
-    direct = _direct_dtypes(module)
+    dtype becomes a unit of its own, planned first. Parameters in
+    ``ignored`` (ids) count nowhere."""
+    direct = _direct_dtypes(module, ignored)
     if len(direct) > 1:
         raise ValueError(f"{type(module).__name__} holds trainable parameters of "
                          f"dtypes {direct}: FSDP2 cannot shard it as one unit")
@@ -308,35 +319,38 @@ def _plan_unit(module: nn.Module, done: set, order: list) -> None:
         sizes: dict = {}
         for sub in _walk(module, done):
             for p in sub.parameters(recurse=False):
-                if p.requires_grad:
+                if p.requires_grad and id(p) not in ignored:
                     sizes[p.dtype] = sizes.get(p.dtype, 0) + p.numel()
         home = max(sizes, key=sizes.get) if sizes else None
     if home is not None:
         for child in module.children():
-            _split(child, home, done, order)
+            _split(child, home, done, order, ignored)
     order.append(module)
     done.add(id(module))
 
 
-def _split(module: nn.Module, home, done: set, order: list) -> None:
+def _split(module: nn.Module, home, done: set, order: list, ignored: frozenset) -> None:
     if id(module) in done:
         return
-    direct = _direct_dtypes(module)
+    direct = _direct_dtypes(module, ignored)
     if direct and direct != {home}:
-        _plan_unit(module, done, order)
+        _plan_unit(module, done, order, ignored)
         return
     for child in module.children():
-        _split(child, home, done, order)
+        _split(child, home, done, order, ignored)
 
 
-def fsdp_units(model: nn.Module, towers: Sequence[nn.Module] = ()) -> list:
+def fsdp_units(model: nn.Module, towers: Sequence[nn.Module] = (),
+               ignored: Sequence[nn.Parameter] = ()) -> list:
     """The modules ``shard_model`` wraps with ``fully_shard``, inner ones
     first: every tower block and tower, every decoder layer and SVA
     sampler, the root, and below each the modules that keep its trainable
-    parameters of one dtype (``_plan_unit``). Reads ``requires_grad``: plan
-    after the freeze."""
+    parameters of one dtype (``_plan_unit``); the ``ignored`` parameters
+    (the vocab-parallel embedding and head) count in no unit. Reads
+    ``requires_grad``: plan after the freeze."""
     done: set = set()
     order: list = []
+    skip = frozenset(id(p) for p in ignored)
     for tower in towers:
         for block in _tower_blocks(tower):
             _plan_unit(block, done, order)
@@ -344,7 +358,7 @@ def fsdp_units(model: nn.Module, towers: Sequence[nn.Module] = ()) -> list:
     for name, child in model.named_children():
         if name.startswith(("layers_", "vision_sampler_")):
             _plan_unit(child, done, order)
-    _plan_unit(model, done, order)
+    _plan_unit(model, done, order, skip)
     return order
 
 
@@ -356,6 +370,27 @@ def _tower_blocks(tower: nn.Module) -> Sequence[nn.Module]:
 
 
 FORWARD_METHODS = ("hidden_states", "supervised_loss", "prefill", "decode_step")
+
+VOCAB_PARAMS = ("embed_tokens", "lm_head")
+
+
+def vocab_params(model: nn.Module) -> list:
+    """The token embedding's and the LM head's weights (one when tied)."""
+    return [getattr(model, name).weight for name in VOCAB_PARAMS if hasattr(model, name)]
+
+
+def _distribute_vocab(model: nn.Module, mesh) -> VocabParallel:
+    """Replace the embedding's and the head's weights by DTensors of the
+    vocab-parallel layout (``requires_grad`` kept); the model's lookup,
+    head and loss read ``model.vocab_layout``."""
+    layout = VocabParallel(mesh, model.cfg.vocab_size)
+    for name in VOCAB_PARAMS:
+        module = getattr(model, name, None)
+        if module is not None:
+            p = module.weight
+            module.weight = nn.Parameter(layout.distribute(p), requires_grad=p.requires_grad)
+    model.vocab_layout = layout
+    return layout
 
 
 def shard_model(model: nn.Module, towers: Sequence[nn.Module] = (), mesh=None) -> Optional[list]:
@@ -377,11 +412,30 @@ def shard_model(model: nn.Module, towers: Sequence[nn.Module] = (), mesh=None) -
     if plan:
         _apply_tp(model, plan, mesh)
     model.tp_plan = plan
+    _distribute_vocab(model, mesh)
+    ignored = set(vocab_params(model))
     dp_mesh = mesh["data", "fsdp"]
-    units = [fully_shard(m, mesh=dp_mesh) for m in fsdp_units(model, towers)]
+    units = [fully_shard(m, mesh=dp_mesh, ignored_params=ignored)
+             for m in fsdp_units(model, towers, ignored)]
     for unit in units:
         unit.set_gradient_divide_factor(1.0)
         unit.set_force_sum_reduction_for_comms(True)    # gloo has no pre-scaled sum
     for method in FORWARD_METHODS:
         register_fsdp_forward_method(model, method)
     return units
+
+
+def fsdp_unit_params(model: nn.Module) -> list:
+    """The parameters every FSDP2 unit under ``model`` manages (gathers,
+    reshards, reduces): to check that the vocab-parallel ones are in none."""
+    from torch.distributed.fsdp import FSDPModule
+
+    out = []
+    for module in model.modules():
+        if isinstance(module, FSDPModule):
+            state = module._get_fsdp_state()
+            groups = getattr(state, "_fsdp_param_groups", None)
+            if groups is None:                  # older PyTorch: one group a unit
+                groups = [g for g in [state._fsdp_param_group] if g is not None]
+            out.extend(fp.sharded_param for g in groups for fp in g.fsdp_params)
+    return out

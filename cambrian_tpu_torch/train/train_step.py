@@ -23,7 +23,10 @@ global batch. The loss's normaliser is global, as in the JAX package
 token loss by the valid tokens of the whole batch (the count summed over
 data and fsdp), FSDP2 sums the gradients (divide factor 1), and the logged
 loss is the sum of the ranks' shares. A mean of per-rank means would differ
-whenever ranks hold different counts. ``batch_shardings`` and
+whenever ranks hold different counts. The vocab-parallel embedding and head
+are in no FSDP2 unit: each rank's gradient of its slab is summed here over
+data (and over fsdp too where V does not divide and the tensor is whole on
+every rank: ``VocabParallel.sum_grad``). ``batch_shardings`` and
 ``state_shardings`` give the layouts, as JAX's do.
 """
 
@@ -36,7 +39,7 @@ from torch import nn
 from ..models.cambrian import CambrianLM, valid_token_count
 from ..parallel.distributed import dp_all_reduce
 from ..parallel.mesh import axis_sizes
-from ..parallel.sharding import batch_sharding, spec_of
+from ..parallel.sharding import batch_sharding, spec_of, vocab_params
 from .lora import Adapters, flat_adapters, lora_layout, lora_merged, model_partial
 from .optimizer import (
     GroupedAdamW,
@@ -142,6 +145,10 @@ def make_train_step(model: CambrianLM, towers: Optional[Sequence[nn.Module]] = N
             p.grad = None
         loss = _supervised_loss(model, batch, encode(batch.get("images")), mesh)
         loss.backward()
+        if model.vocab_layout is not None:
+            for p in vocab_params(model):
+                if p.grad is not None:
+                    model.vocab_layout.sum_grad(p.grad)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         grad_norm = global_norm(grads.values())

@@ -333,7 +333,14 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    spin kernel against its plain version (phase 3's tolerances) and
    ``torch.matmul`` on the dequantized shard, with its bound and its route
    by counter: the only way one card runs the shapes tensor parallelism
-   gives the kernels. The group is destroyed at the end.
+   gives the kernels; (g) one rank's share of the vocab-parallel loss,
+   forward and backward, at Cambrian-8B's fp32 head and Cambrian-Gemma-7B's
+   tied bf16 one: a slab of V/n rows, n = 1, 2, 4, 8, with the 8 n x 2048
+   rows a chunk of 128 tokens gathers on the mesh (1, n, 1), timed by CUDA
+   events (the median of 5) with its peak memory, and held to the plain
+   chunked loss on the same inputs. (a)-(e) run the embedding, the head and
+   the loss vocab-parallel (``check_vocab_layout``: DTensors in no FSDP2
+   unit). The group is destroyed at the end.
 
 Phases 9, 15, 16 and 18 write their training checkpoints (DCP: every
 parameter, or the LoRA adapters, with the optimizer state) under
@@ -2600,6 +2607,8 @@ def train_stage1_phase(torch, fa, quant, k2_record, cfg, label, layers, steps=TR
     torch.cuda.synchronize()
     launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
+    if trainer.mesh is not None:
+        check_vocab_layout(lm, f"{label} train")
 
     step_ms = [s * 1e3 for s in trainer.step_seconds]
     warm_ms = float(np.mean(step_ms[1:]))
@@ -4433,6 +4442,18 @@ def free_port():
         return sock.getsockname()[1]
 
 
+def check_vocab_layout(lm, label):
+    """The embedding and head of a model on the mesh: vocab-parallel
+    DTensors in no FSDP2 unit (the units manage the rest)."""
+    from cambrian_tpu_torch.parallel.sharding import fsdp_unit_params, vocab_params
+
+    managed = {id(p) for p in fsdp_unit_params(lm)}
+    params = vocab_params(lm)
+    check(lm.vocab_layout is not None and managed and params
+          and all(hasattr(p, "placements") and id(p) not in managed for p in params),
+          f"{label}: the embedding or the head is in an FSDP2 unit, or not vocab-parallel")
+
+
 def sharded_tiny_phase(torch, fa, quant, mesh):
     """Phase 18 (a): phase 8's tiny Cambrian, weights and batches through
     the sharded trainer (fp32, TF32 off): 3 stage-1 steps against the plain
@@ -4501,6 +4522,7 @@ def sharded_tiny_phase(torch, fa, quant, mesh):
     model, trainer, state, step = sharded_trainer()
     check(all(hasattr(p, "placements") for p in model.lm.parameters()),
           "phase 18 (a): the model's parameters are not DTensors")
+    check_vocab_layout(model.lm, "phase 18 (a)")
     zero_counts(counters)
     losses = []
     for b in batches[:TRAIN_STEPS]:
@@ -4551,6 +4573,8 @@ def sharded_tiny_phase(torch, fa, quant, mesh):
         _, loaded, _, _ = load_pretrained_model(hf_dir, device="cuda", dtype=torch.float32)
         engine = GenerationEngine(loaded.lm, loaded.towers, max_len=256,
                                   cache_dtype=torch.float32, mesh=mesh if sharded else None)
+        if sharded:
+            check_vocab_layout(loaded.lm, "phase 18 (a) serving")
         zero_counts(counters)
         tokens[sharded] = engine.generate(
             ids, mask, pos, config=GenerationConfig(max_new_tokens=8, temperature=0.0))
@@ -4593,6 +4617,7 @@ def sharded_serve_phase(torch, fa, quant, prompts, mesh, phase5):
                                     model.engine.cache_dtype, mesh=mesh)
     check(all(hasattr(p, "placements") for p in model.lm.parameters()),
           "phase 18 (c): the model's parameters are not DTensors")
+    check_vocab_layout(model.lm, "phase 18 (c)")
     counters = all_counters(fa, quant)
     zero_counts(counters)                    # the sharded serving path's count starts here
     requests = [serve_request(torch, model, counters, cfg, r, pr) for r, pr in enumerate(prompts)]
@@ -4643,6 +4668,7 @@ def sharded_quant_phase(torch, fa, quant, prompts, mesh, phase6):
               and hasattr(model.lm.layers_0.input_layernorm.weight, "placements"),
               f"phase 18 (d) {q}: the int8 weights are not plain buffers beside FSDP2's "
               f"parameters")
+        check_vocab_layout(model.lm, f"phase 18 (d) {q}")
         counters = all_counters(fa, quant)
         fns = {name: getattr(quant, name) for name in QUANT_KERNELS}
         for fn in fns.values():
@@ -4758,6 +4784,7 @@ def sharded_lora_phase(torch, fa, quant, phase16):
               f"phase 18 (e) {label}: a non-finite loss or a zero grad_norm")
         leaf = next(iter(trainer.adapters.values()))["b"]
         check(hasattr(leaf, "placements"), f"phase 18 (e) {label}: the adapters are not DTensors")
+        check_vocab_layout(model.lm, f"phase 18 (e) {label}")
         runs.append(dict(history=history, launches=launches,
                          step_ms=[s * 1e3 for s in trainer.step_seconds],
                          peak_bytes=torch.cuda.max_memory_allocated(),
@@ -4843,6 +4870,111 @@ def shard_kernel_phase(torch, quant, prompt_len):
     return out
 
 
+# phase 18 (g): one rank's share of the vocab-parallel loss at Cambrian-8B's
+# and Cambrian-Gemma-7B's heads: the ranks the vocab splits over, n = model x
+# fsdp; a rank's micro-batch (8 x 2048 tokens), whose chunks of 128 tokens
+# gather the rows of the n fsdp ranks of the mesh (1, n, 1)
+VOCAB_SHARES = (1, 2, 4, 8)
+VOCAB_ROWS, VOCAB_SEQ, VOCAB_CHUNK, VOCAB_TIMED = 8, 2048, 128, 5
+
+
+def vocab_share_phase(torch, mesh):
+    """Phase 18 (g): the vocab-parallel loss, forward and backward, on one
+    rank's share of a mesh that the card cannot hold: its slab of V/n rows
+    of the head (trainable, as in stage 2) and the 8 n x 2048 rows of the n
+    fsdp ranks (a chunk's logits [1024 n, V/n]: the arithmetic of the whole
+    head on 8 x 2048 rows, n = 1). On the card's group of one rank the
+    collectives move nothing, so the slab is the whole vocab of this run:
+    a CE over its V/n classes. Each share timed by CUDA events (the median
+    of ``VOCAB_TIMED`` calls), its peak memory above its inputs, and the
+    max abs difference of the loss, ``dhidden`` and ``dhead`` against the
+    plain ``chunked_cross_entropy`` on the same inputs."""
+    from cambrian_tpu_torch import cambrian_8b
+    from cambrian_tpu_torch.constants import IGNORE_INDEX
+    from cambrian_tpu_torch.models.cambrian import (
+        chunked_cross_entropy,
+        head_logits,
+        vocab_parallel_cross_entropy,
+    )
+    from cambrian_tpu_torch.models.config import CAMBRIAN_SVA, GEMMA_7B, CambrianConfig
+    from cambrian_tpu_torch.parallel.distributed import VocabParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # the training path's fp32 head
+    dev = torch.device("cuda")
+    configs = {"8B": cambrian_8b(), "Gemma-7B": CambrianConfig(**{**GEMMA_7B, **CAMBRIAN_SVA})}
+    out = []
+    for name, cfg in configs.items():
+        tied = cfg.tie_word_embeddings
+        # the head as the model stores it: the untied head fp32, a tied one
+        # the bf16 embedding (random_state_dict's dtypes)
+        head_dtype = torch.bfloat16 if tied else torch.float32
+        for n in VOCAB_SHARES:
+            g = torch.Generator(device=dev).manual_seed(SEED + n)
+            rows = cfg.vocab_size // n
+            slab = (0.02 * torch.randn(rows, cfg.hidden_size, generator=g, device=dev)
+                    ).to(head_dtype).requires_grad_(True)
+            hidden = torch.randn(VOCAB_ROWS * n, VOCAB_SEQ, cfg.hidden_size, generator=g,
+                                 device=dev).to(torch.bfloat16).requires_grad_(True)
+            labels = torch.randint(0, rows, hidden.shape[:2], generator=g, device=dev)
+            labels[:, :30] = IGNORE_INDEX
+            count = (labels[:, 1:] != IGNORE_INDEX).sum()
+            layout = VocabParallel(mesh, rows)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+            def run(fn):
+                hidden.grad = slab.grad = None
+                loss = fn()
+                loss.backward()
+                return loss.detach(), hidden.grad, slab.grad
+
+            def share():
+                return vocab_parallel_cross_entropy(cfg, hidden, labels, slab, layout,
+                                                    VOCAB_CHUNK, count)
+
+            events, first = [], None
+            for i in range(VOCAB_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = run(share)
+                end.record()
+                events.append((start, end))
+                if i == 0:
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    first = tuple(t.clone() for t in got)
+            torch.cuda.synchronize()
+            ms = float(np.median([s.elapsed_time(e) for s, e in events]))
+            plain = run(lambda: chunked_cross_entropy(
+                hidden, labels, lambda hd, hc: head_logits(cfg, hd, hc), VOCAB_CHUNK, slab,
+                count))
+            errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(first, plain)]
+            rec = dict(head=name, vocab=cfg.vocab_size, hidden=cfg.hidden_size, tied=tied, n=n,
+                       slab_rows=rows, rows=VOCAB_ROWS * n * VOCAB_SEQ, ms=ms, peak_bytes=peak,
+                       loss=float(first[0]), loss_abs_err=errs[0], dhidden_abs_err=errs[1],
+                       dhead_abs_err=errs[2])
+            out.append(rec)
+            print(f"phase 18 (g) {name} head ({cfg.vocab_size} x {cfg.hidden_size}, "
+                  f"{'tied bf16' if tied else 'fp32'}) n = {n}: slab {rows} rows, "
+                  f"{rec['rows']} rows in chunks of {VOCAB_CHUNK}: {ms:.1f} ms (median of "
+                  f"{VOCAB_TIMED}), peak {peak / 2**30:.2f} GiB above the inputs; against "
+                  f"the plain chunked CE max abs diff loss {errs[0]:.3e} dhidden "
+                  f"{errs[1]:.3e} dhead {errs[2]:.3e}", flush=True)
+            # the loss to fp32 sums; the gradients to one bf16 step at their
+            # largest (dhidden is bf16, and so is a tied head's gradient)
+            check(all(np.isfinite(e) for e in errs) and errs[0] <= 1e-4 * abs(float(plain[0]))
+                  and errs[1] <= 2 ** -7 * float(plain[1].float().abs().max())
+                  and errs[2] <= 2 ** -7 * float(plain[2].float().abs().max()),
+                  f"phase 18 (g) {name} n = {n}: the vocab-parallel loss differs from the "
+                  f"plain one ({errs})")
+            del slab, hidden, labels, first, plain, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record, phase6, phase16):
     """Phase 18: the sharded path on the one card, world size 1 over NCCL,
     the (1,1,1) mesh: (a) the tiny sharded trainer, its checkpoint,
@@ -4850,9 +4982,11 @@ def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record, phase6, 
     ``CambrianTrainer.train()`` on the mesh; (c) Cambrian-8B served sharded;
     (d) Cambrian-8B int8 and int4 served sharded (phase 6's tokens); (e)
     Cambrian-8B LoRA through ``CambrianTrainer.train()`` on the mesh, and
-    resumed; (f) K3/K4/K4b alone at the local shapes of model = 2 and 4.
-    Runs after every other phase; the process group is destroyed at its
-    end."""
+    resumed; (f) K3/K4/K4b alone at the local shapes of model = 2 and 4;
+    (g) one rank's share of the vocab-parallel loss at 8B's and Gemma-7B's
+    heads. (a)-(e) run the embedding, head and loss vocab-parallel (the
+    group's one rank holds the whole vocab). Runs after every other phase;
+    the process group is destroyed at its end."""
     import torch.distributed as dist
 
     from cambrian_tpu_torch import cambrian_8b
@@ -4889,10 +5023,13 @@ def sharded_phase(torch, fa, quant, prompts, phase5, phase9, k2_record, phase6, 
         t0 = time.perf_counter()
         shards = shard_kernel_phase(torch, quant, len(prompts[0]["mask"]))
         print(f"phase 18 (f): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        vocab = vocab_share_phase(torch, mesh)
+        print(f"phase 18 (g): {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
     return dict(tiny=tiny, train=train, serve=serve, quantized=quantized, lora=lora,
-                shards=shards)
+                shards=shards, vocab=vocab)
 
 
 def shard_rows(quant_launches, shards, prompt_len):

@@ -1,5 +1,6 @@
 """Multi-process helpers of the port's sharded tests
-(tests/test_torch_parallel_train.py, tests/test_torch_parallel_infer.py).
+(tests/test_torch_parallel_{train,infer,lora,quant}.py,
+tests/test_torch_vocab_parallel.py).
 
 ``start_ranks`` starts one spawned process a rank on the CPU (gloo, a
 ``file://`` rendezvous under the test's temporary directory, one thread a
@@ -16,6 +17,8 @@ import traceback
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 def start_ranks(target, world: int, tmp_path, payload):
@@ -408,4 +411,186 @@ def quant_rank(rank, world, payload):
             local={k: tuple(full(t).shape) for k, t in tensors.items()},
             fsdp={k: spec_of(t) for k, t in tensors.items()},
             norm=spec_of(layer.input_layernorm.weight))
+    return out
+
+
+def _vocab_layout(lm):
+    """The embedding's and head's layout on this rank: spec, global and
+    local shapes, the slab's place, whether an FSDP2 unit manages it, and
+    how many parameters the units manage."""
+    from cambrian_tpu_torch.parallel.sharding import fsdp_unit_params, spec_of, vocab_params
+
+    managed = {id(p) for p in fsdp_unit_params(lm)}
+    layout = lm.vocab_layout
+    out = {"n_managed": len(managed), "split": layout.split, "start": layout.start,
+           "rows": layout.rows}
+    names = {id(p): n for n, p in lm.named_parameters()}
+    for p in vocab_params(lm):
+        out[names[id(p)]] = dict(spec=spec_of(p), shape=tuple(p.shape),
+                                 local=tuple(p._local_tensor.shape), in_unit=id(p) in managed,
+                                 slab=p._local_tensor.detach().clone())
+    return out
+
+
+class _WholeVocabWatch(TorchDispatchMode):
+    """Records every op whose output holds (on this rank: a DTensor's local
+    part) V x H elements, or a last dimension of V in two or more
+    dimensions."""
+
+    def __init__(self, vocab, hidden):
+        super().__init__()
+        self.vocab, self.hidden = vocab, hidden
+        self.seen, self.ops = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                t = getattr(t, "_local_tensor", t)
+                if t.numel() == self.vocab * self.hidden or (
+                        t.dim() >= 2 and t.shape[-1] == self.vocab):
+                    self.seen.append((str(func), tuple(t.shape)))
+        return out
+
+
+def _vocab_step(payload, key, dims, out_dir, watch=False):
+    """One stage-2 step of the payload's model ``key`` on ``dims`` through
+    the trainer (under ``_WholeVocabWatch`` when asked): (trainer, state,
+    {loss, grad_norm, the whole gradients the step handed the optimizer of
+    the embedding and head}, the watch)."""
+    from cambrian_tpu_torch.parallel.distributed import put_global_batch
+
+    case = payload[key]
+    lm, towers = build_model(case)
+    trainer = _trainer(lm, towers, payload, dims, 2, out_dir)
+    state, step = trainer.prepare()
+    batch = put_global_batch(case["batches"][0], trainer.mesh, "cpu")
+    grads = {}
+    optimizer_step = state.optimizer.step
+
+    def capture(g):     # the references: gathered after the step, outside the watch
+        grads.update({n: t for n, t in g.items()
+                      if n.split(".")[0] in ("embed_tokens", "lm_head")})
+        return optimizer_step(g)
+
+    state.optimizer.step = capture
+    mode = None
+    if watch:
+        mode = _WholeVocabWatch(lm.cfg.vocab_size, lm.cfg.hidden_size)
+        with mode:
+            state, metrics = step(state, batch)
+    else:
+        state, metrics = step(state, batch)
+    state.optimizer.step = optimizer_step
+    return trainer, state, dict(loss=float(metrics["loss"]),
+                                grad_norm=float(metrics["grad_norm"]),
+                                grads={n: full(t) for n, t in grads.items()}), mode
+
+
+def _restored(payload, key, dims, ckpt_root, saved):
+    """The checkpoint under ``ckpt_root`` restored under ``dims`` into a
+    model of other weights: the names of parameters and optimizer leaves
+    that differ from ``saved``, and the embedding's layout there."""
+    lm, towers = build_model(payload[key])
+    with torch.no_grad():
+        for p in lm.parameters():
+            p.mul_(0.5)
+    trainer = _trainer(lm, towers, payload, dims, 2, ckpt_root)
+    state, _ = trainer.prepare()
+    step = trainer._restore_checkpoint(state)
+    params = {n: full(p) for n, p in lm.named_parameters()}
+    optimizer = _optimizer_leaves(state)
+    return dict(step=step, layout=_vocab_layout(lm),
+                params=[n for n, t in saved["params"].items() if not torch.equal(params[n], t)],
+                optimizer=[n for n, t in saved["optimizer"].items()
+                           if not torch.equal(optimizer[n], t)],
+                n_params=len(params), n_optimizer=len(optimizer))
+
+
+def vocab_rank(rank, world, payload):
+    """The vocab-parallel embedding, head and loss on four ranks: the
+    layout on each mesh of the payload (V = 512 and the 515 that does not
+    divide); the loss alone on each case's inputs (this rank's rows and
+    slab); one stage-2 step on (1,2,2) of the V = 520 model under
+    ``_WholeVocabWatch``, saved and restored under (2,2,1); the V = 515
+    model's step, saved and restored under (4,1,1); a tied model's step;
+    greedy tokens of the sharded engine, a planted tie among them."""
+    from torch import nn
+
+    from cambrian_tpu_torch.infer.engine import GenerationConfig, GenerationEngine
+    from cambrian_tpu_torch.models.cambrian import vocab_parallel_cross_entropy
+    from cambrian_tpu_torch.models.config import CambrianConfig
+    from cambrian_tpu_torch.parallel.distributed import (
+        VocabParallel,
+        dp_all_reduce,
+        dp_coordinate,
+    )
+    from cambrian_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from cambrian_tpu_torch.parallel.sharding import shard_model
+
+    out = {"layout": {}, "loss": {}, "serve": {}}
+    meshes = {}
+
+    def mesh_of(dims):
+        if dims not in meshes:
+            meshes[dims] = create_mesh(MeshConfig(*dims), "cpu")
+        return meshes[dims]
+
+    for key in ("v512", "v515"):
+        for dims in payload["layout_meshes"]:
+            lm, towers = build_model(payload[key])
+            shard_model(lm, towers, mesh_of(dims))
+            out["layout"][(key, dims)] = _vocab_layout(lm)
+
+    for name, case in payload["loss"].items():
+        cfg = CambrianConfig.from_dict(case["cfg"])
+        mesh = mesh_of(case["mesh"])
+        layout = VocabParallel(mesh, cfg.vocab_size)
+        head = nn.Parameter(layout.distribute(torch.from_numpy(case["head"])))
+        index, size = dp_coordinate(mesh)
+        n = case["hidden"].shape[0] // size
+        rows = slice(index * n, (index + 1) * n)
+        hidden = torch.from_numpy(case["hidden"][rows]).requires_grad_(True)
+        loss = vocab_parallel_cross_entropy(cfg, hidden, torch.from_numpy(case["labels"][rows]),
+                                            head, layout, case["chunk"],
+                                            torch.tensor(case["count"]))
+        loss.backward()
+        layout.sum_grad(head.grad)
+        out["loss"][name] = dict(loss=float(dp_all_reduce(loss.detach().clone(), mesh)),
+                                 rows=(rows.start, rows.stop), dhidden=hidden.grad,
+                                 start=layout.start, dhead=head.grad._local_tensor.clone())
+
+    root = payload["out_dir"]
+
+    def saved(trainer, state):
+        trainer._save_checkpoint(state, step=1)
+        return dict(params={n: full(p) for n, p in trainer.model.named_parameters()},
+                    optimizer=_optimizer_leaves(state))
+
+    trainer, state, out["step_520"], watch = _vocab_step(
+        payload, "v520", (1, 2, 2), os.path.join(root, "v520"), watch=True)
+    out["watch"] = dict(seen=watch.seen, ops=watch.ops)
+    out["restored_520"] = _restored(payload, "v520", (2, 2, 1), os.path.join(root, "v520"),
+                                    saved(trainer, state))
+    trainer, state, out["step_515"], _ = _vocab_step(payload, "v515", (1, 2, 2),
+                                                     os.path.join(root, "v515"))
+    out["restored_515"] = _restored(payload, "v515", (4, 1, 1), os.path.join(root, "v515"),
+                                    saved(trainer, state))
+    out["step_tied"] = _vocab_step(payload, "vtied", (1, 2, 2), os.path.join(root, "vtied"))[2]
+
+    for name, case in payload["serve"].items():
+        lm, towers = build_model(payload[case["model"]])
+        engine = GenerationEngine(lm, towers, max_len=64, cache_dtype=torch.float32,
+                                  mesh=mesh_of(case["mesh"]))
+        ids, mask, pos = case["prompt"]
+        gcfg = GenerationConfig(max_new_tokens=case["new_tokens"], temperature=0.0)
+        tokens = engine.generate(ids, mask, pos, None, None, gcfg)
+        first = engine.last_next_logits.detach().clone()
+        stream = None
+        for stream in engine.generate_stream(ids, mask, pos, None, None, gcfg):
+            pass
+        out["serve"][name] = dict(tokens=np.asarray(tokens), stream=np.asarray(stream),
+                                  first_logits=first,
+                                  rows=engine._local_rows(np.asarray(ids).shape[0]))
     return out
